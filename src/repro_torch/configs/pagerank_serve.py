@@ -1,0 +1,108 @@
+"""pagerank-serve — the online PPR query service as a config (port of
+`repro.configs.pagerank_serve`).
+
+`PPRServeConfig`, `full_config`, `smoke_config` and `serve_config` are
+copies of the reference's; `make_service` builds the port's registry and
+service on a device (None = cuda). Knobs of paths not ported yet are kept
+so the configs stay identical: the engine modes "tuned", "hub-tail" and
+"sharded-*", `scheduler="deadline"` and `async_dispatch=True` raise
+NotImplementedError when the service is built; the update, tuning,
+ingestion-chunk, mesh and observability knobs are carried and have no
+effect until their slice.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+from repro_torch.graph import generators
+
+NAME = "pagerank-serve"
+FAMILY = "pagerank"
+
+
+@dataclass(frozen=True)
+class PPRServeConfig:
+    # (registry name, generators.PAPER_DATASETS key, scale)
+    graphs: tuple[tuple[str, str, float], ...]
+    c: float = 0.85
+    tol: float = 1e-4
+    max_batch: int = 32
+    cache_capacity: int = 4096
+    max_top_k: int = 16
+    # solve-engine format: "auto", "coo", "block_ell", "fused" (and the
+    # reference's "tuned", "hub-tail", "sharded-1d", "sharded-2d", which
+    # raise until ported)
+    engine: str = "auto"
+    tune_cache: str | None = None
+    tune_budget_s: float = 2.0
+    tune_require_cached: bool = False
+    # packed storage dtype for COO edge weights ("bfloat16"); None = f32
+    weight_dtype: str | None = None
+    ingest_chunk_edges: int | None = None
+    mesh_grid: tuple[int, int] | None = None
+    partition_lane: int = 128
+    # residual-controlled ticks (the Formula 8 round count stays the cap)
+    adaptive: bool = True
+    adaptive_chunk: int | None = None
+    update_mode: str = "incremental"
+    invalidation_radius: int | None = 2
+    refresh_batch: int = 8
+    refresh_rounds: int = 8
+    metrics_detail: bool = True
+    scheduler: str = "fifo"
+    # tenant classes as (name, priority, deadline_s, max_depth) rows
+    tenants: tuple[tuple[str, int, float | None, int | None], ...] = ()
+    default_deadline_s: float | None = None
+    admission_depth: int | None = None
+    slack_margin_s: float = 0.0
+    async_dispatch: bool = False
+
+
+def full_config() -> PPRServeConfig:
+    """Production-shaped point: two warm graphs, 128-wide micro-batches."""
+    return PPRServeConfig(
+        graphs=(("naca", "NACA0015", 1.0), ("kmer", "kmer-V2", 1.0)),
+        max_batch=128, cache_capacity=65536, max_top_k=32)
+
+
+def smoke_config() -> PPRServeConfig:
+    return PPRServeConfig(graphs=(("mesh", "NACA0015", 0.12),),
+                          max_batch=8, cache_capacity=256, max_top_k=8)
+
+
+def serve_config(smoke: bool = False) -> PPRServeConfig:
+    return smoke_config() if smoke else full_config()
+
+
+def make_service(cfg: PPRServeConfig, device=None):
+    """Registry with every configured graph warm + the service over it, on
+    `device` (None = cuda; raises without a GPU)."""
+    from repro_torch.serve.graph_registry import GraphRegistry
+    from repro_torch.serve.pagerank_service import (PageRankService,
+                                                    check_ported)
+    from repro_torch.serve.scheduler import TenantSpec
+    check_ported(cfg.scheduler, cfg.async_dispatch)   # before any build
+    reg = GraphRegistry(device=device, engine=cfg.engine,
+                        batch_hint=cfg.max_batch,
+                        weight_dtype=cfg.weight_dtype)
+    for name, dataset, scale in cfg.graphs:
+        reg.register(name, generators.paper_dataset(dataset, scale))
+    tenants = [TenantSpec(name=n, priority=p,
+                          deadline_s=math.inf if d is None else float(d),
+                          max_depth=md)
+               for n, p, d, md in cfg.tenants]
+    svc = PageRankService(reg, max_batch=cfg.max_batch,
+                          cache_capacity=cfg.cache_capacity,
+                          max_top_k=cfg.max_top_k,
+                          adaptive=cfg.adaptive,
+                          adaptive_chunk=cfg.adaptive_chunk,
+                          invalidation_radius=cfg.invalidation_radius,
+                          refresh_batch=cfg.refresh_batch,
+                          refresh_rounds=cfg.refresh_rounds,
+                          scheduler=cfg.scheduler, tenants=tenants,
+                          default_deadline_s=cfg.default_deadline_s,
+                          admission_depth=cfg.admission_depth,
+                          async_dispatch=cfg.async_dispatch)
+    reg.schedule(cfg.c, cfg.tol)  # precompute the coefficient vector
+    return svc
