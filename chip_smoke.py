@@ -21,7 +21,17 @@ package. Phases, each of which must pass:
      that tiling; the kernel solve of the tick's personalization matrix vs
      the same solve through the plain versions (L1 <= 1e-5 per column);
      CUDA-event times of the tick and of each kernel beside its bound, its
-     plain version and a library yardstick.
+     plain version and a library yardstick;
+  5. slice C: DLRM-RM2 at `full_config()` (8.64 GB table on the card):
+     embedding_bag vs plain (bitwise at bag 1, also on rows >= 2^25 where
+     32-bit offsets would fail; rtol/atol 1e-5 for weighted bags of 4 and
+     26 at D = 64 and 13); serve_step over 20 serve_p99 batches, 3
+     serve_bulk batches and one power-law serve_bulk batch, and
+     retrieval_step at retrieval_cand; probabilities checked against a
+     float64 numpy forward and the top-100 against a float64 argsort;
+     CUDA-event times, the kernel at the serve_bulk shape beside its bound,
+     its plain version and F.embedding_bag, a profile of one serve_bulk
+     step and the peak device memory.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -78,8 +88,10 @@ def reset_counts():
     from repro_torch.core import engine
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.cheb_step import ops as cheb_ops
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
     bsr_ops.reset_launches()
     cheb_ops.reset_launches()
+    eb_ops.reset_launches()
     engine.reset_apply_counts()
 
 
@@ -87,7 +99,9 @@ def read_counts() -> dict:
     from repro_torch.core import engine
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.cheb_step import ops as cheb_ops
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
     return {"bsr_spmm": bsr_ops.launches(), "cheb_step": cheb_ops.launches(),
+            "embedding_bag": eb_ops.launches(),
             "applies": engine.apply_counts()}
 
 
@@ -441,28 +455,255 @@ def phase_slice_b() -> dict:
     }
 
 
-def profile_tick(eng, p, plan, k: int) -> dict:
-    """Device-time breakdown of one tick's solve + top-k (torch.profiler):
-    the kernels by device time and the device's idle share of the wall
-    time (one stream, so kernel times add up). Informational; prints "no
-    device time" if the profiler sees no kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.pagerank_service import _solve_topk_adaptive
+# ---------------------------------------------------------------- slice C --
+HIGH_ROW = 2 ** 25     # rows of 64 f32 from here on lie at offsets >= 2^31
 
-    def tick():
-        return _solve_topk_adaptive(eng, p, plan.c, plan.tol,
-                                    max_rounds=plan.max_rounds,
-                                    chunk=plan.chunk, k=k)
-    tick()
+
+def compare_embedding_bag(table, ids, weights, exact: bool, label: str):
+    """embedding_bag kernel vs plain on the card: bitwise when `exact`,
+    else rtol/atol 1e-5 (tests/test_kernels.py's bound for the TPU kernel
+    vs its oracle: L products summed in f32 in other orders). Returns the
+    max abs error."""
+    import torch
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    out = embedding_bag(ids, table, weights)
+    torch.cuda.synchronize()
+    ref = embedding_bag_ref(ids, table, weights)
+    err = float((out - ref).abs().max())
+    if exact:
+        check(torch.equal(out, ref), f"embedding_bag {label}: kernel is not "
+              f"bitwise equal to plain (max |err| {err:.3e})")
+    else:
+        check(torch.allclose(out, ref, rtol=1e-5, atol=1e-5),
+              f"embedding_bag {label}: kernel vs plain max |err| {err:.3e}")
+    return err
+
+
+def _f64(t):
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def oracle_mlp(layers, x, final_act: bool):
+    """x @ w + b per layer in float64 numpy, ReLU between layers."""
+    for i, p in enumerate(layers):
+        x = x @ _f64(p["w"]) + _f64(p["b"])
+        if i < len(layers) - 1 or final_act:
+            x = np.maximum(x, 0.0)
+    return x
+
+
+def dlrm_oracle(params, dense, sparse_ids, cfg) -> np.ndarray:
+    """Click probabilities from a DLRM forward in float64 numpy,
+    independent of the port's code: the MLPs, the gathered rows summed per
+    bag, the Gram matrix's strict upper triangle (np.triu_indices) and the
+    sigmoid."""
+    n = dense.shape[0]
+    d = oracle_mlp(params["bot"], _f64(dense), True)          # [n, D]
+    rows = _f64(params["table"][sparse_ids.reshape(-1).long()])
+    emb = rows.reshape(n, cfg.n_sparse, cfg.bag_size, cfg.embed_dim).sum(2)
+    z = np.concatenate([d[:, None, :], emb], axis=1)
+    zzt = np.einsum("bfd,bgd->bfg", z, z)
+    iu, ju = np.triu_indices(cfg.n_sparse + 1, k=1)
+    x = np.concatenate([d, zzt[:, iu, ju]], axis=-1)
+    logit = oracle_mlp(params["top"], x, False)[:, 0]
+    return 1.0 / (1.0 + np.exp(-logit))
+
+
+def time_embedding_bag(table, ids, label: str) -> dict:
+    """The kernel at a main-path shape (unit weights, as DLRM calls it)
+    beside its plain version and F.embedding_bag (the yardstick, timed
+    here only), plus its bound from this input's bytes and flops."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag.ops import embedding_bag
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    lib = F.embedding_bag(ids, table, mode="sum")
+    check(torch.allclose(lib, embedding_bag(ids, table), rtol=1e-5,
+                         atol=1e-5),
+          f"F.embedding_bag yardstick disagrees ({label})")
+    del lib
+    ms = time_ms(lambda: embedding_bag(ids, table), 20)
+    plain_ms = time_ms(lambda: embedding_bag_ref(ids, table), 5)
+    lib_ms = time_ms(lambda: F.embedding_bag(ids, table, mode="sum"), 20)
+    n_bags, bag = ids.shape
+    dim = table.shape[1]
+    distinct = int(torch.unique(ids).numel())
+    out_bytes = 4 * (n_bags * dim + ids.numel())
+    bytes_ms = (4 * distinct * dim + out_bytes) / HBM_BYTES_PER_S * 1e3
+    gather_ms = (4 * ids.numel() * dim + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * ids.numel() * dim / FP32_FLOP_PER_S * 1e3
+    log(f"embedding_bag [{n_bags} bags x L={bag}, D={dim}] {label} ids: "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.embedding_bag "
+        f"{lib_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.3f} ms (bytes: "
+        f"{distinct} distinct rows once + out + ids); every row from HBM "
+        f"{gather_ms:.3f} ms; kernel at "
+        f"{(4 * ids.numel() * dim + out_bytes) / (ms * 1e-3) / 1e12:.2f} "
+        f"TB/s of gather traffic")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def phase_slice_c() -> dict:
+    import torch
+    from repro_torch.configs.dlrm_rm2 import (SHAPES, full_config,
+                                              make_batch, model_flops)
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.data import RecsysPipelineConfig, recsys_batch
+    cfg = full_config()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = dlrm.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    table = params["table"]
+    table_bytes = table.numel() * table.element_size()
+    log(f"slice C: DLRM-RM2 full_config() built on the card in "
+        f"{build_s:.2f} s; table {tuple(table.shape)} f32 = {table_bytes} "
+        f"bytes ({cfg.total_rows} rows of {cfg.n_sparse} tables); peak "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    check(table_bytes == cfg.padded_rows * cfg.embed_dim * 4 and
+          table.numel() > 2 ** 31, "slice C: table is not RM2's")
+
+    # kernel vs plain on the card
+    p99_bsz = SHAPES["serve_p99"]["batch"]
+    bulk_bsz = SHAPES["serve_bulk"]["batch"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    probe = make_batch(cfg, p99_bsz, seed=1, device="cuda",
+                       with_labels=False)["sparse_ids"]
+    errs = {"serve_p99 ids, L=1": compare_embedding_bag(
+        table, probe.reshape(-1, 1), None, True, "serve_p99 L=1")}
+    high = torch.randint(HIGH_ROW, cfg.total_rows, (65_536, 1),
+                         device="cuda", dtype=torch.int32, generator=gen)
+    errs["rows >= 2^25, L=1"] = compare_embedding_bag(
+        table, high, None, True, "rows >= 2^25")
+    t13 = torch.randn(100_003, 13, device="cuda", generator=gen)
+    for bag in (4, 26):
+        for tbl in (table, t13):
+            ids = torch.randint(0, tbl.shape[0], (20_000, bag), device="cuda",
+                                dtype=torch.int32, generator=gen)
+            w = torch.rand(20_000, bag, device="cuda", generator=gen)
+            label = f"L={bag} D={tbl.shape[1]}"
+            errs[label + " weighted"] = compare_embedding_bag(
+                tbl, ids, w, False, label)
+    del t13
+    log("embedding_bag kernel vs plain max |err|: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()) + " (bitwise at L=1)")
+
+    # the main path's inputs, made before the counted run
+    p99 = [make_batch(cfg, p99_bsz, seed=100 + i, device="cuda",
+                      with_labels=False) for i in range(20)]
+    bulk = [make_batch(cfg, bulk_bsz, seed=200 + i, device="cuda",
+                       with_labels=False) for i in range(3)]
+    plaw = recsys_batch(RecsysPipelineConfig(
+        cfg.vocab_sizes, cfg.n_dense, cfg.bag_size, bulk_bsz, seed=0),
+        step=0, device="cuda")
+    n_cand = SHAPES["retrieval_cand"]["n_candidates"]
+    query = {"dense": make_batch(cfg, 1, seed=300, device="cuda",
+                                 with_labels=False)["dense"],
+             "candidates": torch.randn(n_cand, cfg.embed_dim, device="cuda",
+                                       generator=gen)}
+    dlrm.serve_step(params, p99[0], cfg)          # cuBLAS set-up, allocator
+    dlrm.serve_step(params, bulk[0], cfg)
+    dlrm.retrieval_step(params, query, cfg, top_k=100)
+    torch.cuda.synchronize()
+
+    # the main path
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    p99_out = [dlrm.serve_step(params, b, cfg) for b in p99]
+    ev[1].record()
+    bulk_out = [dlrm.serve_step(params, b, cfg) for b in bulk]
+    ev[2].record()
+    plaw_out = dlrm.serve_step(params, plaw, cfg)
+    ev[3].record()
+    r_scores, r_idx = dlrm.retrieval_step(params, query, cfg, top_k=100)
+    ev[4].record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(p99) + len(bulk) + 1
+    check(counts["embedding_bag"] == steps, f"slice C: embedding_bag "
+          f"launched {counts['embedding_bag']} times for {steps} serve steps")
+    outs = p99_out + bulk_out + [plaw_out]
+    for b, out in zip(p99 + bulk + [plaw], outs):
+        check(out.shape == (b["dense"].shape[0],) and
+              bool(((out > 0) & (out < 1)).all()),
+              "slice C: probabilities not finite in (0, 1)")
+    p99_ms = ev[0].elapsed_time(ev[1]) / len(p99)
+    bulk_ms = ev[1].elapsed_time(ev[2]) / len(bulk)
+    plaw_ms = ev[2].elapsed_time(ev[3])
+    retr_ms = ev[3].elapsed_time(ev[4])
+    bulk_flops = model_flops(cfg, bulk_bsz, "serve")
+    log(f"slice C launches: {counts}")
+    log(f"slice C: serve_p99 {p99_ms:.3f} ms per batch (20 back to back); "
+        f"serve_bulk {bulk_ms:.3f} ms per batch = "
+        f"{bulk_bsz / bulk_ms * 1e3:.0f} samples/s, "
+        f"{bulk_flops / bulk_ms * 1e-9:.1f} TFLOP/s of model flops "
+        f"({bulk_flops:.3e} per batch); power-law serve_bulk "
+        f"{plaw_ms:.3f} ms; retrieval_cand ({n_cand} candidates, top 100) "
+        f"{retr_ms:.3f} ms; peak device memory {peak} bytes")
+    lat = []
+    for b in p99:
+        t1 = time.perf_counter()
+        dlrm.serve_step(params, b, cfg)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t1) * 1e3)
+    log(f"slice C: serve_p99 one request at a time (host clock, synced): "
+        f"median {float(np.median(lat)):.3f} ms, max {max(lat):.3f} ms")
+
+    # independent float64 oracle
+    n = 64
+    want = dlrm_oracle(params, p99[0]["dense"][:n],
+                       p99[0]["sparse_ids"][:n], cfg)
+    p_err = float(np.max(np.abs(p99_out[0][:n].cpu().numpy() - want)))
+    check(p_err <= 1e-5, f"slice C: served probabilities {p_err:.3e} from "
+          "the float64 oracle")
+    q = oracle_mlp(params["bot"], _f64(query["dense"]), True)[0]
+    scores = _f64(query["candidates"]) @ q
+    top = np.argsort(-scores, kind="stable")[:100]
+    got_idx = r_idx.cpu().numpy()
+    swapped = set(got_idx.tolist()) ^ set(top.tolist())
+    kth = scores[top[-1]]
+    check(all(abs(scores[i] - kth) <= 1e-5 for i in swapped),
+          f"slice C: retrieval top-100 differs from the oracle's: {swapped}")
+    s_err = float(np.max(np.abs(r_scores.cpu().numpy() - scores[got_idx])))
+    check(s_err <= 1e-5, f"slice C: retrieval scores {s_err:.3e} from the "
+          "float64 oracle")
+    log(f"slice C: max |served - float64 oracle| {p_err:.3e} over {n} "
+        f"samples; retrieval top-100 index sets differ in {len(swapped)} "
+        f"entries, scores within {s_err:.3e}")
+
+    # the kernel at the serve_bulk shape, then a profile of one step
+    uni = time_embedding_bag(table, bulk[0]["sparse_ids"].reshape(-1, 1),
+                             "uniform")
+    time_embedding_bag(table, plaw["sparse_ids"].reshape(-1, 1), "power-law")
+    profile_device(lambda: dlrm.serve_step(params, bulk[0], cfg),
+                   "one slice C serve_bulk step")
+    del params, table, probe, high, p99, bulk, plaw, query, outs
+    del p99_out, bulk_out, plaw_out
+    torch.cuda.empty_cache()
+    return {"launches": counts, "err": max(errs.values()), "eb": uni}
+
+
+def profile_device(fn, label: str) -> dict:
+    """Device-time breakdown of one call of `fn` (torch.profiler, after one
+    warm call): the kernels by device time and the device's idle share of
+    the wall time (one stream, so kernel times add up). Informational;
+    prints "no device time" if the profiler sees no kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tick()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
@@ -475,14 +716,24 @@ def profile_tick(eng, p, plan, k: int) -> dict:
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     if not rows:
-        log("profile of one slice B tick: no device time in key_averages")
+        log(f"profile of {label}: no device time in key_averages")
         return {"wall_us": wall_us, "busy_us": 0.0}
-    log(f"profile of one slice B tick: wall {wall_us / 1e3:.1f} ms, device "
+    log(f"profile of {label}: wall {wall_us / 1e3:.1f} ms, device "
         f"busy {busy_us / 1e3:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_us / wall_us):.3f}")
     for dev, count, key in rows[:12]:
         log(f"  {dev / 1e3:9.3f} ms {count:5d}x  {key[:90]}")
     return {"wall_us": wall_us, "busy_us": busy_us}
+
+
+def profile_tick(eng, p, plan, k: int) -> dict:
+    """profile_device over one tick's solve + top-k."""
+    from repro_torch.serve.pagerank_service import _solve_topk_adaptive
+    return profile_device(
+        lambda: _solve_topk_adaptive(eng, p, plan.c, plan.tol,
+                                     max_rounds=plan.max_rounds,
+                                     chunk=plan.chunk, k=k),
+        "one slice B tick")
 
 
 def bound(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
@@ -511,13 +762,15 @@ def main() -> int:
     kerr = phase_kernels()
     a = phase_slice_a()
     b = phase_slice_b()
+    c = phase_slice_c()
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
+    eb_b, eb_by = bound(c["eb"]["bytes_ms"], c["eb"]["ops_ms"])
     table = {"kernels": [
         {"name": "bsr_spmm", "route": "cuda",
          "source": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
-         "replaces": "src/repro/kernels/bsr_spmm/bsr_spmm.py:29",
+         "replaces": "src/repro/kernels/bsr_spmm/bsr_spmm.py:42",
          "launches": a["launches"]["bsr_spmm"] + b["launches"]["bsr_spmm"],
          "launches_by_path": {"slice_a": a["launches"]["bsr_spmm"],
                               "slice_b": b["launches"]["bsr_spmm"]},
@@ -527,13 +780,23 @@ def main() -> int:
          "library_ms": b["bsr"]["library_ms"]},
         {"name": "cheb_step", "route": "cuda",
          "source": "src/repro_torch/kernels/cheb_step/csrc/cheb_step.cu",
-         "replaces": "src/repro/kernels/cheb_step/cheb_step.py:33",
+         "replaces": "src/repro/kernels/cheb_step/cheb_step.py:40",
          "launches": a["launches"]["cheb_step"] + b["launches"]["cheb_step"],
          "launches_by_path": {"slice_a": a["launches"]["cheb_step"],
                               "slice_b": b["launches"]["cheb_step"]},
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},
+        {"name": "embedding_bag", "route": "cuda",
+         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                   "embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:40",
+         "launches": c["launches"]["embedding_bag"],
+         "launches_by_path": {"slice_c": c["launches"]["embedding_bag"]},
+         "max_abs_err": c["err"],
+         "ms": c["eb"]["ms"], "plain_ms": c["eb"]["plain_ms"],
+         "bound_ms": eb_b, "bound_by": eb_by,
+         "library_ms": c["eb"]["library_ms"]},
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ edge weights and coefficients run through both packages.
   * block-ELL engines: `block_cols`, `values`, `perm`, `inv_perm` plus
     `n_orig` and `block` (a `BlockEllEngine`'s leaves);
   * COO: a `DeviceGraph`'s `src`, `dst`, `w`, `inv_deg` and `n`;
-  * a `ChebSchedule`'s coefficient vector.
+  * a `ChebSchedule`'s coefficient vector;
+  * DLRM parameters ({"table", "bot": [{"w", "b"}], "top": [...]}).
 """
 from __future__ import annotations
 
@@ -21,11 +22,11 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.ops import DeviceGraph
 
 __all__ = ["block_ell_engine", "coo_engine", "device_graph_from_arrays",
-           "coeffs_tensor"]
+           "coeffs_tensor", "dlrm_params"]
 
 
 def _tensor(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(dtype).to(dev)
+    return torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=dev)
 
 
 def block_ell_engine(block_cols, values, perm, inv_perm, n_orig: int,
@@ -64,3 +65,17 @@ def coo_engine(src, dst, w, inv_deg, n: int, device=None) -> CooEngine:
 def coeffs_tensor(coeffs, device=None) -> torch.Tensor:
     """A schedule's coefficient vector as float32 on `device`."""
     return _tensor(np.asarray(coeffs), torch.float32, resolve_device(device))
+
+
+def dlrm_params(params, device=None) -> dict:
+    """The reference's DLRM parameters (numpy arrays in its layout: the
+    table [rows, D], MLP weights [d_in, d_out] and biases) as the port's
+    parameter dict of float32 tensors on `device` (None = cuda). The port
+    keeps the same layout, so nothing is transposed."""
+    dev = resolve_device(device)
+
+    def mlp(layers):
+        return [{k: _tensor(v, torch.float32, dev) for k, v in layer.items()}
+                for layer in layers]
+    return {"table": _tensor(params["table"], torch.float32, dev),
+            "bot": mlp(params["bot"]), "top": mlp(params["top"])}

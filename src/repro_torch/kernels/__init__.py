@@ -11,6 +11,8 @@ Each kernel package holds three files, as `repro.kernels` does:
                    against the kernel on the card
 
 Kernels:
-  bsr_spmm  — block-ELL sparse x dense product, the CPAA round's SpMM
-  cheb_step — fused Chebyshev update t'' = 2y - t; acc += c_k t''
+  bsr_spmm      — block-ELL sparse x dense product, the CPAA round's SpMM
+  cheb_step     — fused Chebyshev update t'' = 2y - t; acc += c_k t''
+  embedding_bag — bag-sum row gather out[b] = sum_l w[b,l] table[ids[b,l]],
+                  the DLRM-RM2 lookup
 """

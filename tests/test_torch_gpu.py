@@ -17,6 +17,9 @@ from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
 from repro_torch.kernels.cheb_step.ops import cheb_step
 from repro_torch.kernels.cheb_step.ref import cheb_step_ref
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 
 
 @pytest.fixture
@@ -66,6 +69,38 @@ class TestKernelsOnCard:
         tr, ar = cheb_step_ref(y, t, acc, ck)
         assert torch.equal(tk, tr) and torch.equal(ak, ar)
 
+    @pytest.mark.parametrize("dim", [8, 13, 64, 128])
+    @pytest.mark.parametrize("bag", [1, 4, 26])
+    def test_embedding_bag_kernel_vs_plain(self, cuda, dim, bag):
+        rng = np.random.default_rng(dim * 100 + bag)
+        table = torch.from_numpy(rng.standard_normal((1000, dim)).astype(
+            np.float32)).to(cuda)
+        ids = torch.from_numpy(rng.integers(0, 1000, (333, bag)).astype(
+            np.int32)).to(cuda)
+        w = torch.from_numpy(rng.random((333, bag)).astype(np.float32)).to(
+            cuda)
+        before = eb_ops.launches()
+        out = embedding_bag(ids, table, w)
+        unit = embedding_bag(ids, table)
+        torch.cuda.synchronize()
+        assert eb_ops.launches() == before + 2
+        torch.testing.assert_close(out, embedding_bag_ref(ids, table, w),
+                                   rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(unit, embedding_bag_ref(ids, table),
+                                   rtol=1e-5, atol=1e-5)
+        if bag == 1:     # a unit-weight single-row bag is an exact copy
+            assert torch.equal(unit, table[ids[:, 0].long()])
+
+    def test_embedding_bag_unaligned_view(self, cuda):
+        """A table view that is not 16-byte aligned takes the scalar path."""
+        base = torch.randn(101 * 64 + 1, device=cuda)
+        table = base[1:].view(101, 64)
+        ids = torch.randint(0, 101, (50, 3), device=cuda, dtype=torch.int32)
+        out = embedding_bag(ids, table)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, embedding_bag_ref(ids, table),
+                                   rtol=1e-5, atol=1e-5)
+
     def test_bsr_spmm_rejects_other_blocks_on_card(self, cuda):
         be = _tiles(32, seed=11)
         with pytest.raises(ValueError):
@@ -100,3 +135,38 @@ class TestPathOnCard:
         assert svc.registry.device.type == "cuda"
         r = svc.query("mesh", (3, 40), top_k=8)
         assert r.indices.shape == (8,) and np.all(np.diff(r.scores) <= 0)
+
+
+@pytest.mark.gpu
+class TestDlrmOnCard:
+    """DLRM serve_step on the card (through the embedding_bag kernel) vs
+    the same parameters and batch on the CPU (plain version): rtol 1e-5 /
+    atol 1e-6 on the probabilities, cuBLAS and the CPU sum in other
+    orders."""
+
+    def test_serve_step_card_vs_cpu(self, cuda):
+        import dataclasses
+        from repro_torch.configs import dlrm_rm2
+        from repro_torch.models.recsys import dlrm
+        cfg = dataclasses.replace(dlrm_rm2.smoke_config(), bag_size=3)
+        params = dlrm.init_params(cfg, seed=0)
+        batch = dlrm_rm2.make_batch(cfg, 64, seed=1, with_labels=False)
+        eb_ops.reset_launches()
+        on_card = dlrm.serve_step(params, batch, cfg)
+        torch.cuda.synchronize()
+        assert eb_ops.launches() == 1
+        to_cpu = {k: v.cpu() for k, v in batch.items()}
+        cpu_params = {"table": params["table"].cpu(),
+                      "bot": [{k: v.cpu() for k, v in p.items()}
+                              for p in params["bot"]],
+                      "top": [{k: v.cpu() for k, v in p.items()}
+                              for p in params["top"]]}
+        on_cpu = dlrm.serve_step(cpu_params, to_cpu, cfg)
+        torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-5,
+                                   atol=1e-6)
+        scores, idx = dlrm.retrieval_step(
+            params, {"dense": batch["dense"][:1],
+                     "candidates": torch.randn(5000, cfg.embed_dim,
+                                               device=cuda)}, cfg, top_k=50)
+        assert idx.dtype == torch.int32 and bool((scores[:-1] >= scores[1:])
+                                                  .all())

@@ -50,7 +50,10 @@ def test_fresh_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch.configs.pagerank_serve, "
             "repro_torch.launch.serve, repro_torch.interop, "
             "repro_torch.kernels.bsr_spmm.ops, "
-            "repro_torch.kernels.cheb_step.ops\n"
+            "repro_torch.kernels.cheb_step.ops, "
+            "repro_torch.kernels.embedding_bag.ops, "
+            "repro_torch.models.recsys.dlrm, repro_torch.configs.dlrm_rm2, "
+            "repro_torch.train.data, repro_torch.topk\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
@@ -100,6 +103,28 @@ class TestDefaultDeviceIsCuda:
         with pytest.raises(RuntimeError, match="CUDA"):
             interop.coeffs_tensor(np.ones(3))
 
+    def test_dlrm_params(self, no_gpu):
+        from repro_torch.configs import dlrm_rm2
+        from repro_torch.models.recsys import dlrm
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dlrm.init_params(dlrm_rm2.smoke_config())
+
+    def test_dlrm_batches(self, no_gpu):
+        from repro_torch.configs import dlrm_rm2
+        from repro_torch.train.data import RecsysPipelineConfig, recsys_batch
+        with pytest.raises(RuntimeError, match="CUDA"):
+            dlrm_rm2.make_batch(dlrm_rm2.smoke_config(), 4, seed=0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            recsys_batch(RecsysPipelineConfig((5, 7), 13, 1, 4), 0)
+
+    def test_dlrm_interop(self, no_gpu):
+        import numpy as np
+        from repro_torch import interop
+        layer = {"w": np.ones((2, 2), np.float32), "b": np.zeros(2, np.float32)}
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interop.dlrm_params({"table": np.zeros((4, 2), np.float32),
+                                 "bot": [layer], "top": [layer]})
+
     def test_launcher(self, no_gpu):
         from repro_torch.launch import serve
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -110,3 +135,11 @@ class TestDefaultDeviceIsCuda:
         from repro_torch.core.pagerank import cpaa
         from repro_torch.graph.generators import caveman
         assert cpaa(caveman(5, 4), device="cpu").pi.device.type == "cpu"
+
+    def test_explicit_cpu_dlrm_still_runs(self, no_gpu):
+        from repro_torch.configs import dlrm_rm2
+        from repro_torch.models.recsys import dlrm
+        cfg = dlrm_rm2.smoke_config()
+        params = dlrm.init_params(cfg, device="cpu")
+        batch = dlrm_rm2.make_batch(cfg, 4, device="cpu")
+        assert dlrm.serve_step(params, batch, cfg).device.type == "cpu"

@@ -16,6 +16,7 @@ from repro.graph import generators as jgen
 from repro.graph.structure import build_block_ell as j_build_block_ell
 from repro.kernels.bsr_spmm.ops import bsr_spmm as j_bsr_spmm
 from repro.kernels.cheb_step.ops import cheb_step as j_cheb_step
+from repro.kernels.embedding_bag.ops import embedding_bag as j_embedding_bag
 
 from repro_torch.graph import generators
 from repro_torch.graph.ops import device_graph, spmv
@@ -26,6 +27,8 @@ from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
 from repro_torch.kernels.cheb_step import ops as cheb_ops
 from repro_torch.kernels.cheb_step.ops import cheb_step
 from repro_torch.kernels.cheb_step.ref import cheb_step_ref
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
 
 REPO = __import__("pathlib").Path(__file__).resolve().parent.parent
 
@@ -168,10 +171,115 @@ class TestChebStepParity:
             cheb_ops._check(y, y, y, torch.zeros(2))
 
 
+class TestEmbeddingBagParity:
+    # rtol/atol 1e-5, the reference's own bound for its kernel vs its oracle
+    # (tests/test_kernels.py): both sides sum L products in f32, in
+    # different orders.
+    @pytest.mark.parametrize("dim", [8, 64, 128])
+    @pytest.mark.parametrize("bag", [1, 4, 26])
+    def test_plain_vs_pallas_interpret(self, dim, bag):
+        v, b = 500, 16
+        rng = np.random.default_rng(dim * 100 + bag)
+        table = rng.standard_normal((v, dim)).astype(np.float32)
+        ids = rng.integers(0, v, (b, bag)).astype(np.int32)
+        w = rng.random((b, bag)).astype(np.float32)
+        want = np.asarray(j_embedding_bag(jnp.asarray(ids), jnp.asarray(table),
+                                          jnp.asarray(w), use_kernel=True,
+                                          interpret=True))
+        out = embedding_bag(torch.from_numpy(ids), torch.from_numpy(table),
+                            torch.from_numpy(w))
+        assert out.shape == (b, dim) and out.dtype == torch.float32
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+
+    def test_default_weights_sum(self):
+        v, d = 50, 8
+        table = np.arange(v * d, dtype=np.float32).reshape(v, d)
+        ids = np.array([[1, 1, 2], [0, 3, 3]], np.int32)
+        want = np.asarray(j_embedding_bag(jnp.asarray(ids), jnp.asarray(table),
+                                          use_kernel=True, interpret=True))
+        out = embedding_bag(torch.from_numpy(ids), torch.from_numpy(table))
+        np.testing.assert_array_equal(out.numpy(), want)
+        np.testing.assert_array_equal(
+            out.numpy(), np.stack([2 * table[1] + table[2],
+                                   table[0] + 2 * table[3]]))
+
+    def test_duplicate_ids_accumulate(self):
+        table = np.random.default_rng(0).standard_normal((20, 16)).astype(
+            np.float32)
+        ids = np.full((4, 7), 5, np.int32)
+        want = np.asarray(j_embedding_bag(jnp.asarray(ids), jnp.asarray(table),
+                                          use_kernel=True, interpret=True))
+        out = embedding_bag(torch.from_numpy(ids), torch.from_numpy(table))
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5)
+        np.testing.assert_allclose(out.numpy(), np.tile(7 * table[5], (4, 1)),
+                                   rtol=1e-5)
+
+    def test_casts_like_the_reference_wrapper(self):
+        """int64 ids, float64 weights and a float64 table are cast to
+        int32 / float32, and the output is float32, as `ops.py` does in the
+        reference."""
+        rng = np.random.default_rng(3)
+        table = rng.standard_normal((30, 12))
+        ids = rng.integers(0, 30, (5, 3))
+        w = rng.random((5, 3))
+        out = embedding_bag(torch.from_numpy(ids), torch.from_numpy(table),
+                            torch.from_numpy(w))
+        want = np.asarray(j_embedding_bag(
+            jnp.asarray(ids), jnp.asarray(table.astype(np.float32)),
+            jnp.asarray(w.astype(np.float32)), use_kernel=True,
+            interpret=True))
+        assert out.dtype == torch.float32
+        np.testing.assert_allclose(out.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+class TestEmbeddingBagChecks:
+    """The CUDA path's input checks (run on CPU tensors here: the checks
+    are plain Python and raise before any launch)."""
+
+    def _args(self):
+        return (torch.zeros(6, 4, dtype=torch.int32), torch.zeros(10, 64),
+                torch.ones(6, 4))
+
+    def test_accepts_kernel_inputs(self):
+        ids, table, w = self._args()
+        eb_ops._check(ids, table, w)
+        eb_ops._check(ids, table, None)
+        eb_ops._check(ids, torch.zeros(10, 13), None)   # D % 4 != 0
+
+    def test_rejects_wrong_dtypes(self):
+        ids, table, w = self._args()
+        with pytest.raises(TypeError, match="table"):
+            eb_ops._check(ids, table.double(), w)
+        with pytest.raises(TypeError, match="ids"):
+            eb_ops._check(ids.long(), table, w)
+        with pytest.raises(TypeError, match="weights"):
+            eb_ops._check(ids, table, w.double())
+
+    def test_rejects_bad_shapes_and_layout(self):
+        ids, table, w = self._args()
+        with pytest.raises(ValueError, match="table must be"):
+            eb_ops._check(ids, table[0], w)
+        with pytest.raises(ValueError, match="ids must be"):
+            eb_ops._check(ids[0], table, None)
+        with pytest.raises(ValueError, match="weights"):
+            eb_ops._check(ids, table, w[:, :3])
+        with pytest.raises(ValueError, match="table must be contiguous"):
+            eb_ops._check(ids, torch.zeros(64, 10).T, w)
+        with pytest.raises(ValueError, match="ids must be contiguous"):
+            eb_ops._check(torch.zeros(4, 6, dtype=torch.int32).T, table, None)
+        with pytest.raises(ValueError, match="weights must be contiguous"):
+            eb_ops._check(ids, table, torch.ones(4, 6).T)
+
+    def test_rejects_other_devices(self):
+        ids, table, _ = self._args()
+        with pytest.raises(ValueError, match="embedding_bag"):
+            embedding_bag(ids, table.to("meta"))
+
+
 class TestBuild:
     def test_sources_cover_both_kernels(self):
         srcs = _build.sources()
-        assert set(srcs) == {"bsr_spmm", "cheb_step"}
+        assert set(srcs) == {"bsr_spmm", "cheb_step", "embedding_bag"}
         for path in srcs.values():
             assert path.suffix == ".cu" and path.parent.name == "csrc"
 
@@ -191,11 +299,14 @@ class TestBuild:
     def test_cpu_calls_do_not_launch(self):
         bsr_ops.reset_launches()
         cheb_ops.reset_launches()
+        eb_ops.reset_launches()
         be = _tiles(8, seed=9)
         bsr_spmm(torch.from_numpy(be.block_cols), torch.from_numpy(be.values),
                  torch.zeros(be.n))
         cheb_step(torch.zeros(3), torch.zeros(3), torch.zeros(3), 1.0)
+        embedding_bag(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(4, 8))
         assert bsr_ops.launches() == 0 and cheb_ops.launches() == 0
+        assert eb_ops.launches() == 0
 
     def test_jax_oracle_tiles_identical(self):
         """The kernels see identical tiles whichever package built them."""
