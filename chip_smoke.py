@@ -8,20 +8,32 @@ toolkit (nvcc). Drives the port only; it imports neither jax nor the JAX
 package. Phases, each of which must pass:
 
   1. device: the card's name and power limit (nvidia-smi), then one
-     parallel nvcc build of every kernel from the sources in this checkout;
+     parallel nvcc build of every kernel from the sources in this checkout,
+     each kernel function's ptxas line (registers, spills) and, where the
+     toolkit has cuobjdump, the count of HGMMA (wgmma) instructions in the
+     bsr_spmm library (0 fails);
   2. kernels vs their plain PyTorch versions on the card: bsr_spmm at
-     B = 128, BT in {1, 8, 128} on a random tiling (rtol/atol 1e-5) and
-     cheb_step on [n] and [n, B] at ragged sizes (rtol 1e-6);
+     B = 128, BT in {1, 4, 8, 16, 32, 64, 128} on a random tiling
+     (rtol/atol 1e-5; FFMA at BT = 1, 3xTF32 wgmma from 2 on), both
+     variants on an x of magnitude 1e-6..1e2 with random signs, held to
+     plain at 1e-5 and beside a float64 product, the host cost of one
+     bsr_spmm call, and cheb_step on [n] and [n, B] at ragged sizes
+     (rtol 1e-6);
   3. slice A: the PPR service at `full_config()` with engine "auto"
      (naca must land on the fused block-ELL engine, kmer on COO), 256
      seeded queries + 10% repeats, answers checked against a float64
      scipy solve of (I - cP) x = (1 - c) p;
   4. slice B: the service on NACA0015 at the paper's size (n = 1,040,000)
-     with engine "fused", 128 queries + 13 repeats; bsr_spmm vs plain on
-     that tiling; the kernel solve of the tick's personalization matrix vs
-     the same solve through the plain versions (L1 <= 1e-5 per column);
+     with engine "fused", 128 queries + 13 repeats, every bsr_spmm launch
+     of the tick on the wgmma variant; bsr_spmm vs plain on that tiling at
+     the same widths; the kernel solve of the tick's personalization matrix
+     vs the same solve through the plain versions (L1 <= 1e-5 per column);
      CUDA-event times of the tick and of each kernel beside its bound, its
-     plain version and a library yardstick;
+     plain version and a library yardstick (bsr_spmm at BT 8, 32 and 128,
+     also beside its 3xTF32 tensor time and its FP32 FFMA time; both
+     bsr_spmm variants at BT 1, 2 and 4, where the dispatch cuts); one COO
+     engine apply beside one fused apply at BT = 128 (the min_fill
+     question);
   5. slice C: DLRM-RM2 at `full_config()` (8.64 GB table on the card):
      embedding_bag vs plain (bitwise at bag 1, also on rows >= 2^25 where
      32-bit offsets would fail; rtol/atol 1e-5 for weighted bags of 4 and
@@ -42,6 +54,7 @@ non-zero without that line.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -52,6 +65,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM FP32, non-tensor (data sheet)
+TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor core, dense (data sheet)
+BSR_BTS = (1, 4, 8, 16, 32, 64, 128)   # widths held against plain
 
 
 class SmokeFailure(RuntimeError):
@@ -102,6 +117,7 @@ def read_counts() -> dict:
     from repro_torch.kernels.embedding_bag import ops as eb_ops
     return {"bsr_spmm": bsr_ops.launches(), "cheb_step": cheb_ops.launches(),
             "embedding_bag": eb_ops.launches(),
+            "bsr_spmm_variants": bsr_ops.launches_by_variant(),
             "applies": engine.apply_counts()}
 
 
@@ -109,6 +125,7 @@ def read_counts() -> dict:
 def phase_device():
     import torch
     from repro_torch.kernels import _build
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -125,16 +142,37 @@ def phase_device():
     log(f"kernel build: {time.perf_counter() - t0:.2f} s wall "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items())})")
     for name in _build.sources():
+        fn = "?"
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                fn = line.split("'")[1]
+            elif "registers" in line or "spill" in line:
+                log(f"  ptxas {name} {fn[:64]}: {line.strip()}")
     check(set(secs) == set(_build.sources()), "not every kernel was built")
+    lib = _build.library("bsr_spmm")
+    log("bsr_spmm wgmma variant: dynamic shared memory "
+        f"{lib.bsr_spmm_tc_smem_bytes(64)} bytes per CTA at BT <= 64, "
+        f"{lib.bsr_spmm_tc_smem_bytes(128)} above; FFMA below BT = "
+        f"{bsr_ops.TC_MIN_BT}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(cuobjdump).exists():
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(_build.library_path("bsr_spmm"))],
+                              capture_output=True, text=True, timeout=120)
+        check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr}")
+        n_hgmma = sum("HGMMA" in ln for ln in sass.stdout.splitlines())
+        log(f"bsr_spmm SASS: {n_hgmma} HGMMA instructions")
+        check(n_hgmma > 0, "bsr_spmm SASS holds no HGMMA instruction")
+    else:
+        log("bsr_spmm SASS: not checked (no cuobjdump in this toolkit)")
 
 
 # ---------------------------------------------------------------- phase 2 --
 def compare_bsr(block_cols, values, bts, seed: int) -> dict:
-    """bsr_spmm kernel vs plain on the card; returns {bt: max_abs_err}."""
+    """bsr_spmm kernel vs plain on the card, each width on the variant
+    `variant(bt)` names; returns {bt: max_abs_err}."""
     import torch
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
     from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
     n = values.shape[0] * values.shape[2]
@@ -142,8 +180,12 @@ def compare_bsr(block_cols, values, bts, seed: int) -> dict:
     errs = {}
     for bt in bts:
         x = torch.randn(n, bt, device="cuda", generator=gen)
+        before = bsr_ops.launches_by_variant()[bsr_ops.variant(bt)]
         y = bsr_spmm(block_cols, values, x)
         torch.cuda.synchronize()
+        check(bsr_ops.launches_by_variant()[bsr_ops.variant(bt)]
+              == before + 1, f"bsr_spmm BT={bt}: not on the "
+              f"{bsr_ops.variant(bt)} variant")
         ref = bsr_spmm_ref(block_cols, values, x)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
@@ -154,8 +196,40 @@ def compare_bsr(block_cols, values, bts, seed: int) -> dict:
     return errs
 
 
+def dynamic_range_witness(block_cols, values, bt: int, seed: int) -> dict:
+    """bsr_spmm on an x whose magnitudes span 1e-6..1e2 with random signs,
+    through both variants, beside the plain version; each held to a float64
+    product of the same inputs and to plain. Returns, per result, the max
+    of |err| / (1e-5 + 1e-5 |plain|) (above 1 misses the parity bound)."""
+    import torch
+    from repro_torch.kernels.bsr_spmm.ops import VARIANTS, bsr_spmm_as
+    from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
+    n = values.shape[0] * values.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mag = 10.0 ** (torch.rand(n, bt, device="cuda", generator=gen) * 8 - 6)
+    sign = torch.randint(0, 2, (n, bt), device="cuda", generator=gen) * 2 - 1
+    x = (mag * sign).float()
+    plain = bsr_spmm_ref(block_cols, values, x)
+    f64 = bsr_spmm_ref(block_cols, values.double(), x.double())
+    tol = 1e-5 + 1e-5 * plain.abs().double()
+    out = {"plain": plain}
+    for kind in VARIANTS:
+        out[kind] = bsr_spmm_as(block_cols, values, x, kind)
+    torch.cuda.synchronize()
+    res = {}
+    for name, y in out.items():
+        res[name] = {
+            "vs_plain": float(((y.double() - plain.double()).abs() / tol)
+                              .max()),
+            "vs_f64": float(((y.double() - f64).abs() / tol).max()),
+            "max_abs_vs_plain": float((y - plain).abs().max())}
+    del x, plain, f64, out
+    return res
+
+
 def phase_kernels() -> dict:
     import torch
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.cheb_step.ops import cheb_step
     from repro_torch.kernels.cheb_step.ref import cheb_step_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -166,10 +240,24 @@ def phase_kernels() -> dict:
                       generator=gen) < 0.05
     values = torch.rand(n_rb, slots, blk, blk, device="cuda",
                         generator=gen) * mask / 8.0
-    errs = compare_bsr(block_cols, values, (1, 8, 128), seed=1)
+    errs = compare_bsr(block_cols, values, BSR_BTS, seed=1)
     log("bsr_spmm random tiling (96 row blocks, S=8) max |kernel - plain|: "
         + ", ".join(f"BT={k} {v:.3e}" for k, v in errs.items()))
     worst = max(errs.values())
+    wit = dynamic_range_witness(block_cols, values, bt=16, seed=4)
+    log("bsr_spmm random tiling, x of magnitude 1e-6..1e2 with random "
+        "signs, BT=16; max |err| / (1e-5 + 1e-5 |plain|): " + "; ".join(
+            f"{k} vs plain {v['vs_plain']:.3f} (max |err| "
+            f"{v['max_abs_vs_plain']:.3e}), vs float64 {v['vs_f64']:.3f}"
+            for k, v in wit.items()))
+    for kind in bsr_ops.VARIANTS:
+        check(wit[kind]["vs_plain"] <= 1.0, f"bsr_spmm {kind}: misses 1e-5 "
+              "against plain on the large-dynamic-range x")
+    host_us = host_cost(block_cols, values)
+    log("bsr_spmm host cost per call (one 128x128 tile, BT=128, 2000 calls "
+        f"unsynced): wrapper {host_us['wrapper']:.2f} us, the C launch "
+        f"alone {host_us['c_launch']:.2f} us, torch.add on the same x "
+        f"{host_us['torch_add']:.2f} us")
     cheb_err = 0.0
     for shape in [(64,), (1000,), (10_001,), (64, 3), (10_001, 128),
                   (1_040_000, 128)]:
@@ -187,7 +275,39 @@ def phase_kernels() -> dict:
         del y, t, acc, tk, ak, tr, ar
     log(f"cheb_step [n] and [n,B] up to 1,040,000x128: max |kernel - plain| "
         f"{cheb_err:.3e}")
-    return {"bsr_spmm": worst, "cheb_step": cheb_err}
+    return {"bsr_spmm": worst, "cheb_step": cheb_err, "dyn_range": wit,
+            "host_us": host_us}
+
+
+def host_cost(block_cols, values) -> dict:
+    """Host microseconds per bsr_spmm call at a size where the card waits
+    on the host (one tile): through the wrapper, through the C entry point
+    alone (tensor maps, launch), and torch.add as a yardstick."""
+    import torch
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
+    bc = torch.zeros(1, 1, dtype=torch.int32, device="cuda")
+    v = values[:1, :1].contiguous()
+    x = torch.randn(128, 128, device="cuda")
+    y = torch.empty_like(x)
+    fn = bsr_ops._kernel_fn()
+    stream = torch.cuda.current_stream().cuda_stream
+    calls = {
+        "wrapper": lambda: bsr_ops.bsr_spmm(bc, v, x),
+        "c_launch": lambda: fn(bc.data_ptr(), v.data_ptr(), x.data_ptr(),
+                               y.data_ptr(), 1, 1, 128, 1, stream),
+        "torch_add": lambda: torch.add(x, 1.0)}
+    out = {}
+    for name, call in calls.items():
+        for _ in range(50):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            call()
+        out[name] = (time.perf_counter() - t0) / 2000 * 1e6
+        torch.cuda.synchronize()
+    del bc, v, x, y
+    return out
 
 
 # ------------------------------------------------------------- the service --
@@ -299,6 +419,9 @@ def phase_slice_a() -> dict:
     check_accounting(st, len(repeats), "slice A")
     check(counts["bsr_spmm"] > 0 and counts["cheb_step"] > 0,
           f"slice A: a kernel of the path was not launched: {counts}")
+    check(counts["bsr_spmm_variants"]["wgmma_3xtf32"] > 0,
+          f"slice A: the wgmma variant of bsr_spmm was not launched: "
+          f"{counts}")
     err = oracle_check(svc, results, queries, cfg.c, cfg.tol, per_graph=4)
     log(f"slice A: max |service - float64 oracle| {err:.3e} "
         f"(bound 2 tol = {2 * cfg.tol:.0e})")
@@ -322,9 +445,10 @@ def phase_slice_b() -> dict:
     import torch
     from repro_torch.configs.pagerank_serve import PPRServeConfig, \
         make_service
-    from repro_torch.core.engine import FusedBlockEllEngine
+    from repro_torch.core.engine import CooEngine, FusedBlockEllEngine
     from repro_torch.core.pagerank import cpaa_adaptive_fixed
-    from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
+    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
+    from repro_torch.kernels.bsr_spmm.ops import bsr_spmm, bsr_spmm_as
     from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
     from repro_torch.kernels.cheb_step.ops import cheb_step
     from repro_torch.kernels.cheb_step.ref import cheb_step_ref
@@ -347,7 +471,7 @@ def phase_slice_b() -> dict:
         f"{eng.fill_rate:.4f}")
 
     # kernel vs plain on the paper-size tiling
-    errs = compare_bsr(eng.block_cols, eng.values, (1, 8, 128), seed=2)
+    errs = compare_bsr(eng.block_cols, eng.values, BSR_BTS, seed=2)
     log("bsr_spmm paper tiling max |kernel - plain|: "
         + ", ".join(f"BT={k} {v:.3e}" for k, v in errs.items()))
 
@@ -374,6 +498,9 @@ def phase_slice_b() -> dict:
     check_accounting(st, len(repeats), "slice B")
     check(counts["bsr_spmm"] > 0 and counts["cheb_step"] > 0,
           f"slice B: a kernel of the path was not launched: {counts}")
+    check(counts["bsr_spmm_variants"]["wgmma_3xtf32"] == counts["bsr_spmm"],
+          f"slice B: not every bsr_spmm launch was on the wgmma variant: "
+          f"{counts}")
     for q in queries[:4]:
         r = results[q.qid]
         check(r.indices.shape == (32,) and np.all(np.isfinite(r.scores))
@@ -405,28 +532,85 @@ def phase_slice_b() -> dict:
     # kernel times at the tick's shapes, beside bounds and yardsticks
     x = eng.to_internal(p)
     n_pad, bt = x.shape
-    bsr_ms = time_ms(lambda: bsr_spmm(eng.block_cols, eng.values, x), 10)
-    plain_ms = time_ms(lambda: bsr_spmm_ref(eng.block_cols, eng.values, x),
-                       3)
-    vals_p = eng.values.permute(0, 2, 1, 3).reshape(n_rb, blk, slots * blk)
-    gathered = x.reshape(n_rb, blk, bt)[eng.block_cols.long()].reshape(
-        n_rb, slots * blk, bt)
-    lib = torch.bmm(vals_p, gathered).reshape(n_pad, bt)
-    check(torch.allclose(lib, bsr_spmm_ref(eng.block_cols, eng.values, x),
-                         rtol=1e-5, atol=1e-5), "torch.bmm yardstick wrong")
-    lib_ms = time_ms(lambda: torch.bmm(vals_p, gathered), 3)
-    del vals_p, gathered, lib
     nnz = int((eng.values != 0).sum())
-    bsr_bytes = 4 * (eng.block_cols.numel() + eng.values.numel()
-                     + 2 * x.numel())
-    bsr_bytes_ms = bsr_bytes / HBM_BYTES_PER_S * 1e3
-    bsr_ops_ms = 2.0 * nnz * bt / FP32_FLOP_PER_S * 1e3
-    dense_ops_ms = 2.0 * eng.values.numel() * bt / FP32_FLOP_PER_S * 1e3
-    log(f"bsr_spmm [{n_rb}x{slots} tiles, BT={bt}]: kernel {bsr_ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, torch.bmm {lib_ms:.3f} ms; bound "
-        f"{max(bsr_bytes_ms, bsr_ops_ms):.3f} ms (bytes {bsr_bytes_ms:.3f} "
-        f"ms, nonzero flops {bsr_ops_ms:.4f} ms); dense-tile FFMA "
-        f"{dense_ops_ms:.3f} ms at 67 TFLOP/s")
+    vals_p = eng.values.permute(0, 2, 1, 3).reshape(n_rb, blk, slots * blk)
+    bsr_times = {}
+    for w in (8, 32, bt):
+        xw = x[:, :w].contiguous()
+        gathered = xw.reshape(n_rb, blk, w)[eng.block_cols.long()].reshape(
+            n_rb, slots * blk, w)
+        lib = torch.bmm(vals_p, gathered).reshape(n_pad, w)
+        check(torch.allclose(lib, bsr_spmm_ref(eng.block_cols, eng.values,
+                                               xw), rtol=1e-5, atol=1e-5),
+              "torch.bmm yardstick wrong")
+        del lib
+        # kernel, plain, library, kernel: the kernel's two readings bracket
+        # the others (one card, one call)
+        k1 = time_ms(lambda: bsr_spmm(eng.block_cols, eng.values, xw), 10)
+        pl = time_ms(lambda: bsr_spmm_ref(eng.block_cols, eng.values, xw), 3)
+        lb = time_ms(lambda: torch.bmm(vals_p, gathered), 3)
+        k2 = time_ms(lambda: bsr_spmm(eng.block_cols, eng.values, xw), 10)
+        del gathered
+        bytes_ms = 4 * (eng.block_cols.numel() + eng.values.numel()
+                        + 2 * xw.numel()) / HBM_BYTES_PER_S * 1e3
+        dense = 2.0 * eng.values.numel() * w
+        bsr_times[w] = {
+            "ms": (k1 + k2) / 2, "plain_ms": pl, "library_ms": lb,
+            "bytes_ms": bytes_ms,
+            "ops_ms": 2.0 * nnz * w / FP32_FLOP_PER_S * 1e3,
+            "tf32x3_ms": 3 * dense / TF32_FLOP_PER_S * 1e3,
+            "ffma_ms": dense / FP32_FLOP_PER_S * 1e3}
+        r = bsr_times[w]
+        log(f"bsr_spmm [{n_rb}x{slots} tiles, BT={w}]: kernel {k1:.3f} / "
+            f"{k2:.3f} ms, plain {pl:.3f} ms, torch.bmm {lb:.3f} ms; bound "
+            f"{max(bytes_ms, r['ops_ms']):.3f} ms (bytes {bytes_ms:.3f} ms, "
+            f"nonzero flops {r['ops_ms']:.4f} ms), kernel at "
+            f"{bytes_ms / r['ms']:.3f} of it; dense-tile 3xTF32 "
+            f"{r['tf32x3_ms']:.3f} ms at 495 TFLOP/s, FFMA "
+            f"{r['ffma_ms']:.3f} ms at 67 TFLOP/s")
+        del xw
+    del vals_p
+    bsr = bsr_times[bt]
+
+    # the two variants at the narrow widths, on the same tiling
+    narrow = {}
+    for w in (1, 2, 4):
+        xw = x[:, :w].contiguous()
+        ref = bsr_spmm_ref(eng.block_cols, eng.values, xw)
+        for kind in bsr_ops.VARIANTS:
+            yk = bsr_spmm_as(eng.block_cols, eng.values, xw, kind)
+            check(torch.allclose(yk, ref, rtol=1e-5, atol=1e-5),
+                  f"bsr_spmm {kind} BT={w}: kernel vs plain disagree")
+        del ref, yk
+
+        def run(kind, xw=xw):
+            return lambda: bsr_spmm_as(eng.block_cols, eng.values, xw, kind)
+        f1 = time_ms(run("ffma"), 10)
+        t1 = time_ms(run("wgmma_3xtf32"), 10)
+        t2 = time_ms(run("wgmma_3xtf32"), 10)
+        f2 = time_ms(run("ffma"), 10)
+        bytes_ms = 4 * (eng.block_cols.numel() + eng.values.numel()
+                        + 2 * xw.numel()) / HBM_BYTES_PER_S * 1e3
+        narrow[w] = {"ffma_ms": (f1 + f2) / 2, "wgmma_ms": (t1 + t2) / 2,
+                     "bytes_ms": bytes_ms}
+        log(f"bsr_spmm [{n_rb}x{slots} tiles, BT={w}] by variant: ffma "
+            f"{f1:.3f} / {f2:.3f} ms, wgmma_3xtf32 {t1:.3f} / {t2:.3f} ms; "
+            f"bytes bound {bytes_ms:.3f} ms")
+        del xw
+
+    # the COO side of min_fill: one apply of each engine at BT = 128
+    coo = CooEngine(rg.dg)
+    x_coo = coo.to_internal(p)
+    y_coo = coo.apply(x_coo)
+    y_fused = eng.from_internal(eng.apply(x))
+    check(torch.allclose(y_coo, y_fused, rtol=2e-4, atol=1e-5),
+          "slice B: COO and fused applies disagree")
+    del y_coo, y_fused
+    coo_ms = time_ms(lambda: coo.apply(x_coo), 5)
+    fused_ms = time_ms(lambda: eng.apply(x), 10)
+    log(f"slice B min_fill (fill {eng.fill_rate:.4f}, BT={bt}): one COO "
+        f"apply {coo_ms:.3f} ms, one fused apply {fused_ms:.3f} ms")
+    del coo, x_coo
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     y, t, acc = (torch.randn(n_pad, bt, device="cuda", generator=gen)
@@ -447,9 +631,8 @@ def phase_slice_b() -> dict:
     torch.cuda.empty_cache()
     return {
         "launches": counts, "tick_ms": tick_ms, "l1": l1_max,
-        "bsr": {"ms": bsr_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bytes_ms": bsr_bytes_ms, "ops_ms": bsr_ops_ms,
-                "err": max(errs.values())},
+        "bsr": dict(bsr, err=max(errs.values())), "bsr_narrow": narrow,
+        "min_fill": {"coo_ms": coo_ms, "fused_ms": fused_ms},
         "cheb": {"ms": cheb_ms, "plain_ms": cheb_plain_ms,
                  "bytes_ms": cheb_bytes_ms, "ops_ms": cheb_ops_ms},
     }
@@ -774,6 +957,10 @@ def main() -> int:
          "launches": a["launches"]["bsr_spmm"] + b["launches"]["bsr_spmm"],
          "launches_by_path": {"slice_a": a["launches"]["bsr_spmm"],
                               "slice_b": b["launches"]["bsr_spmm"]},
+         "launches_by_variant": {
+             k: a["launches"]["bsr_spmm_variants"][k]
+             + b["launches"]["bsr_spmm_variants"][k]
+             for k in a["launches"]["bsr_spmm_variants"]},
          "max_abs_err": max(kerr["bsr_spmm"], b["bsr"]["err"]),
          "ms": b["bsr"]["ms"], "plain_ms": b["bsr"]["plain_ms"],
          "bound_ms": bsr_b, "bound_by": bsr_by,

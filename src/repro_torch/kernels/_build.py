@@ -26,7 +26,7 @@ import time
 from pathlib import Path
 
 __all__ = ["NVCC_FLAGS", "build_dir", "sources", "build_all", "library",
-           "build_log"]
+           "library_path", "build_log"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -115,6 +115,11 @@ def library(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         build_all()
     return _LIBS[name]
+
+
+def library_path(name: str) -> Path:
+    """The shared library file of one kernel (built or not)."""
+    return _target(name, sources()[name])
 
 
 def build_log(name: str) -> str:

@@ -42,17 +42,98 @@ class TestKernelsOnCard:
     block product, whose sums run in different orders; bitwise for the
     elementwise update, which rounds exactly as the plain version)."""
 
-    @pytest.mark.parametrize("bt", [1, 3, 8, 32, 100, 128])
+    @pytest.mark.parametrize("bt", [1, 3, 4, 8, 12, 16, 32, 64, 100, 128,
+                                    200])
     def test_bsr_spmm_kernel_vs_plain(self, cuda, bt):
+        """Both variants (FFMA at BT = 1, 3xTF32 wgmma from 2 on, column
+        tiles of 64 and 128, ragged columns, two column tiles at 200)."""
         be = _tiles(128, seed=bt)
         bc = torch.from_numpy(be.block_cols).to(cuda)
         v = torch.from_numpy(be.values).to(cuda)
         x = torch.from_numpy(np.random.default_rng(bt).standard_normal(
             (be.n, bt)).astype(np.float32)).to(cuda)
-        before = bsr_ops.launches()
+        before = bsr_ops.launches_by_variant()
         y = bsr_spmm(bc, v, x)
         torch.cuda.synchronize()
-        assert bsr_ops.launches() == before + 1
+        after = bsr_ops.launches_by_variant()
+        moved = {k: after[k] - before[k] for k in after}
+        assert moved == {k: int(k == bsr_ops.variant(bt)) for k in after}
+        torch.testing.assert_close(y, bsr_spmm_ref(bc, v, x), rtol=1e-5,
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("bt, offset", [(13, 0), (16, 1)])
+    def test_bsr_spmm_x_rows_tma_cannot_take(self, cuda, bt, offset):
+        """x whose rows TMA cannot load (BT % 4 != 0, or a view one float
+        into its storage) reaches the wgmma variant through a zero-padded,
+        aligned copy; y keeps x's width."""
+        be = _tiles(128, seed=30 + bt)
+        rng = np.random.default_rng(bt)
+        flat = torch.from_numpy(rng.standard_normal(
+            be.n * bt + offset).astype(np.float32)).to(cuda)
+        x = flat[offset:].view(be.n, bt)
+        bc = torch.from_numpy(be.block_cols).to(cuda)
+        v = torch.from_numpy(be.values).to(cuda)
+        before = bsr_ops.launches_by_variant()["wgmma_3xtf32"]
+        y = bsr_spmm(bc, v, x)
+        torch.cuda.synchronize()
+        assert bsr_ops.launches_by_variant()["wgmma_3xtf32"] == before + 1
+        assert y.shape == x.shape and y.is_contiguous()
+        torch.testing.assert_close(y, bsr_spmm_ref(bc, v, x), rtol=1e-5,
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("kind", bsr_ops.VARIANTS)
+    @pytest.mark.parametrize("bt", [1, 2, 3, 4, 8])
+    def test_bsr_spmm_both_variants_at_narrow_widths(self, cuda, kind, bt):
+        """Either variant forced at the widths where the dispatch could cut
+        (the wgmma variant through a zero-padded x below BT = 4)."""
+        be = _tiles(128, seed=40 + bt)
+        bc = torch.from_numpy(be.block_cols).to(cuda)
+        v = torch.from_numpy(be.values).to(cuda)
+        x = torch.from_numpy(np.random.default_rng(bt).standard_normal(
+            (be.n, bt)).astype(np.float32)).to(cuda)
+        y = bsr_ops.bsr_spmm_as(bc, v, x, kind)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, bsr_spmm_ref(bc, v, x), rtol=1e-5,
+                                   atol=1e-5)
+
+    @pytest.mark.parametrize("kind", bsr_ops.VARIANTS)
+    def test_bsr_spmm_large_dynamic_range_dense_tiles(self, cuda, kind):
+        """Random tiles of about 50 nonzeros per row (96 row blocks, S = 8,
+        5% fill, values up to 1/8) times x of magnitude 1e-6..1e2 with
+        random signs: row sums cancel, so every product's rounding shows.
+        Each variant is held to the plain version."""
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        n_rb, slots = 96, 8
+        bc = torch.randint(0, n_rb, (n_rb, slots), device=cuda,
+                           dtype=torch.int32, generator=gen)
+        mask = torch.rand(n_rb, slots, 128, 128, device=cuda,
+                          generator=gen) < 0.05
+        v = torch.rand(n_rb, slots, 128, 128, device=cuda,
+                       generator=gen) * mask / 8.0
+        mag = 10.0 ** (torch.rand(n_rb * 128, 16, device=cuda,
+                                  generator=gen) * 8 - 6)
+        x = (mag * (torch.randint(0, 2, mag.shape, device=cuda,
+                                  generator=gen) * 2 - 1)).float()
+        y = bsr_ops.bsr_spmm_as(bc, v, x, kind)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, bsr_spmm_ref(bc, v, x), rtol=1e-5,
+                                   atol=1e-5)
+
+    def test_bsr_spmm_large_dynamic_range(self, cuda):
+        """x spans 1e-6 to 1e2 in magnitude within each column, random
+        signs: the 3xTF32 split keeps 1e-5 where a single TF32 pass would
+        lose the small entries' share and the large ones' low bits."""
+        be = _tiles(128, seed=21)
+        rng = np.random.default_rng(21)
+        mag = 10.0 ** rng.uniform(-6.0, 2.0, (be.n, 16))
+        x = torch.from_numpy((mag * rng.choice([-1.0, 1.0], mag.shape))
+                             .astype(np.float32)).to(cuda)
+        bc = torch.from_numpy(be.block_cols).to(cuda)
+        v = torch.from_numpy(be.values).to(cuda)
+        before = bsr_ops.launches_by_variant()["wgmma_3xtf32"]
+        y = bsr_spmm(bc, v, x)
+        torch.cuda.synchronize()
+        assert bsr_ops.launches_by_variant()["wgmma_3xtf32"] == before + 1
         torch.testing.assert_close(y, bsr_spmm_ref(bc, v, x), rtol=1e-5,
                                    atol=1e-5)
 

@@ -23,7 +23,7 @@ from repro_torch.graph.ops import device_graph, spmv
 from repro_torch.graph.structure import build_block_ell
 from repro_torch.kernels import _build
 from repro_torch.kernels.bsr_spmm import ops as bsr_ops
-from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
+from repro_torch.kernels.bsr_spmm.ops import BLOCK, bsr_spmm
 from repro_torch.kernels.cheb_step import ops as cheb_ops
 from repro_torch.kernels.cheb_step.ops import cheb_step
 from repro_torch.kernels.cheb_step.ref import cheb_step_ref
@@ -126,6 +126,134 @@ class TestBsrSpmmChecks:
             bsr_ops._check(bc, v, torch.zeros(4, x.shape[0]).T)
         with pytest.raises(ValueError, match="block_cols"):
             bsr_ops._check(bc[:, :1], v, x)
+
+    def test_rejects_tile_rows_past_int32(self):
+        """The wgmma variant addresses values as [n_rb * S * 128, 128] rows
+        with int32 TMA coordinates (meta tensors: no memory is taken)."""
+        n_rb, slots = 2 ** 20, 16             # n_rb * S * 128 = 2^31
+        with pytest.raises(ValueError, match="int32"):
+            bsr_ops._check(
+                torch.empty(n_rb, slots, dtype=torch.int32, device="meta"),
+                torch.empty(n_rb, slots, BLOCK, BLOCK, device="meta"),
+                torch.empty(n_rb * BLOCK, 8, device="meta"))
+
+
+def _tf32_rna(a: np.ndarray) -> np.ndarray:
+    """Round f32 to tf32 (10 explicit mantissa bits), to nearest with ties
+    away from zero: cvt.rna.tf32.f32."""
+    b = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _tf32_trunc(a: np.ndarray) -> np.ndarray:
+    """Truncate f32 to tf32: what the tensor cores read of a raw f32."""
+    b = np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+    return (b & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _bsr_3xtf32(block_cols, values, x, passes: int = 3) -> np.ndarray:
+    """The tensor-core variant's arithmetic (csrc/bsr_spmm.cu, BT >= 2) in
+    numpy f32: values split as hi = trunc(v), lo = rna(v - hi); x as hi =
+    rna(x), lo = rna(x - hi); each slot's hi*hi added into the row block's
+    sum, the small lo*hi + hi*lo terms summed apart over the row block and
+    added at the end (passes=1: hi*hi alone).
+
+    The operands are rounded exactly as on the card, but numpy sums the
+    products in IEEE f32 while the tensor cores accumulate in their own
+    order and truncate, which this cannot reproduce: the card checks
+    (tests/test_torch_gpu.py, chip_smoke.py) decide whether the kernel
+    itself holds the bound."""
+    n_rb, slots, blk, _ = values.shape
+    xb = x.reshape(n_rb, blk, -1)
+    y = np.zeros_like(xb)
+    for i in range(n_rb):
+        cross = np.zeros_like(xb[i])
+        for s in range(slots):
+            v = values[i, s]
+            xs = xb[block_cols[i, s]]
+            vh = _tf32_trunc(v)
+            vl = _tf32_rna(v - vh)
+            xh = _tf32_rna(xs)
+            xl = _tf32_rna(xs - xh)
+            y[i] += vh @ xh
+            if passes == 3:
+                cross += vh @ xl + vl @ xh
+        y[i] += cross
+    return y.reshape(x.shape)
+
+
+class TestBsrSpmm3xTf32:
+    """Why the tensor-core variant splits each operand in three products:
+    the split meets the reference's 1e-5 bound on its own tiles (block 128,
+    as on the card), a single TF32 pass does not."""
+
+    def _case(self, bt):
+        be = _tiles(128, seed=128 + bt)
+        x = np.random.default_rng(1000 + bt).standard_normal(
+            (be.n, bt)).astype(np.float32)
+        y_ref = np.asarray(j_bsr_spmm(jnp.asarray(be.block_cols),
+                                      jnp.asarray(be.values), jnp.asarray(x),
+                                      use_kernel=True, interpret=True))
+        return be, x, y_ref
+
+    @pytest.mark.parametrize("bt", [8, 128])
+    def test_split_meets_the_reference_bound(self, bt):
+        be, x, y_ref = self._case(bt)
+        y = _bsr_3xtf32(be.block_cols, be.values, x)
+        np.testing.assert_allclose(y, y_ref, rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("bt", [8, 128])
+    def test_single_tf32_pass_misses_it(self, bt):
+        be, x, y_ref = self._case(bt)
+        y = _bsr_3xtf32(be.block_cols, be.values, x, passes=1)
+        assert not np.allclose(y, y_ref, rtol=1e-5, atol=1e-5)
+        assert np.abs(y - y_ref).max() > 1e-4
+
+    def test_split_parts(self):
+        """hi and lo are tf32 (low 13 bits clear) and hi + lo is v to
+        within 2^-21 of |v|: the two roundings the kernel uses."""
+        v = np.random.default_rng(5).standard_normal(10_000).astype(
+            np.float32) * np.float32(1e3)
+        for hi in (_tf32_trunc(v), _tf32_rna(v)):
+            lo = _tf32_rna(v - hi)
+            for part in (hi, lo):
+                assert not (part.view(np.uint32) & np.uint32(0x1FFF)).any()
+            gap = np.abs(v.astype(np.float64) - hi - lo.astype(np.float64))
+            assert (gap <= np.abs(v) * 2.0 ** -21).all()
+
+
+class TestBsrSpmmDispatch:
+    """Which kernel variant each width of x takes (a dispatch by shape)."""
+
+    def test_every_width_up_to_256(self):
+        for bt in range(1, 257):
+            want = "ffma" if bt == 1 else "wgmma_3xtf32"
+            assert bsr_ops.variant(bt) == want, bt
+
+    @pytest.mark.parametrize("bt, offset", [(8, 0), (128, 0), (13, 0),
+                                            (1, 0), (16, 1)])
+    def test_tma_ready_pads_what_tma_cannot_load(self, bt, offset):
+        """The tensor-core variant's x: as given when its rows are a
+        multiple of 4 floats at a 16-byte aligned base, else a zero-padded
+        copy of width rounded up to 4 at a new base."""
+        flat = torch.randn(256 * bt + offset)
+        x = flat[offset:].view(256, bt)
+        xk = bsr_ops._tma_ready(x)
+        if bt % 4 == 0 and offset == 0:
+            assert xk is x
+            return
+        assert xk.shape == (256, -(-bt // 4) * 4) and xk.is_contiguous()
+        assert xk.data_ptr() % 16 == 0
+        assert torch.equal(xk[:, :bt], x)
+        assert not xk[:, bt:].any()
+
+    def test_counters_by_variant(self):
+        bsr_ops.reset_launches()
+        assert bsr_ops.launches_by_variant() == dict.fromkeys(
+            bsr_ops.VARIANTS, 0)
+        assert bsr_ops.launches() == 0
+        assert set(bsr_ops.VARIANTS) == {bsr_ops.variant(1),
+                                         bsr_ops.variant(128)}
 
 
 class TestChebStepParity:
@@ -289,6 +417,12 @@ class TestBuild:
         assert "-shared" in flags and "-fPIC" in flags
         for name, path in _build.sources().items():
             assert f'extern "C" int {name}_f32(' in path.read_text()
+
+    def test_library_path_is_the_hashed_target(self):
+        path = _build.library_path("bsr_spmm")
+        assert path.parent == _build.build_dir()
+        assert path.name.startswith("bsr_spmm-") and path.suffix == ".so"
+        assert "bsr_spmm" not in _build._LIBS   # naming it builds nothing
 
     def test_build_dir_is_ignored_and_nothing_built_on_import(self):
         assert _build.build_dir() == REPO / "build" / "repro_torch_kernels"
