@@ -43,7 +43,32 @@ package. Phases, each of which must pass:
      float64 numpy forward and the top-100 against a float64 argsort;
      CUDA-event times, the kernel at the serve_bulk shape beside its bound,
      its plain version and F.embedding_bag, a profile of one serve_bulk
-     step and the peak device memory.
+     step and the peak device memory;
+  6. slice D, the rest of the PPR serve tier:
+     - on slice B's service (NACA0015 x10, fused), one 8-edge update
+       batch: the re-tile keeps the BFS perm; its time and peak memory;
+       the next tick vs the plain solve (L1 <= 1e-5);
+     - `full_config()` (auto) under 32 seeded update batches, each
+       followed by refresh ticks until the refresh queue is empty, between
+       256 warm queries and 10% repeats + 128 fresh ones: answers and
+       refreshed entries within 2 tol of a float64 solve on the graph of
+       their epoch, a rebuild-mode twin within L1 1e-6, the patched device
+       arrays bitwise equal to the host mirror; refresh ticks on naca must
+       launch only bsr_spmm's FFMA variant, ticks after the updates the
+       wgmma variant and cheb_step; host ms per update and per refreshed
+       entry;
+     - chunglu-1m (n = 10^6, m = 13,190,004) on engine auto (hub/tail):
+       128 queries + 13 repeats at max_batch 128, 8 columns vs a float64
+       power solve; hub/tail and COO at BT = 128 vs a float64 COO solve
+       of the same recurrence (hub/tail L1 <= 1e-5; bf16 inv_deg <= 1e-3
+       on a uniform personalization, the reference's case), one apply of
+       each, the tick, peak memory and one update batch (a full hub/tail
+       rebuild);
+     - 256 queries through `full_config()` with FIFO or the deadline
+       scheduler (a 50 ms tenant and one without a deadline), sync or
+       async dispatch, adaptive or fixed rounds: answers against sync FIFO
+       (rtol 1e-5 / atol 1e-6), drain wall time, deadline misses, held
+       ticks.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -627,9 +652,9 @@ def phase_slice_b() -> dict:
         f"bytes")
     del y, t, acc
     profile_tick(eng, p, plan, k=min(cfg.max_top_k, rg.n))
-    del svc, x
-    torch.cuda.empty_cache()
+    del x, p, eng
     return {
+        "svc": svc,     # slice D's paper-size refresh reuses the build
         "launches": counts, "tick_ms": tick_ms, "l1": l1_max,
         "bsr": dict(bsr, err=max(errs.values())), "bsr_narrow": narrow,
         "min_fill": {"coo_ms": coo_ms, "fused_ms": fused_ms},
@@ -871,6 +896,512 @@ def phase_slice_c() -> dict:
     return {"launches": counts, "err": max(errs.values()), "eb": uni}
 
 
+# ---------------------------------------------------------------- slice D --
+def count_delta(before: dict, after: dict) -> dict:
+    """Kernel launches between two `read_counts()` snapshots."""
+    out = {"bsr_spmm": after["bsr_spmm"] - before["bsr_spmm"],
+           "cheb_step": after["cheb_step"] - before["cheb_step"]}
+    for k, v in after["bsr_spmm_variants"].items():
+        out[k] = v - before["bsr_spmm_variants"][k]
+    return out
+
+
+def add_counts(*parts) -> dict:
+    """Sum of `read_counts()` results of several main paths."""
+    out = {"bsr_spmm": 0, "cheb_step": 0, "bsr_spmm_variants": {},
+           "applies": {}}
+    for c in parts:
+        out["bsr_spmm"] += c["bsr_spmm"]
+        out["cheb_step"] += c["cheb_step"]
+        for key in ("bsr_spmm_variants", "applies"):
+            for k, v in c[key].items():
+                out[key][k] = out[key].get(k, 0) + v
+    return out
+
+
+def update_batches(svc, count: int, seed: int) -> list:
+    """`count` edge-update batches alternating over the registry's graphs,
+    each edge drawn as the serve launcher draws it (u in the lower half of
+    the ids, v in the upper): 1-8 inserts per batch, and every other batch
+    of a graph also deletes 1-3 edges an earlier batch of it inserted."""
+    rng = np.random.default_rng(seed)
+    names = svc.registry.names()
+    inserted = {nm: [] for nm in names}
+    out = []
+    for b in range(count):
+        nm = names[b % len(names)]
+        n = svc.registry.get(nm).n
+        ins = [(int(rng.integers(0, n // 2)), int(rng.integers(n // 2, n)))
+               for _ in range(int(rng.integers(1, 9)))]
+        dele = []
+        if (b // len(names)) % 2 == 1 and inserted[nm]:
+            for _ in range(min(len(inserted[nm]), int(rng.integers(1, 4)))):
+                dele.append(inserted[nm].pop(
+                    int(rng.integers(0, len(inserted[nm])))))
+        inserted[nm].extend(ins)
+        out.append((nm, ins, dele))
+    return out
+
+
+def ppr_oracle(g, c: float):
+    """seeds -> float64 x = (1 - c)(I - cP)^{-1} p (p uniform over the
+    seeds) by one sparse LU of I - cP."""
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import splu
+    deg = np.maximum(g.deg, 1).astype(float)
+    P = sp.csc_matrix((1.0 / deg[g.src], (g.dst, g.src)), shape=(g.n, g.n))
+    lu = splu(sp.identity(g.n, format="csc") - c * P)
+
+    def solve(seeds):
+        p = np.zeros(g.n)
+        p[list(seeds)] = 1.0 / len(seeds)
+        return (1.0 - c) * lu.solve(p)
+    return solve
+
+
+def answer_err(idx, scores, x) -> float:
+    return float(np.max(np.abs(np.asarray(scores) - x[np.asarray(idx)])))
+
+
+def mirror_matches_device(rg) -> bool:
+    """The patched device arrays equal the host mirror, the weights cast
+    as `device_graph` casts them, bit for bit."""
+    import torch
+    es, dg = rg.slots, rg.dg
+    inv = torch.from_numpy(1.0 / np.maximum(es.deg, 1))
+    return (torch.equal(dg.src.cpu(), torch.from_numpy(es.src))
+            and torch.equal(dg.dst.cpu(), torch.from_numpy(es.dst))
+            and torch.equal(dg.w.cpu(),
+                            torch.from_numpy(es.w64).to(dg.w.dtype))
+            and torch.equal(dg.inv_deg.cpu(), inv.to(dg.inv_deg.dtype)))
+
+
+def solve_columns(eng, n: int, seeds):
+    """cpaa at tol 1e-6 of one column per seed vertex (L1 parity probe)."""
+    import torch
+    from repro_torch.core.pagerank import cpaa
+    p = torch.zeros(n, len(seeds), device="cuda")
+    p[torch.tensor(seeds, device="cuda"),
+      torch.arange(len(seeds), device="cuda")] = 1.0
+    return cpaa(eng, tol=1e-6, p=p).pi
+
+
+def phase_slice_d_updates() -> dict:
+    """Slice D's update stream at `full_config()` (auto engines, the
+    config's incremental updates, invalidation radius 2, refresh batch 8):
+    256 seeded queries, 32 batches each followed by refresh ticks until the
+    refresh queue is empty, then 10% repeats and 128 fresh queries. A
+    second service in update_mode "rebuild" takes the same batches."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.configs.pagerank_serve import full_config, make_service
+    from repro_torch.serve.pagerank_service import PPRQuery
+    cfg = full_config()
+    svc = make_service(cfg, device="cuda")
+    svc_r = make_service(replace(cfg, update_mode="rebuild"), device="cuda")
+    engines = {nm: type(svc.registry.get(nm).engine).__name__
+               for nm in svc.registry.names()}
+    queries = seeded_queries(svc, 256, seed=20, top_k=8)
+    batches = update_batches(svc, 32, seed=21)
+    reset_counts()
+    results = {}
+    for q in queries:
+        svc.submit(q)
+    results.update(svc.run_until_drained())
+    torch.cuda.synchronize()
+    refresh = {"bsr_spmm": 0, "cheb_step": 0, "ffma": 0, "wgmma_3xtf32": 0}
+    upd_ms = {nm: [] for nm in svc.registry.names()}
+    refresh_s, refreshed, refresh_err, refresh_checked = 0.0, 0, 0.0, 0
+    for nm, ins, dele in batches:
+        t0 = time.perf_counter()
+        svc.update_graph(nm, insert=ins, delete=dele)
+        torch.cuda.synchronize()
+        upd_ms[nm].append((time.perf_counter() - t0) * 1e3)
+        svc_r.update_graph(nm, insert=ins, delete=dele)
+        keys = list(svc._refresh)
+        before = read_counts()
+        done0 = svc.stats["refreshes"]
+        t0 = time.perf_counter()
+        for _ in range(len(keys) + 1):      # refresh until the queue empties
+            if not svc._refresh:
+                break
+            svc.refresh_tick()
+        torch.cuda.synchronize()
+        refresh_s += time.perf_counter() - t0
+        refreshed += svc.stats["refreshes"] - done0
+        for k, v in count_delta(before, read_counts()).items():
+            refresh[k] += v
+        check(not svc._refresh, "slice D: the refresh queue did not empty")
+        rg = svc.registry.get(nm)
+        live = [k for k in keys if k[1] == rg.epoch and
+                svc.cache.get(k, count=False) is not None][:4]
+        if live:
+            solve = ppr_oracle(rg.host, cfg.c)
+            for key in live:
+                idx, scores = svc.cache.get(key, count=False)
+                err = answer_err(idx, scores, solve(key[2]))
+                check(err <= 2 * cfg.tol, f"slice D: refreshed entry {key} "
+                      f"{err:.3e} from the oracle at epoch {rg.epoch}")
+                refresh_err = max(refresh_err, err)
+                refresh_checked += 1
+    repeats = repeats_of(queries, len(queries) // 10)
+    fresh = [PPRQuery(qid=1000 + q.qid, graph=q.graph, seeds=q.seeds,
+                      top_k=q.top_k)
+             for q in seeded_queries(svc, 128, seed=22, top_k=8)]
+    before = read_counts()
+    for q in repeats + fresh:
+        svc.submit(q)
+    results.update(svc.run_until_drained())
+    torch.cuda.synchronize()
+    after_updates = count_delta(before, read_counts())
+    counts = read_counts()
+    st = svc.stats
+    check(len(results) == len(queries) + len(repeats) + len(fresh),
+          "slice D: not every query answered")
+    check(st["queries"] == st["cache_hits"] + st["solved_queries"]
+          + st["dropped_queries"], "slice D: disposition accounting broken")
+    for key in ("incremental_updates", "cache_retained", "refreshes"):
+        check(st[key] > 0, f"slice D: {key} is 0: {st}")
+
+    # every final answer against the oracle on the graph it was served at
+    worst = 0.0
+    by_graph = {}
+    for q in repeats + fresh:
+        by_graph.setdefault(q.graph, []).append(q)
+    for nm, qs in by_graph.items():
+        rg = svc.registry.get(nm)
+        solve = ppr_oracle(rg.host, cfg.c)
+        for q in qs:
+            r = results[q.qid]
+            check(r.epoch == rg.epoch, f"slice D q{q.qid}: stale epoch")
+            err = answer_err(r.indices, r.scores, solve(q.seeds))
+            check(err <= 2 * cfg.tol, f"slice D {nm} q{q.qid}: |answer - "
+                  f"oracle| {err:.3e} > 2 tol (cached {r.cached})")
+            worst = max(worst, err)
+
+    # incremental against rebuild, and the patched arrays against the mirror
+    l1_rebuild, mirrors = {}, {}
+    for nm in svc.registry.names():
+        rg, rr = svc.registry.get(nm), svc_r.registry.get(nm)
+        check(np.array_equal(rg.keys, rr.keys),
+              f"slice D {nm}: incremental and rebuild key sets differ")
+        seeds = [int(s) for s in np.linspace(0, rg.n - 1, 8)]
+        a = solve_columns(rg.engine, rg.n, seeds)
+        b = solve_columns(rr.engine, rr.n, seeds)
+        l1_rebuild[nm] = float((a - b).abs().sum(dim=0).max())
+        check(l1_rebuild[nm] <= 1e-6, f"slice D {nm}: incremental vs "
+              f"rebuild L1 {l1_rebuild[nm]:.3e} > 1e-6")
+        mirrors[nm] = rg.slots is not None and mirror_matches_device(rg)
+        check(mirrors[nm], f"slice D {nm}: device arrays differ from the "
+              "host mirror")
+    log(f"slice D update stream: engines {engines}; stats {st}")
+    check(engines == {"naca": "FusedBlockEllEngine", "kmer": "CooEngine"},
+          f"slice D: auto picked {engines}")
+    med = {nm: float(np.median(v)) for nm, v in upd_ms.items()}
+    log("slice D: host ms per update batch (median of "
+        + ", ".join(f"{nm} {len(v)}" for nm, v in upd_ms.items())
+        + "): " + ", ".join(f"{nm} {v:.3f} ms" for nm, v in med.items())
+        + f"; {refreshed} refreshed entries at "
+        f"{refresh_s * 1e3 / max(refreshed, 1):.3f} ms each")
+    log(f"slice D launches: refresh ticks {refresh}; ticks after the "
+        f"updates {after_updates}; whole path {counts}")
+    check(refresh["ffma"] > 0 and refresh["wgmma_3xtf32"] == 0
+          and refresh["cheb_step"] == 0, f"slice D: refresh ticks on naca "
+          f"are not all FFMA bsr_spmm without cheb_step: {refresh}")
+    check(after_updates["wgmma_3xtf32"] > 0 and after_updates["cheb_step"]
+          > 0, f"slice D: ticks after the updates missed a kernel: "
+          f"{after_updates}")
+    log(f"slice D: max |answer - float64 oracle| {worst:.3e} over the final "
+        f"answers, {refresh_err:.3e} over {refresh_checked} refreshed "
+        f"entries (bound 2 tol = 2e-04); incremental vs rebuild L1 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in l1_rebuild.items())
+        + " (bound 1e-6); patched arrays equal the host mirror bitwise")
+    del svc, svc_r
+    return {"launches": counts, "update_ms": med, "refreshed": refreshed}
+
+
+def float64_ppr(g, c: float, seeds_list, iters: int = 100) -> np.ndarray:
+    """[n, len(seeds_list)] float64 PPR by `iters` power rounds on scipy
+    (error below c^iters in L1; an LU of a scale-free graph fills in)."""
+    import scipy.sparse as sp
+    deg = np.maximum(g.deg, 1).astype(float)
+    P = sp.csr_matrix((1.0 / deg[g.src], (g.dst, g.src)), shape=(g.n, g.n))
+    p = np.zeros((g.n, len(seeds_list)))
+    for j, seeds in enumerate(seeds_list):
+        p[list(seeds), j] = 1.0 / len(seeds)
+    x = p.copy()
+    for _ in range(iters):
+        x = c * (P @ x) + (1.0 - c) * p
+    return x
+
+
+def phase_slice_d_scale() -> dict:
+    """chunglu-1m on engine auto (hub/tail) through the service at
+    max_batch 128; hub/tail against COO on the card, f32 and bf16."""
+    import torch
+    from repro_torch.core.engine import CooEngine, HubTailEngine
+    from repro_torch.core.pagerank import cpaa_fixed
+    from repro_torch.graph.datasets import SCALE_FAMILIES
+    from repro_torch.graph.ops import device_graph
+    from repro_torch.serve import GraphRegistry, PageRankService
+    t0 = time.perf_counter()
+    g = SCALE_FAMILIES["chunglu-1m"]()
+    gen_s = time.perf_counter() - t0
+    check(g.n == 1_000_000 and g.m == 13_190_004,
+          f"slice D: chunglu-1m is n={g.n} m={g.m}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reg = GraphRegistry(device="cuda", batch_hint=128)
+    rg = reg.register("chunglu", g)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    eng = rg.engine
+    check(isinstance(eng, HubTailEngine), f"slice D: auto picked "
+          f"{type(eng).__name__} on chunglu-1m")
+    hub_edges = int(eng.panel_cols.numel())
+    log(f"slice D: chunglu-1m n={g.n} m={g.m} generated in {gen_s:.2f} s, "
+        f"registered in {build_s:.2f} s: {eng.n_hubs} hubs, "
+        f"{eng.panel_cols.shape[0]} panels of {eng.panel_width} "
+        f"({hub_edges} slots), {eng.tail_src.numel()} tail edges; peak "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    svc = PageRankService(reg, max_batch=128, cache_capacity=65536,
+                          max_top_k=32, adaptive=True)
+    queries = seeded_queries(svc, 128, seed=30, top_k=32)
+    repeats = repeats_of(queries, 13)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    results, st, secs = drive(svc, queries, repeats)
+    ev1.record()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    tick_ms = ev0.elapsed_time(ev1)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"slice D chunglu-1m: stats {st}; applies {counts['applies']}; tick "
+        f"{tick_ms:.1f} ms between CUDA events ({secs[0] * 1e3:.1f} ms host) "
+        f"for {st['rounds_used']} rounds; peak device memory {peak} bytes")
+    check(st["solves"] == 1 and st["cache_hits"] == len(repeats),
+          f"slice D chunglu-1m: expected one tick and {len(repeats)} hits")
+    check(counts["applies"].get("hub_tail", 0) == st["rounds_used"],
+          f"slice D chunglu-1m: the tick did not run on hub/tail: {counts}")
+    x = float64_ppr(g, 0.85, [q.seeds for q in queries[:8]])
+    worst = 0.0
+    for j, q in enumerate(queries[:8]):
+        r = results[q.qid]
+        err = answer_err(r.indices, r.scores, x[:, j])
+        check(err <= 2e-4, f"slice D chunglu-1m q{q.qid}: |answer - "
+              f"oracle| {err:.3e} > 2 tol")
+        worst = max(worst, err)
+    del x
+
+    # hub/tail (f32, bf16) and COO over the registry's padded device graph
+    # at BT = 128, held to a float64 COO solve of the same recurrence (16
+    # columns): COO's f32 sums over hub rows of tens of thousands of
+    # in-edges drift further from float64 than the panels' row sums do
+    p = personalization(svc, queries, 128)
+    sched, coeffs = reg.schedule(0.85, 1e-4)
+    coo = CooEngine(rg.dg)
+    pi_c, _ = cpaa_fixed(coo, coeffs, p, rounds=sched.rounds)
+    pi_h, _ = cpaa_fixed(eng, coeffs, p, rounds=sched.rounds)
+    l1_hc = float((pi_h - pi_c).abs().sum(dim=0).max())
+    f64 = CooEngine(device_graph(g, torch.float64, device="cuda"))
+    c64 = coeffs.double()
+    cols = 16
+    pi_d, _ = cpaa_fixed(f64, c64, p[:, :cols].double(), rounds=sched.rounds)
+
+    def l1_f64(pi):
+        return float((pi[:, :cols].double() - pi_d).abs().sum(dim=0).max())
+    l1_h, l1_c = l1_f64(pi_h), l1_f64(pi_c)
+    del pi_h, pi_c
+    t0 = time.perf_counter()
+    eng_bf = HubTailEngine.from_graph(g, weight_dtype=torch.bfloat16,
+                                      device="cuda")
+    bf_build_s = time.perf_counter() - t0
+    pi_b, _ = cpaa_fixed(eng_bf, coeffs, p, rounds=sched.rounds)
+    l1_b = l1_f64(pi_b)
+    # the reference's bf16 bound is stated for a uniform personalization
+    # (tests/test_hub_tail.py); seeded columns are printed beside it
+    u = torch.full((g.n,), 1.0 / g.n, device="cuda")
+    pu_b, _ = cpaa_fixed(eng_bf, coeffs, u, rounds=sched.rounds)
+    pu_d, _ = cpaa_fixed(f64, c64, u.double(), rounds=sched.rounds)
+    l1_bu = float((pu_b.double() - pu_d).abs().sum())
+    del pi_b, pi_d, pu_b, pu_d, eng_bf, f64
+    check(l1_h <= 1e-5, f"slice D chunglu-1m: hub/tail vs float64 L1 "
+          f"{l1_h:.3e}")
+    check(l1_bu <= 1e-3, f"slice D chunglu-1m: bf16 hub/tail vs float64 L1 "
+          f"{l1_bu:.3e} (uniform p)")
+    torch.cuda.reset_peak_memory_stats()
+    ht_ms = time_ms(lambda: eng.apply(p), 5)
+    ht_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    coo_ms = time_ms(lambda: coo.apply(p), 3)
+    coo_peak = torch.cuda.max_memory_allocated()
+    log(f"slice D chunglu-1m: |answer - float64 oracle| {worst:.3e} over 8 "
+        f"columns (bound 2e-04); L1 per column against a float64 COO solve "
+        f"of the same 16-round recurrence ({cols} columns): hub/tail f32 "
+        f"{l1_h:.3e} (bound 1e-5), COO f32 {l1_c:.3e}, hub/tail bf16 "
+        f"{l1_b:.3e} (uniform p {l1_bu:.3e}, bound 1e-3; built in "
+        f"{bf_build_s:.2f} s); hub/tail vs COO {l1_hc:.3e} over 128 "
+        f"columns; one apply at BT=128: hub/tail {ht_ms:.3f} ms (peak "
+        f"{ht_peak} bytes), COO {coo_ms:.3f} ms (peak {coo_peak} bytes)")
+    del coo
+    rng = np.random.default_rng(31)
+    ins = [(int(rng.integers(0, g.n // 2)), int(rng.integers(g.n // 2, g.n)))
+           for _ in range(8)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svc.update_graph("chunglu", insert=ins)
+    torch.cuda.synchronize()
+    upd_s = time.perf_counter() - t0
+    check(isinstance(rg.engine, HubTailEngine) and rg.epoch == 1,
+          "slice D chunglu-1m: the update did not rebuild hub/tail")
+    r = svc.query("chunglu", queries[0].seeds, top_k=32)
+    check(np.all(np.isfinite(r.scores)) and r.epoch == 1,
+          "slice D chunglu-1m: bad answer after the update")
+    log(f"slice D chunglu-1m: one update batch of 8 edges (in-place patch "
+        f"+ full hub/tail rebuild) {upd_s * 1e3:.1f} ms host")
+    del svc, reg, rg, eng, p
+    torch.cuda.empty_cache()
+    return {"launches": counts, "tick_ms": tick_ms, "ht_ms": ht_ms,
+            "coo_ms": coo_ms, "l1_f64": l1_h, "l1_coo": l1_hc,
+            "update_s": upd_s, "peak": peak}
+
+
+def phase_slice_d_paper_refresh(svc) -> dict:
+    """One 8-edge update batch on slice B's NACA0015 x10 (fused): the re-tile
+    keeps the BFS perm, then one tick checked against the plain solve."""
+    import torch
+    from repro_torch.core.pagerank import cpaa_adaptive_fixed
+    rg = svc.registry.get("naca")
+    perm0 = rg.engine.perm.clone()
+    rng = np.random.default_rng(40)
+    n = rg.n
+    ins = [(int(rng.integers(0, n // 2)), int(rng.integers(n // 2, n)))
+           for _ in range(8)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc.update_graph("naca", insert=ins)
+    torch.cuda.synchronize()
+    upd_s = time.perf_counter() - t0
+    upd_peak = torch.cuda.max_memory_allocated()
+    eng = rg.engine
+    check(rg.last_update_incremental, "slice D paper: not incremental")
+    check(torch.equal(eng.perm, perm0), "slice D paper: the BFS perm was "
+          "not reused")
+    del perm0
+    queries = seeded_queries(svc, 128, seed=41, top_k=32)
+    solves0 = svc.stats["solves"]
+    reset_counts()
+    results, st, secs = drive(svc, queries, [])
+    counts = read_counts()
+    check(st["solves"] == solves0 + 1, "slice D paper: expected one tick")
+    check(counts["bsr_spmm_variants"]["wgmma_3xtf32"] > 0 and
+          counts["cheb_step"] > 0, f"slice D paper: a kernel of the tick "
+          f"was not launched: {counts}")
+    p = personalization(svc, queries, 128)
+    plan = svc.registry.adaptive_schedule(0.85, 1e-4)
+    pi_k, _, cols_k, _ = cpaa_adaptive_fixed(
+        eng, p, plan.c, plan.tol, max_rounds=plan.max_rounds,
+        chunk=plan.chunk)
+    pi_p, _, cols_p, _ = cpaa_adaptive_fixed(
+        eng.with_kernels(False), p, plan.c, plan.tol,
+        max_rounds=plan.max_rounds, chunk=plan.chunk)
+    l1 = float((pi_k - pi_p).abs().sum(dim=0).max())
+    check(torch.equal(cols_k, cols_p) and l1 <= 1e-5, f"slice D paper: "
+          f"kernel vs plain solve after the update L1 {l1:.3e}")
+    log(f"slice D paper: update of 8 edges on NACA0015 x10 (patch, hop BFS, "
+        f"re-tile with the kept perm, 4.26 GB upload) {upd_s:.2f} s host, "
+        f"peak device memory {upd_peak} bytes; next tick "
+        f"{secs[0] * 1e3:.1f} ms host, launches {counts}; kernel vs plain "
+        f"L1 {l1:.3e}")
+    del pi_k, pi_p, p, eng
+    return {"launches": counts, "update_s": upd_s, "l1": l1,
+            "peak": upd_peak}
+
+
+def phase_slice_d_scheduler() -> dict:
+    """The same queries (alternating an "interactive" tenant with a 50 ms
+    deadline and a "batch" tenant without one) through `full_config()`'s
+    graphs eight ways: FIFO or deadline scheduler, sync or async dispatch,
+    adaptive or fixed rounds, five rounds of the eight interleaved (drain
+    wall times as median and range). Each answer is held to sync FIFO in
+    the same round mode: scores rtol 1e-5 / atol 1e-6, ids equal at every
+    rank that no score within 1e-6 could swap."""
+    import torch
+    from dataclasses import replace
+    from repro_torch.configs.pagerank_serve import full_config, make_service
+    from repro_torch.serve import PageRankService, TenantSpec
+    cfg = full_config()
+    svc0 = make_service(cfg, device="cuda")
+    reg = svc0.registry
+    base = seeded_queries(svc0, 256, seed=50, top_k=8)
+    del svc0
+    tenants = [TenantSpec(name="interactive", priority=2, deadline_s=0.05),
+               TenantSpec(name="batch", priority=1)]
+
+    def run(scheduler, async_dispatch, adaptive, queries):
+        svc = PageRankService(
+            reg, max_batch=cfg.max_batch, cache_capacity=cfg.cache_capacity,
+            max_top_k=cfg.max_top_k, adaptive=adaptive, scheduler=scheduler,
+            tenants=tenants, async_dispatch=async_dispatch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in queries:
+            svc.submit(q)
+        res = svc.run_until_drained()
+        torch.cuda.synchronize()
+        return res, svc.stats, time.perf_counter() - t0
+
+    queries = [replace(q, tenant="interactive" if i % 2 else "batch")
+               for i, q in enumerate(base)]
+    run("fifo", False, True, queries)           # warm-up, not timed
+    reset_counts()
+    runs, walls = {}, {}
+    for _ in range(5):
+        for adaptive in (True, False):
+            for scheduler in ("fifo", "deadline"):
+                for async_dispatch in (False, True):
+                    key = (adaptive, scheduler, async_dispatch)
+                    res, st, wall = run(scheduler, async_dispatch, adaptive,
+                                        queries)
+                    runs.setdefault(key, (res, st))
+                    walls.setdefault(key, []).append(wall * 1e3)
+    counts = read_counts()
+    unpinned = 0
+    for (adaptive, scheduler, async_dispatch), (res, _) in runs.items():
+        ref = runs[(adaptive, "fifo", False)][0]
+        check(sorted(res) == sorted(ref), "slice D scheduler: answers lost")
+        for qid, a in ref.items():
+            b = res[qid]
+            check(np.allclose(b.scores, a.scores, rtol=1e-5, atol=1e-6),
+                  f"slice D scheduler {scheduler} async={async_dispatch} "
+                  f"adaptive={adaptive} q{qid}: scores differ from sync FIFO")
+            s = a.scores.astype(float)
+            gap = np.abs(np.diff(s)) > 1e-6
+            pinned = np.ones(len(s), bool)
+            pinned[1:] &= gap
+            pinned[:-1] &= gap
+            pinned[-1] = False
+            unpinned += int((~pinned).sum())
+            check(np.array_equal(a.indices[pinned], b.indices[pinned]),
+                  f"slice D scheduler {scheduler} async={async_dispatch} "
+                  f"adaptive={adaptive} q{qid}: top-k ids differ")
+    for key, (_, st) in runs.items():
+        adaptive, scheduler, async_dispatch = key
+        w = walls[key]
+        log(f"slice D scheduler: {'adaptive' if adaptive else 'fixed'} "
+            f"{scheduler} {'async' if async_dispatch else 'sync'}: drain "
+            f"median {float(np.median(w)):.2f} ms (range {min(w):.2f}-"
+            f"{max(w):.2f}, 5 runs), {st['solves']} solves, deadline "
+            f"misses {st['deadline_misses']}, held ticks {st['held_ticks']}")
+    log(f"slice D scheduler: every answer agrees with sync FIFO (rtol 1e-5, "
+        f"atol 1e-6; ids at every rank no score within 1e-6 could swap, "
+        f"{unpinned} ranks unpinned); launches {counts}")
+    return {"launches": counts}
+
+
 def profile_device(fn, label: str) -> dict:
     """Device-time breakdown of one call of `fn` (torch.profiler, after one
     warm call): the kernels by device time and the device's idle share of
@@ -945,7 +1476,14 @@ def main() -> int:
     kerr = phase_kernels()
     a = phase_slice_a()
     b = phase_slice_b()
+    d_paper = phase_slice_d_paper_refresh(b.pop("svc"))
+    torch.cuda.empty_cache()
     c = phase_slice_c()
+    d_upd = phase_slice_d_updates()
+    d_scale = phase_slice_d_scale()
+    d_sched = phase_slice_d_scheduler()
+    d = add_counts(d_upd["launches"], d_scale["launches"],
+                   d_paper["launches"], d_sched["launches"])
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
@@ -954,12 +1492,15 @@ def main() -> int:
         {"name": "bsr_spmm", "route": "cuda",
          "source": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
          "replaces": "src/repro/kernels/bsr_spmm/bsr_spmm.py:42",
-         "launches": a["launches"]["bsr_spmm"] + b["launches"]["bsr_spmm"],
+         "launches": a["launches"]["bsr_spmm"] + b["launches"]["bsr_spmm"]
+         + d["bsr_spmm"],
          "launches_by_path": {"slice_a": a["launches"]["bsr_spmm"],
-                              "slice_b": b["launches"]["bsr_spmm"]},
+                              "slice_b": b["launches"]["bsr_spmm"],
+                              "slice_d": d["bsr_spmm"]},
          "launches_by_variant": {
              k: a["launches"]["bsr_spmm_variants"][k]
              + b["launches"]["bsr_spmm_variants"][k]
+             + d["bsr_spmm_variants"].get(k, 0)
              for k in a["launches"]["bsr_spmm_variants"]},
          "max_abs_err": max(kerr["bsr_spmm"], b["bsr"]["err"]),
          "ms": b["bsr"]["ms"], "plain_ms": b["bsr"]["plain_ms"],
@@ -968,9 +1509,11 @@ def main() -> int:
         {"name": "cheb_step", "route": "cuda",
          "source": "src/repro_torch/kernels/cheb_step/csrc/cheb_step.cu",
          "replaces": "src/repro/kernels/cheb_step/cheb_step.py:40",
-         "launches": a["launches"]["cheb_step"] + b["launches"]["cheb_step"],
+         "launches": a["launches"]["cheb_step"] + b["launches"]["cheb_step"]
+         + d["cheb_step"],
          "launches_by_path": {"slice_a": a["launches"]["cheb_step"],
-                              "slice_b": b["launches"]["cheb_step"]},
+                              "slice_b": b["launches"]["cheb_step"],
+                              "slice_d": d["cheb_step"]},
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},

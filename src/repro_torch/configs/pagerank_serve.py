@@ -3,12 +3,13 @@
 
 `PPRServeConfig`, `full_config`, `smoke_config` and `serve_config` are
 copies of the reference's; `make_service` builds the port's registry and
-service on a device (None = cuda). Knobs of paths not ported yet are kept
-so the configs stay identical: the engine modes "tuned", "hub-tail" and
-"sharded-*", `scheduler="deadline"` and `async_dispatch=True` raise
-NotImplementedError when the service is built; the update, tuning,
-ingestion-chunk, mesh and observability knobs are carried and have no
-effect until their slice.
+service on a device (None = cuda), with the engine, update, cache,
+refresh and scheduling knobs wired as in the reference. Knobs of paths
+not ported yet are kept so the configs stay identical: the engine modes
+"tuned" and "sharded-*" raise NotImplementedError when the registry
+builds a graph; `tune_cache`, `tune_budget_s`, `tune_require_cached`
+(ROADMAP A7), `mesh_grid`, `partition_lane` (A10), `ingest_chunk_edges`
+and `metrics_detail` (A8) are carried and have no effect.
 """
 from __future__ import annotations
 
@@ -30,14 +31,15 @@ class PPRServeConfig:
     max_batch: int = 32
     cache_capacity: int = 4096
     max_top_k: int = 16
-    # solve-engine format: "auto", "coo", "block_ell", "fused" (and the
-    # reference's "tuned", "hub-tail", "sharded-1d", "sharded-2d", which
-    # raise until ported)
+    # solve-engine format: "auto", "coo", "hub-tail", "block_ell", "fused"
+    # (and the reference's "tuned", "sharded-1d", "sharded-2d", which raise
+    # until ported)
     engine: str = "auto"
     tune_cache: str | None = None
     tune_budget_s: float = 2.0
     tune_require_cached: bool = False
-    # packed storage dtype for COO edge weights ("bfloat16"); None = f32
+    # packed storage dtype for COO edge weights and hub/tail's inv_deg
+    # ("bfloat16"); None = f32
     weight_dtype: str | None = None
     ingest_chunk_edges: int | None = None
     mesh_grid: tuple[int, int] | None = None
@@ -79,12 +81,11 @@ def make_service(cfg: PPRServeConfig, device=None):
     """Registry with every configured graph warm + the service over it, on
     `device` (None = cuda; raises without a GPU)."""
     from repro_torch.serve.graph_registry import GraphRegistry
-    from repro_torch.serve.pagerank_service import (PageRankService,
-                                                    check_ported)
+    from repro_torch.serve.pagerank_service import PageRankService
     from repro_torch.serve.scheduler import TenantSpec
-    check_ported(cfg.scheduler, cfg.async_dispatch)   # before any build
     reg = GraphRegistry(device=device, engine=cfg.engine,
                         batch_hint=cfg.max_batch,
+                        update_mode=cfg.update_mode,
                         weight_dtype=cfg.weight_dtype)
     for name, dataset, scale in cfg.graphs:
         reg.register(name, generators.paper_dataset(dataset, scale))
@@ -103,6 +104,7 @@ def make_service(cfg: PPRServeConfig, device=None):
                           scheduler=cfg.scheduler, tenants=tenants,
                           default_deadline_s=cfg.default_deadline_s,
                           admission_depth=cfg.admission_depth,
+                          slack_margin_s=cfg.slack_margin_s,
                           async_dispatch=cfg.async_dispatch)
     reg.schedule(cfg.c, cfg.tol)  # precompute the coefficient vector
     return svc

@@ -16,6 +16,7 @@ from repro_torch.core.engine import (
     BlockEllEngine,
     CooEngine,
     FusedBlockEllEngine,
+    HubTailEngine,
     as_engine,
     heuristic_mode,
     select_engine,
@@ -26,14 +27,17 @@ from repro_torch.core.pagerank import (
     cpaa_adaptive,
     cpaa_adaptive_fixed,
     cpaa_fixed,
+    degree_prior,
+    power_refine,
 )
 
 __all__ = [
     "ChebSchedule", "beta", "chunk_tail_ratio", "coefficient", "coefficients",
     "default_chunk", "err_bound", "make_schedule",
     "power_rounds_for_tolerance", "rounds_for_tolerance", "sigma_c",
-    "BlockEllEngine", "CooEngine", "FusedBlockEllEngine", "as_engine",
+    "BlockEllEngine", "CooEngine", "FusedBlockEllEngine", "HubTailEngine",
+    "as_engine",
     "heuristic_mode", "select_engine",
     "PageRankResult", "cpaa", "cpaa_adaptive", "cpaa_adaptive_fixed",
-    "cpaa_fixed",
+    "cpaa_fixed", "degree_prior", "power_refine",
 ]

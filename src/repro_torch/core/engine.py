@@ -7,6 +7,10 @@ work. How P x is computed is a format choice, so it lives behind an engine:
   * CooEngine           — gather + `index_add_` over the COO edge list with
                           the 1/deg[src] weights folded into a per-edge
                           array. Works for any graph and any batch.
+  * HubTailEngine       — degree split for scale-free graphs: edges into
+                          hubs go through fixed-width column panels (a
+                          gather + row-sum), the rest through COO's
+                          gather + `index_add_`.
   * BlockEllEngine      — the block-ELL SpMM kernel (`kernels/bsr_spmm`):
                           vertices BFS-reordered so edges cluster into BxB
                           tiles, each tile a dense product. The engine owns
@@ -28,9 +32,15 @@ a permutation of the caller's vertices plus ZERO-mass padding rows that stay
 zero through every `apply`/`cheb_round`, so column sums and L1 norms on
 internal-layout arrays equal the external ones.
 
+Refresh protocol (edge updates): `eng.refresh(g, delta, dg=...)` returns
+the engine for the updated graph. COO needs nothing when the registry
+patched its own DeviceGraph in place; hub/tail rebuilds on the host (a
+delta can move vertices across the hub bar); block-ELL re-tiles, reusing
+its BFS perm when the delta touched at most REFRESH_PERM_MAX_TOUCHED of
+the vertices.
+
 Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: the hub/tail engine (A3), measured selection ("tuned", A7) and the
-sharded engines (A9). `refresh` (edge updates) comes with A6.
+item: measured selection ("tuned", A7) and the sharded engines (A10).
 """
 from __future__ import annotations
 
@@ -38,8 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.graph.ops import DeviceGraph, as_torch_dtype, device_graph, \
-    spmm, spmv
+from repro_torch.graph.ops import DeviceGraph, as_torch_dtype, \
+    check_int32_range, device_graph, spmm, spmv, upload
 from repro_torch.graph.structure import (BlockEll, Graph, block_fill_rate,
                                          build_block_ell)
 from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
@@ -49,6 +59,7 @@ from repro_torch.kernels.cheb_step.ref import cheb_step_ref
 
 __all__ = [
     "CooEngine",
+    "HubTailEngine",
     "BlockEllEngine",
     "FusedBlockEllEngine",
     "as_engine",
@@ -60,15 +71,17 @@ __all__ = [
     "reset_apply_counts",
 ]
 
+# hub bar of the degree split (the reference's HubTailEngine.DEFAULT_MIN_DEG)
+HUB_MIN_DEG = 32
+
 ENGINE_MODES = ("auto", "tuned", "coo", "hub_tail", "block_ell", "fused",
                 "sharded_1d", "sharded_2d")
 
 # modes of the reference that this port does not run yet -> ROADMAP item
 UNPORTED_MODES = {
-    "hub_tail": "A3 (HubTailEngine)",
     "tuned": "A7 (autotuner)",
-    "sharded_1d": "A9 (sharded engines)",
-    "sharded_2d": "A9 (sharded engines)",
+    "sharded_1d": "A10 (sharded engines)",
+    "sharded_2d": "A10 (sharded engines)",
 }
 
 # Per-engine apply() execution counts (eager: every call is one SpMM).
@@ -126,6 +139,172 @@ class CooEngine:
 
     def cheb_round(self, y, t, acc, ck):
         return _default_cheb_round(y, t, acc, ck)
+
+    def refresh(self, g: Graph | None, delta=None, *, dg: DeviceGraph,
+                **kw) -> "CooEngine":
+        """Refresh after an edge-update batch: when the caller patched this
+        engine's own DeviceGraph in place (the incremental path) the engine
+        is already current; another dg swaps in."""
+        return self if dg is self.dg else CooEngine(dg)
+
+
+class HubTailEngine:
+    """Degree-split SpMM engine for skewed (power-law) graphs at scale.
+
+    On a scale-free graph the hubs — the top few percent of vertices by
+    degree — receive most of the edges. The split sends each edge down the
+    path its DESTINATION's degree earns:
+
+      * hub rows (deg >= hub_min_deg, degree-sorted descending) are packed
+        into fixed-width int32 column panels `panel_cols` [P, W]; a round
+        gathers the panel columns, row-sums them, and reduces the per-panel
+        partials with one small `index_add_` over [P] -> [H];
+      * tail rows keep COO's gather + `index_add_` over the other edges.
+
+    P = A D^{-1} is applied in FACTORED form: xd = x * inv_deg once per
+    round (O(n)), so neither path stores per-edge weights. Panel padding
+    holds the sentinel column id n, which indexes a zero row appended to
+    xd inside `apply`, so padding adds exactly 0.0 (the mass invariant);
+    the internal layout is the identity.
+
+    `inv_deg` may be packed (bf16); it is upcast to the solve dtype before
+    the multiply, so accumulation stays at full precision. On CUDA the
+    `index_add_`s add with atomics: the order of the sums is not fixed.
+    """
+
+    name = "hub_tail"
+    DEFAULT_MIN_DEG = HUB_MIN_DEG   # hub bar: deg >= 32
+    DEFAULT_PANEL_WIDTH = 32        # columns per panel
+
+    def __init__(self, inv_deg: torch.Tensor, tail_src: torch.Tensor,
+                 tail_dst: torch.Tensor, panel_cols: torch.Tensor,
+                 panel_hub: torch.Tensor, hub_ids: torch.Tensor, n_orig: int,
+                 hub_min_deg: int, panel_width: int,
+                 acc_dtype=torch.float32):
+        self.inv_deg = inv_deg         # [n] weight dtype (packed ok)
+        self.tail_src = tail_src       # [m_tail] int32
+        self.tail_dst = tail_dst       # [m_tail] int32
+        self.panel_cols = panel_cols   # [P, W] int32, sentinel n = padding
+        self.panel_hub = panel_hub     # [P] int32 hub rank of each panel
+        self.hub_ids = hub_ids         # [H] int32 vertex id per hub rank
+        self.n_orig = n_orig
+        self.hub_min_deg = hub_min_deg
+        self.panel_width = panel_width
+        self.acc_dtype = as_torch_dtype(acc_dtype)
+
+    @classmethod
+    def from_graph(cls, g: Graph, hub_min_deg: int | None = None,
+                   panel_width: int | None = None, dtype=torch.float32,
+                   weight_dtype=None, device=None) -> "HubTailEngine":
+        """Host build in numpy, then one transfer: degree-sort the hubs,
+        lexsort their edges by (hub rank, src) for gather locality, pack
+        into W-wide panels. O(m log m). `device` None means cuda."""
+        dev = resolve_device(device)
+        check_int32_range(g.n, g.m, what="HubTailEngine")
+        thr = cls.DEFAULT_MIN_DEG if hub_min_deg is None else int(hub_min_deg)
+        width = cls.DEFAULT_PANEL_WIDTH if panel_width is None \
+            else int(panel_width)
+        dtype = as_torch_dtype(dtype)
+        wdtype = dtype if weight_dtype is None \
+            else as_torch_dtype(weight_dtype)
+        n = g.n
+        src = g.src
+        dst = g.dst
+        deg = np.bincount(src, minlength=n)
+        inv_deg = 1.0 / np.maximum(deg, 1)
+
+        hub_mask_v = deg >= thr
+        hub_ids = np.flatnonzero(hub_mask_v)
+        hub_ids = hub_ids[np.argsort(-deg[hub_ids],
+                                     kind="stable")].astype(np.int32)
+        n_hubs = int(hub_ids.size)
+        hub_rank = np.full(n, -1, np.int64)
+        hub_rank[hub_ids] = np.arange(n_hubs)
+        is_hub = hub_mask_v[dst]
+        hsrc = src[is_hub]
+        hr = hub_rank[dst[is_hub]]
+        tail_src = np.ascontiguousarray(src[~is_hub])
+        tail_dst = np.ascontiguousarray(dst[~is_hub])
+        order = np.lexsort((hsrc, hr))
+        hsrc, hr = hsrc[order], hr[order]
+        hdeg = np.bincount(hr, minlength=n_hubs)
+        panels_per_hub = np.maximum((hdeg + width - 1) // width, 1)
+        n_panels = int(panels_per_hub.sum())
+        cols = np.full((n_panels, width), n, np.int32)  # n -> zero sentinel
+        panel_hub = np.repeat(np.arange(n_hubs, dtype=np.int32),
+                              panels_per_hub)
+        panel_base = np.concatenate([[0], np.cumsum(panels_per_hub)[:-1]])
+        starts = np.concatenate([[0], np.cumsum(hdeg)[:-1]])
+        pos = panel_base[hr] * width + (np.arange(hsrc.size) - starts[hr])
+        cols.ravel()[pos] = hsrc
+        return cls(inv_deg=upload(inv_deg, wdtype, dev),
+                   tail_src=upload(tail_src, torch.int32, dev),
+                   tail_dst=upload(tail_dst, torch.int32, dev),
+                   panel_cols=upload(cols, torch.int32, dev),
+                   panel_hub=upload(panel_hub, torch.int32, dev),
+                   hub_ids=upload(hub_ids, torch.int32, dev),
+                   n_orig=n, hub_min_deg=thr, panel_width=width,
+                   acc_dtype=dtype)
+
+    @property
+    def n(self) -> int:
+        return self.n_orig
+
+    @property
+    def n_hubs(self) -> int:
+        return self.hub_ids.shape[0]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        # the SOLVE dtype, not the packed storage dtype: solvers build p and
+        # the carries from it, and those stay at accumulation precision
+        return self.acc_dtype
+
+    @property
+    def weight_dtype(self) -> torch.dtype:
+        return self.inv_deg.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.inv_deg.device
+
+    def to_internal(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def from_internal(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        _count_apply(self.name)
+        inv = self.inv_deg
+        if inv.dtype != x.dtype:
+            inv = inv.to(x.dtype)   # packed storage -> full-precision mul
+        rest = tuple(x.shape[1:])
+        xd = x * (inv if x.ndim == 1 else inv[:, None])
+        # sentinel row n: panel padding gathers exactly 0.0
+        xd = torch.cat([xd, xd.new_zeros((1,) + rest)])
+        y = xd.new_zeros((self.n_orig,) + rest).index_add_(
+            0, self.tail_dst, xd.index_select(0, self.tail_src))
+        n_panels, width = self.panel_cols.shape
+        part = xd.index_select(0, self.panel_cols.reshape(-1)).reshape(
+            (n_panels, width) + rest).sum(dim=1)
+        hub_y = xd.new_zeros((self.n_hubs,) + rest).index_add_(
+            0, self.panel_hub, part)
+        return y.index_add_(0, self.hub_ids, hub_y)
+
+    def cheb_round(self, y, t, acc, ck):
+        return _default_cheb_round(y, t, acc, ck)
+
+    def refresh(self, g: Graph, delta=None, *, dg=None,
+                **kw) -> "HubTailEngine":
+        """Rebuild for the updated graph with the same split knobs. A delta
+        can move vertices across the hub bar, so the refresh is a full host
+        rebuild; the registry's padded DeviceGraph is not consulted."""
+        return type(self).from_graph(g, hub_min_deg=self.hub_min_deg,
+                                     panel_width=self.panel_width,
+                                     dtype=self.acc_dtype,
+                                     weight_dtype=self.inv_deg.dtype,
+                                     device=self.device)
 
 
 class BlockEllEngine:
@@ -245,6 +424,28 @@ class BlockEllEngine:
     def cheb_round(self, y, t, acc, ck):
         return _default_cheb_round(y, t, acc, ck)
 
+    # a localized delta barely moves tile fill, so the cached BFS perm stays
+    # good and the rebuild skips the host BFS; past this touched fraction
+    # the locality argument is gone and the BFS runs again
+    REFRESH_PERM_MAX_TOUCHED = 0.25
+
+    def refresh(self, g: Graph, delta=None, *,
+                dg: DeviceGraph | None = None, stable_shapes: bool = True,
+                **kw) -> "BlockEllEngine":
+        """Re-tile for the updated graph on the host and upload. When the
+        delta touched at most REFRESH_PERM_MAX_TOUCHED of the vertices the
+        BFS perm is reused (any perm is valid; only the fill is at stake);
+        a delocalized delta (or none) runs the BFS again. The kernels
+        setting carries over."""
+        perm = None
+        if delta is not None and \
+                delta.touched.size <= self.REFRESH_PERM_MAX_TOUCHED * g.n:
+            perm = self.perm.cpu().numpy()
+        eng = type(self).from_graph(g, block=self.block,
+                                    pad_slots_to_pow2=stable_shapes,
+                                    perm=perm, device=self.device)
+        return eng if self.use_kernel else eng.with_kernels(False)
+
 
 class FusedBlockEllEngine(BlockEllEngine):
     """Block-ELL SpMM + the fused Chebyshev-update kernel in every round."""
@@ -257,7 +458,7 @@ class FusedBlockEllEngine(BlockEllEngine):
         return cheb_step_ref(y, t, acc, ck)
 
 
-def as_engine(obj) -> CooEngine | BlockEllEngine:
+def as_engine(obj) -> CooEngine | HubTailEngine | BlockEllEngine:
     """Coerce a DeviceGraph to the COO engine; pass engines through."""
     if isinstance(obj, DeviceGraph):
         return CooEngine(obj)
@@ -276,11 +477,10 @@ def _default_min_fill(device: torch.device) -> float:
 
 # auto mode considers the hub/tail split only past this size and only when
 # hubs (deg >= HUB_MIN_DEG) receive at least this fraction of all edges
-# (the reference's HUB_TAIL_MIN_N / HUB_TAIL_MIN_EDGE_FRAC /
-# HubTailEngine.DEFAULT_MIN_DEG)
+# (the reference's HUB_TAIL_MIN_N / HUB_TAIL_MIN_EDGE_FRAC, set on a CPU
+# and not yet measured on the card)
 HUB_TAIL_MIN_N = 1 << 17
 HUB_TAIL_MIN_EDGE_FRAC = 0.4
-HUB_MIN_DEG = 32
 
 
 def _hub_edge_fraction(g: Graph, thr: int) -> float:
@@ -327,16 +527,21 @@ def select_engine(g: Graph, batch: int | None = None, mode: str = "auto", *,
     """Pick and build the solve engine for a graph (host side, once per
     epoch).
 
-    mode: "coo" | "block_ell" | "fused" force a format (dashes accepted);
-    "auto" takes, on the one device it is given, COO for tiny graphs and
-    the fused block-ELL engine when the tile fill clears `min_fill`
+    mode: "coo" | "hub_tail" | "block_ell" | "fused" force a format
+    (dashes accepted: "hub-tail"); "auto" takes, on the one device it is
+    given, hub/tail for large skewed graphs (n >= HUB_TAIL_MIN_N and hubs
+    receiving >= HUB_TAIL_MIN_EDGE_FRAC of the edges), COO for tiny graphs
+    and the fused block-ELL engine when the tile fill clears `min_fill`
     (default 0.01 on cuda, 0.05 on cpu), COO otherwise. Modes the port
-    does not run yet ("hub_tail", "tuned", "sharded_1d", "sharded_2d"),
-    and an auto pick of hub_tail, raise NotImplementedError naming the
-    ROADMAP item; no other engine is substituted.
+    does not run yet ("tuned", "sharded_1d", "sharded_2d") raise
+    NotImplementedError naming the ROADMAP item; no other engine is
+    substituted.
     dg: reuse an existing DeviceGraph for the COO path (the registry passes
     its padded device graph). stable_shapes pads the ELL slot count to a
-    power of two. device None means cuda (raises without a GPU).
+    power of two. weight_dtype packs the COO edge weights and hub/tail's
+    inv_deg (bf16 halves them; accumulation stays in `dtype`); the tile
+    engines keep f32 values. device None means cuda (raises without a
+    GPU).
     """
     dev = resolve_device(device)
     mode = mode.replace("-", "_")
@@ -354,6 +559,10 @@ def select_engine(g: Graph, batch: int | None = None, mode: str = "auto", *,
         return CooEngine(dg if dg is not None else
                          device_graph(g, as_torch_dtype(dtype),
                                       weight_dtype=weight_dtype, device=dev))
+    if mode == "hub_tail":
+        return HubTailEngine.from_graph(g, dtype=dtype,
+                                        weight_dtype=weight_dtype,
+                                        device=dev)
     cls = BlockEllEngine if mode == "block_ell" else FusedBlockEllEngine
     return cls.from_graph(g, block=block, pad_slots_to_pow2=stable_shapes,
                           perm=perm, device=dev)

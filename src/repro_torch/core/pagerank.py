@@ -18,8 +18,15 @@ stays on the device.
 Every solver takes a DeviceGraph or an engine (`core.engine`); the entry
 points `cpaa` and `cpaa_adaptive` also take a host `Graph` plus `device`
 (None = cuda). They return column-normalized PageRank in original vertex
-ids. The default personalization is uniform with unit mass. `power_refine` and the baseline
-solvers come with later slices.
+ids. The default personalization is uniform with unit mass.
+
+* power_refine  — warm-started power rounds x <- c P x + (1-c) p from a
+                  cached score vector (the serve tier's refresh tick).
+* degree_prior  — deg / 2m, the exact stationary vector of P on an
+                  undirected graph: an analytic oracle at any scale.
+
+The baseline solvers (power, forward push, Monte Carlo) come with a later
+slice.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ from repro_torch.graph.ops import device_graph
 from repro_torch.graph.structure import Graph
 
 __all__ = ["PageRankResult", "cpaa", "cpaa_adaptive", "cpaa_fixed",
-           "cpaa_adaptive_fixed"]
+           "cpaa_adaptive_fixed", "power_refine", "degree_prior"]
 
 
 @dataclass
@@ -74,6 +81,18 @@ def _solve_engine(dg, device):
     if device is not None and torch.device(device) != eng.device:
         raise ValueError(f"engine lives on {eng.device}, device={device!r}")
     return eng
+
+
+def degree_prior(g: Graph) -> np.ndarray:
+    """deg / 2m — the stationary distribution of P on an undirected graph.
+
+    P = A D^{-1} with a symmetric A gives P x = x for x = deg/2m exactly, so
+    PageRank personalized AT the prior returns the prior for every damping
+    factor. That makes it an oracle where a dense solve is unaffordable.
+    Host float numpy; takes a `Graph`.
+    """
+    deg = g.deg.astype(float)
+    return deg / max(deg.sum(), 1.0)
 
 
 def _uniform_p(eng) -> torch.Tensor:
@@ -226,3 +245,24 @@ def cpaa_adaptive(dg, c: float = 0.85, tol: float | None = None,
     return PageRankResult(pi=pi, iterations=k, rounds_bound=sched.rounds,
                           column_rounds=col_rounds.cpu().numpy(),
                           residual=resid.cpu().numpy())
+
+
+def power_refine(dg, x0: torch.Tensor, p: torch.Tensor, c,
+                 rounds: int) -> torch.Tensor:
+    """Warm-started refinement: `rounds` of x <- c P x + (1-c) p from x0.
+
+    CPAA's Chebyshev series cannot be resumed from a cached result, but the
+    power recurrence converges to the same fixed point and contracts the
+    L1 error by c per round from ANY start, so a cached score vector that
+    is already close needs only the rounds that bring c^rounds |x0 - pi|
+    under tol. x0/p: [n] or [n, B] (x0 need not be normalized; p is
+    normalized to unit restart mass). A host loop over `eng.apply`, with c
+    a tensor of the solve dtype. Returns column-normalized PageRank.
+    """
+    eng = as_engine(dg)
+    x = eng.to_internal(x0)
+    pp = _normalize(eng.to_internal(p))   # unit restart mass
+    c = torch.tensor(c, dtype=x.dtype, device=x.device)
+    for _ in range(rounds):
+        x = (c * eng.apply(x) + (1.0 - c) * pp).to(x.dtype)
+    return _normalize(eng.from_internal(x))

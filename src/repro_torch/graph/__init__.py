@@ -1,6 +1,6 @@
 from repro_torch.graph.structure import (Graph, BlockEll, block_fill_rate,
                                          build_block_ell, reorder_bfs)
-from repro_torch.graph import generators, ops
+from repro_torch.graph import datasets, generators, ops
 
 __all__ = ["Graph", "BlockEll", "block_fill_rate", "build_block_ell",
-           "reorder_bfs", "generators", "ops"]
+           "reorder_bfs", "datasets", "generators", "ops"]

@@ -2,8 +2,7 @@
 
 A copy of `repro.graph.structure` for the PyTorch port, which imports
 nothing of the JAX package. Outputs are byte-identical to the reference
-(same BFS perm, block_cols and values); the edge-update helpers
-(`EdgeDelta`, `edge_delta`) come with the updates slice.
+(same BFS perm, block_cols and values, the same effective edge deltas).
 
 The paper's datasets are undirected; we store the symmetrized directed edge
 list (every undirected edge appears in both directions), so that the
@@ -24,8 +23,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["Graph", "BlockEll", "reorder_bfs", "build_block_ell",
-           "block_fill_rate"]
+__all__ = ["Graph", "BlockEll", "EdgeDelta", "edge_delta", "reorder_bfs",
+           "build_block_ell", "block_fill_rate"]
 
 
 @dataclass(frozen=True)
@@ -89,6 +88,63 @@ class Graph:
         """True iff the directed edge set equals its transpose (paper's premise)."""
         a = set(zip(self.src.tolist(), self.dst.tolist()))
         return all((j, i) in a for (i, j) in a)
+
+
+@dataclass(frozen=True)
+class EdgeDelta:
+    """Effective change of one undirected edge-update batch.
+
+    Keys are the canonical undirected encoding lo * n + hi (lo < hi; self
+    loops — the isolated-vertex patch — are never part of the key set).
+    `inserted` / `deleted` hold only the edges that actually change the set:
+    duplicate inserts and deletes of absent edges are filtered out, and an
+    edge both deleted and re-inserted in the same batch (delete applies
+    first, so it ends up present) cancels entirely. `touched` is the unique
+    vertex set incident to any changed edge — the locality handle everything
+    downstream keys off: the in-place DeviceGraph patch rewrites only slots
+    whose src is touched, and the serving cache drops only entries seeded
+    within a hop radius of it.
+    """
+
+    n: int
+    inserted: np.ndarray   # [i] int64 canonical keys newly present, sorted
+    deleted: np.ndarray    # [d] int64 canonical keys removed, sorted
+    touched: np.ndarray    # [t] int64 unique vertex ids of changed edges
+
+    @property
+    def is_noop(self) -> bool:
+        """True iff the batch leaves the edge set bit-identical."""
+        return self.inserted.size == 0 and self.deleted.size == 0
+
+
+def _in_sorted(sorted_arr: np.ndarray, q: np.ndarray) -> np.ndarray:
+    """Vectorized membership of q in a sorted array: O(|q| log |arr|)."""
+    if sorted_arr.size == 0 or q.size == 0:
+        return np.zeros(q.shape, bool)
+    pos = np.minimum(np.searchsorted(sorted_arr, q), sorted_arr.size - 1)
+    return sorted_arr[pos] == q
+
+
+def edge_delta(n: int, keys: np.ndarray, insert_keys=(),
+               delete_keys=()) -> EdgeDelta:
+    """EdgeDelta of (insert, delete) batches against the CURRENT edge set.
+
+    keys: sorted canonical key array of the graph's undirected edges.
+    insert_keys / delete_keys: canonical keys of the batch (deduped; order
+    free). Deletes apply before inserts, so an edge in both batches ends up
+    present. Cost is O(batch log m) — no pass over the full edge set — which
+    is what lets a no-op batch be detected (and skipped) without paying the
+    O(m log m) host rebuild it would otherwise trigger.
+    """
+    keys = np.asarray(keys, np.int64)
+    ins = np.unique(np.asarray(insert_keys, np.int64))
+    dele = np.unique(np.asarray(delete_keys, np.int64))
+    inserted = ins[~_in_sorted(keys, ins)]
+    # deleted-and-reinserted edges are net no-ops: drop them from `deleted`
+    deleted = dele[_in_sorted(keys, dele) & ~_in_sorted(ins, dele)]
+    changed = np.concatenate([inserted, deleted])
+    touched = np.unique(np.concatenate([changed // n, changed % n]))
+    return EdgeDelta(n=n, inserted=inserted, deleted=deleted, touched=touched)
 
 
 def reorder_bfs(g: Graph, start: int = 0) -> np.ndarray:

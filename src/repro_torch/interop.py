@@ -8,6 +8,8 @@ edge weights and coefficients run through both packages.
   * block-ELL engines: `block_cols`, `values`, `perm`, `inv_perm` plus
     `n_orig` and `block` (a `BlockEllEngine`'s leaves);
   * COO: a `DeviceGraph`'s `src`, `dst`, `w`, `inv_deg` and `n`;
+  * hub/tail: a `HubTailEngine`'s `inv_deg`, `tail_src`, `tail_dst`,
+    `panel_cols`, `panel_hub`, `hub_ids` and `n_orig`;
   * a `ChebSchedule`'s coefficient vector;
   * DLRM parameters ({"table", "bot": [{"w", "b"}], "top": [...]}).
 """
@@ -17,12 +19,12 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (BlockEllEngine, CooEngine,
-                                     FusedBlockEllEngine)
+                                     FusedBlockEllEngine, HubTailEngine)
 from repro_torch.device import resolve_device
-from repro_torch.graph.ops import DeviceGraph
+from repro_torch.graph.ops import DeviceGraph, as_torch_dtype
 
-__all__ = ["block_ell_engine", "coo_engine", "device_graph_from_arrays",
-           "coeffs_tensor", "dlrm_params"]
+__all__ = ["block_ell_engine", "coo_engine", "hub_tail_engine",
+           "device_graph_from_arrays", "coeffs_tensor", "dlrm_params"]
 
 
 def _tensor(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -60,6 +62,26 @@ def coo_engine(src, dst, w, inv_deg, n: int, device=None) -> CooEngine:
     """The COO engine over the given DeviceGraph arrays."""
     return CooEngine(device_graph_from_arrays(src, dst, w, inv_deg, n,
                                               device=device))
+
+
+def hub_tail_engine(inv_deg, tail_src, tail_dst, panel_cols, panel_hub,
+                    hub_ids, n: int, hub_min_deg: int = 32,
+                    panel_width: int = 32, weight_dtype=None,
+                    device=None) -> HubTailEngine:
+    """The hub/tail engine over the given split, on `device` (None = cuda).
+    `inv_deg` is read as float32 (a bf16 array widens exactly) and stored
+    as `weight_dtype` (None = float32); the solve dtype is float32."""
+    dev = resolve_device(device)
+    wdtype = torch.float32 if weight_dtype is None \
+        else as_torch_dtype(weight_dtype)
+    inv = torch.from_numpy(np.array(inv_deg, np.float32)).to(wdtype)
+    return HubTailEngine(
+        inv_deg=inv.to(dev), tail_src=_tensor(tail_src, torch.int32, dev),
+        tail_dst=_tensor(tail_dst, torch.int32, dev),
+        panel_cols=_tensor(panel_cols, torch.int32, dev),
+        panel_hub=_tensor(panel_hub, torch.int32, dev),
+        hub_ids=_tensor(hub_ids, torch.int32, dev), n_orig=int(n),
+        hub_min_deg=int(hub_min_deg), panel_width=int(panel_width))
 
 
 def coeffs_tensor(coeffs, device=None) -> torch.Tensor:

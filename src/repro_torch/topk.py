@@ -14,7 +14,9 @@ def topk_lower_index_first(x: torch.Tensor, k: int):
     of tied entries; `lax.top_k` takes the lower index first. So: take the
     k-th largest value, keep every entry above it plus the lowest-index
     entries equal to it until k are kept, and order those by descending
-    value with a stable sort over ascending indices.
+    value with a stable sort over ascending indices. No step reads a count
+    back to the host, so on CUDA the call only enqueues work (the PPR
+    service's async dispatch relies on it).
     Returns ([B, k] int32 indices, [B, k] values).
     """
     kth = torch.topk(x, k, dim=1).values[:, k - 1:k]
@@ -22,7 +24,12 @@ def topk_lower_index_first(x: torch.Tensor, k: int):
     eq = x == kth
     need = k - gt.sum(dim=1, keepdim=True, dtype=torch.int32)
     take = gt | (eq & (eq.cumsum(dim=1, dtype=torch.int32) <= need))
-    idx = take.nonzero()[:, 1].reshape(x.shape[0], k)
+    # exactly k entries per row are taken: a top-k over the key n - j of
+    # the taken entries (-1 elsewhere) lists them in ascending index order
+    n = x.shape[1]
+    key = torch.where(take, torch.arange(n, 0, -1, dtype=torch.int32,
+                                         device=x.device), -1)
+    idx = torch.topk(key, k, dim=1).indices
     vals = x.gather(1, idx)
     order = torch.sort(vals, dim=1, descending=True, stable=True).indices
     return idx.gather(1, order).to(torch.int32), vals.gather(1, order)

@@ -256,21 +256,30 @@ class TestSelection:
         assert teng.heuristic_mode(g, 128, device="cpu") == "coo"
         assert teng.heuristic_mode(g, 128, device="cuda") == "fused"
 
-    @pytest.mark.parametrize("mode", ["hub_tail", "hub-tail", "tuned",
-                                      "sharded_1d", "sharded-2d"])
+    @pytest.mark.parametrize("mode", ["tuned", "sharded_1d", "sharded-2d"])
     def test_unported_modes_raise(self, mode):
         _, gt = _pair("mesh")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             teng.select_engine(gt, mode=mode, device="cpu")
 
     def test_auto_hub_tail_pick_raises(self):
+        # auto's hub/tail pick now builds the engine: the same split as the
+        # reference's, array for array
         n = 1 << 17
         hubs = 10
         leaves = np.arange(hubs, n)
         g = structure.Graph.from_undirected_edges(n, leaves % hubs, leaves)
+        gj = jstruct.Graph.from_undirected_edges(n, leaves % hubs, leaves)
         assert teng.heuristic_mode(g, device="cpu") == "hub_tail"
-        with pytest.raises(NotImplementedError, match="A3"):
-            teng.select_engine(g, device="cpu")
+        eng = teng.select_engine(g, device="cpu")
+        ref = jeng.select_engine(gj)
+        assert isinstance(eng, teng.HubTailEngine)
+        assert isinstance(ref, jeng.HubTailEngine)
+        for name in ("inv_deg", "tail_src", "tail_dst", "panel_cols",
+                     "panel_hub", "hub_ids"):
+            np.testing.assert_array_equal(getattr(eng, name).numpy(),
+                                          np.asarray(getattr(ref, name)),
+                                          err_msg=name)
 
     def test_unknown_mode(self):
         _, gt = _pair("mesh")

@@ -219,6 +219,96 @@ class TestPathOnCard:
 
 
 @pytest.mark.gpu
+class TestServeTierOnCard:
+    """The hub/tail engine, the in-place update patch and async dispatch
+    on the card, each against the same work on the CPU or through COO."""
+
+    def test_hub_tail_matches_coo_on_card(self, cuda):
+        """f32 hub/tail vs COO on seeded columns (L1 1e-5); bf16 inv_deg
+        vs COO on the uniform personalization the reference's bf16 bound
+        is stated for (1e-3), and on the seeded columns vs the same bf16
+        engine on the CPU (1e-5: the packing is the same, the sums are
+        not)."""
+        from repro_torch.core.engine import CooEngine, HubTailEngine
+        from repro_torch.core.pagerank import cpaa
+        from repro_torch.graph.datasets import chung_lu
+        from repro_torch.graph.ops import device_graph
+        g = chung_lu(20_000, avg_deg=16.0, seed=1)
+        p = torch.zeros(g.n, 8)
+        p[torch.arange(8) * 2011, torch.arange(8)] = 1
+        ref = cpaa(CooEngine(device_graph(g, device=cuda)), tol=1e-6,
+                   p=p.to(cuda)).pi
+        eng = HubTailEngine.from_graph(g, device=cuda)
+        assert eng.n_hubs > 0 and eng.device.type == "cuda"
+        pi = cpaa(eng, tol=1e-6, p=p.to(cuda)).pi
+        assert float((pi - ref).abs().sum(0).max()) <= 1e-5
+        bf = HubTailEngine.from_graph(g, weight_dtype="bfloat16", device=cuda)
+        bf_cpu = HubTailEngine.from_graph(g, weight_dtype="bfloat16",
+                                          device="cpu")
+        assert torch.equal(bf.inv_deg.cpu(), bf_cpu.inv_deg)
+        pi_b = cpaa(bf, tol=1e-6, p=p.to(cuda)).pi.cpu()
+        pi_bc = cpaa(bf_cpu, tol=1e-6, p=p).pi
+        assert float((pi_b - pi_bc).abs().sum(0).max()) <= 1e-5
+        u = torch.full((g.n,), 1.0 / g.n, device=cuda)
+        ref_u = cpaa(CooEngine(device_graph(g, device=cuda)), tol=1e-6,
+                     p=u).pi
+        assert float((cpaa(bf, tol=1e-6, p=u).pi - ref_u).abs().sum()) \
+            <= 1e-3
+
+    @pytest.mark.parametrize("weight_dtype", [None, "bfloat16"])
+    @pytest.mark.parametrize("batch", [3, 40])
+    def test_patch_round_trip_on_card(self, cuda, batch, weight_dtype):
+        """Both patch strategies write into the same CUDA tensors; the
+        patched weights equal the mirror's cast, and insert-then-delete
+        restores every tensor bitwise."""
+        from repro_torch.graph.ops import EdgeSlots, patch_device_graph
+        from repro_torch.graph.structure import edge_delta
+        g = generators.tri_mesh(9, 11)
+        es = EdgeSlots.from_graph(g, 1024)
+        dg = es.to_device(weight_dtype=weight_dtype, device=cuda)
+        fields = ("src", "dst", "w", "inv_deg")
+        held = {k: getattr(dg, k) for k in fields}
+        orig = {k: v.clone() for k, v in held.items()}
+        ins = [i * g.n + i + 13 for i in range(batch)]
+        patch_device_graph(dg, es.apply_delta(
+            edge_delta(g.n, es.ekeys, ins, ())))
+        wdtype = torch.float32 if weight_dtype is None else torch.bfloat16
+        assert torch.equal(dg.w.cpu(), torch.from_numpy(es.w64).to(wdtype))
+        assert torch.equal(dg.src.cpu(), torch.from_numpy(es.src))
+        patch_device_graph(dg, es.apply_delta(
+            edge_delta(g.n, es.ekeys, (), ins)))
+        for k in fields:
+            assert getattr(dg, k) is held[k], k
+            assert torch.equal(getattr(dg, k), orig[k]), k
+
+    def test_async_tick_fenced_by_its_event(self, cuda):
+        from repro_torch.serve import GraphRegistry, PageRankService, \
+            PPRQuery
+        g = generators.tri_mesh(40, 50)
+        answers = []
+        for async_dispatch in (False, True):
+            reg = GraphRegistry(engine="fused", device=cuda)
+            reg.register("g", g)
+            svc = PageRankService(reg, max_batch=4, cache_capacity=0,
+                                  adaptive=False,
+                                  async_dispatch=async_dispatch)
+            for i in range(8):
+                svc.submit(PPRQuery(qid=i, graph="g", seeds=(7 * i + 1,)))
+            svc.tick(force=True)
+            if async_dispatch:
+                rec = svc._inflight[0]
+                assert isinstance(rec.event, torch.cuda.Event)
+                assert rec.idx.is_pinned() and svc.pending() == 8
+            answers.append(svc.run_until_drained())
+        sync, awaited = answers
+        assert sorted(sync) == sorted(awaited) == list(range(8))
+        for qid in sync:
+            assert np.array_equal(awaited[qid].indices, sync[qid].indices)
+            np.testing.assert_allclose(awaited[qid].scores, sync[qid].scores,
+                                       rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
 class TestDlrmOnCard:
     """DLRM serve_step on the card (through the embedding_bag kernel) vs
     the same parameters and batch on the CPU (plain version): rtol 1e-5 /

@@ -49,6 +49,7 @@ def test_no_jax_or_reference_imports(path):
 def test_fresh_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch.configs.pagerank_serve, "
             "repro_torch.launch.serve, repro_torch.interop, "
+            "repro_torch.graph.datasets, repro_torch.serve.scheduler, "
             "repro_torch.kernels.bsr_spmm.ops, "
             "repro_torch.kernels.cheb_step.ops, "
             "repro_torch.kernels.embedding_bag.ops, "
@@ -124,6 +125,22 @@ class TestDefaultDeviceIsCuda:
         with pytest.raises(RuntimeError, match="CUDA"):
             interop.dlrm_params({"table": np.zeros((4, 2), np.float32),
                                  "bot": [layer], "top": [layer]})
+
+    def test_update_path_entry_points(self, no_gpu):
+        import numpy as np
+        from repro_torch import interop
+        from repro_torch.core.engine import HubTailEngine
+        from repro_torch.graph.datasets import chung_lu
+        from repro_torch.graph.ops import EdgeSlots
+        g = chung_lu(500, seed=0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            HubTailEngine.from_graph(g)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            EdgeSlots.from_graph(g).to_device()
+        z = np.zeros(0, np.int32)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interop.hub_tail_engine(np.ones(4), z, z, z.reshape(0, 32), z, z,
+                                    n=4)
 
     def test_launcher(self, no_gpu):
         from repro_torch.launch import serve

@@ -215,3 +215,51 @@ class TestBlockEngineSolves:
         rc = tpr.cpaa_adaptive(ops.device_graph(g_t, device="cpu"), tol=1e-4,
                                p=torch.from_numpy(p))
         _assert_l1_per_column(rc.pi.numpy(), rt.pi.numpy())
+
+
+class TestPowerRefine:
+    """Warm-started power rounds vs the reference's `power_refine`, from a
+    perturbed start, through COO and the block engines (the reference's
+    Pallas kernels in interpret mode)."""
+
+    @staticmethod
+    def _start(n, ndim, seed):
+        rng = np.random.default_rng(seed)
+        x0 = rng.random(n if ndim == 1 else (n, 6)).astype(np.float32)
+        return x0 / x0.sum(axis=0)
+
+    @pytest.mark.parametrize("rounds", [1, 8, 30])
+    @pytest.mark.parametrize("ndim", [1, 2])
+    @pytest.mark.parametrize("name", sorted(GRAPHS))
+    def test_coo_matches_reference(self, name, ndim, rounds):
+        dj, dt = _coo_pair(name)
+        p = _personalization(dt.n, ndim, seed=30 + ndim)
+        x0 = self._start(dt.n, ndim, seed=rounds)
+        pj = jpr.power_refine(dj, jnp.asarray(x0), jnp.asarray(p), 0.85,
+                              rounds)
+        pt = tpr.power_refine(dt, torch.from_numpy(x0), torch.from_numpy(p),
+                              0.85, rounds)
+        assert pt.shape == x0.shape and pt.dtype == torch.float32
+        _assert_l1_per_column(pj, pt.numpy())
+
+    @pytest.mark.parametrize("fused", [False, True])
+    def test_block_engines(self, fused):
+        g_j, g_t = jgen.tri_mesh(20, 26), generators.tri_mesh(20, 26)
+        cls_j = jeng.FusedBlockEllEngine if fused else jeng.BlockEllEngine
+        cls_t = teng.FusedBlockEllEngine if fused else teng.BlockEllEngine
+        ej = cls_j.from_graph(g_j, use_kernel=True, interpret=True)
+        et = cls_t.from_graph(g_t, device="cpu")
+        p = _personalization(g_t.n, 1, seed=40)
+        x0 = self._start(g_t.n, 1, seed=41)
+        pj = jpr.power_refine(ej, jnp.asarray(x0), jnp.asarray(p), 0.85, 16)
+        pt = tpr.power_refine(et, torch.from_numpy(x0), torch.from_numpy(p),
+                              0.85, 16)
+        _assert_l1_per_column(pj, pt.numpy())
+
+    def test_converges_to_the_cpaa_answer(self):
+        _, dt = _coo_pair("tri_mesh")
+        p = _personalization(dt.n, 1, seed=3)
+        want = tpr.cpaa(dt, tol=1e-8, p=torch.from_numpy(p)).pi
+        x0 = torch.full((dt.n,), 1.0 / dt.n)
+        got = tpr.power_refine(dt, x0, torch.from_numpy(p), 0.85, 120)
+        assert float((got - want).abs().sum()) <= L1
