@@ -57,7 +57,8 @@ package. Phases, each of which must pass:
        launch only bsr_spmm's FFMA variant, ticks after the updates the
        wgmma variant and cheb_step; host ms per update and per refreshed
        entry;
-     - chunglu-1m (n = 10^6, m = 13,190,004) on engine auto (hub/tail):
+     - chunglu-1m (n = 10^6, m = 13,190,004; slice E's cache phase builds
+       it) on engine auto (hub/tail):
        128 queries + 13 repeats at max_batch 128, 8 columns vs a float64
        power solve; hub/tail and COO at BT = 128 vs a float64 COO solve
        of the same recurrence (hub/tail L1 <= 1e-5; bf16 inv_deg <= 1e-3
@@ -69,6 +70,34 @@ package. Phases, each of which must pass:
        async dispatch, adaptive or fixed rounds: answers against sync FIFO
        (rtol 1e-5 / atol 1e-6), drain wall time, deadline misses, held
        ticks.
+  7. slice E, measured selection, observability, the dataset cache and
+     the paper's baselines:
+     - cache: `scale_dataset("chunglu-1m")` into an empty cache directory
+       twice (build + save, then a memory map of the file); the mapped
+       arrays bitwise equal to the build; the mapped graph registers
+       (no aliasing upload, the file unchanged) and serves one tick whose
+       answers are bitwise those of the fresh graph (deterministic
+       algorithms on for those ticks);
+     - tuned: a registry with engine "tuned" on a fresh store over
+       `full_config()`'s graphs, NACA0015 x10 and chunglu-1m: each
+       graph's candidates in us per round, the winner (held to
+       `pick_winner`), auto's pick and any skipped candidate; the fused
+       candidate's timing must launch wgmma `bsr_spmm` and `cheb_step`; a
+       second registry on the same store makes zero measurements; the
+       tuned service's answers on NACA0015 x10 within 2 tol of a float64
+       solve;
+     - obs: `full_config()` drained with metrics detail on and off, five
+       interleaved rounds each (medians and ranges, printed, not gated);
+       the detailed run's snapshot validates, every tick within the
+       Formula 8 bound, the accounting holds, the solve_device spans are
+       device-timed; one tick under `profiled` writes a Chrome trace that
+       names both PPR kernels; the launcher runs once with --engine
+       tuned, --metrics-json and --profile-dir (exit 0, valid snapshot);
+     - paper: on NACA0015 x10 (fused, BT = 1, uniform p) CPAA at ERR <
+       1e-3, power run to CPAA's L1 gap from a float64 solve, forward push
+       at CPAA's round count (rounds, ms, L1, FFMA launches);
+       monte_carlo and ortho_pagerank (three bases) against the dense
+       oracle at the reference tests' bounds.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -1135,18 +1164,15 @@ def float64_ppr(g, c: float, seeds_list, iters: int = 100) -> np.ndarray:
     return x
 
 
-def phase_slice_d_scale() -> dict:
-    """chunglu-1m on engine auto (hub/tail) through the service at
-    max_batch 128; hub/tail against COO on the card, f32 and bf16."""
+def phase_slice_d_scale(g, gen_s: float) -> dict:
+    """chunglu-1m (`g`, built by slice E's cache phase in `gen_s` seconds)
+    on engine auto (hub/tail) through the service at max_batch 128;
+    hub/tail against COO on the card, f32 and bf16."""
     import torch
     from repro_torch.core.engine import CooEngine, HubTailEngine
     from repro_torch.core.pagerank import cpaa_fixed
-    from repro_torch.graph.datasets import SCALE_FAMILIES
     from repro_torch.graph.ops import device_graph
     from repro_torch.serve import GraphRegistry, PageRankService
-    t0 = time.perf_counter()
-    g = SCALE_FAMILIES["chunglu-1m"]()
-    gen_s = time.perf_counter() - t0
     check(g.n == 1_000_000 and g.m == 13_190_004,
           f"slice D: chunglu-1m is n={g.n} m={g.m}")
     torch.cuda.reset_peak_memory_stats()
@@ -1402,6 +1428,464 @@ def phase_slice_d_scheduler() -> dict:
     return {"launches": counts}
 
 
+# ---------------------------------------------------------------- slice E --
+E_DIR = ROOT / "build" / "chip_smoke_e"     # gitignored scratch of slice E
+
+
+def float64_uniform_pagerank(g, c: float, iters: int = 200) -> np.ndarray:
+    """[n] float64 PageRank with a uniform unit-mass p by `iters` power
+    rounds on scipy (L1 error below c^iters)."""
+    import scipy.sparse as sp
+    deg = np.maximum(g.deg, 1).astype(float)
+    P = sp.csr_matrix((1.0 / deg[g.src], (g.dst, g.src)), shape=(g.n, g.n))
+    p = np.full(g.n, 1.0 / g.n)
+    x = p.copy()
+    for _ in range(iters):
+        x = c * (P @ x) + (1.0 - c) * p
+    return x / x.sum()
+
+
+def file_digest(path: Path) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def phase_slice_e_cache() -> dict:
+    """E3: chunglu-1m through the dataset cache: the first call builds and
+    saves, the second maps the file; both bitwise equal to the build, and
+    the mapped graph registers (the file untouched) and serves one tick
+    whose answers are bitwise those of the fresh graph (deterministic
+    algorithms on for those two ticks: hub/tail's `index_add_` adds with
+    atomics otherwise)."""
+    import warnings
+    import torch
+    from repro_torch.core.engine import HubTailEngine
+    from repro_torch.graph.datasets import scale_dataset
+    from repro_torch.serve import GraphRegistry, PageRankService, PPRQuery
+    cache_dir = E_DIR / "datasets"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    fresh = scale_dataset("chunglu-1m", cache_dir=cache_dir)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mapped = scale_dataset("chunglu-1m", cache_dir=cache_dir)
+    map_s = time.perf_counter() - t0
+    files = sorted(cache_dir.glob("*.npz"))
+    check(len(files) == 1, f"slice E cache: files {files}")
+    size = files[0].stat().st_size
+    check(fresh.src.flags.writeable and not mapped.src.flags.writeable,
+          "slice E cache: the second call did not map the file")
+    check(np.array_equal(mapped.src, fresh.src) and
+          np.array_equal(mapped.dst, fresh.dst) and mapped.n == fresh.n,
+          "slice E cache: mapped arrays differ from the fresh build")
+    digest = file_digest(files[0])
+    reg = GraphRegistry(device="cuda", batch_hint=8)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        # torch warns when it would alias a read-only (mapped) array
+        warnings.filterwarnings("error", message=".*not writable.*")
+        rm = reg.register("mapped", mapped)
+    reg_s = time.perf_counter() - t0
+    rf = reg.register("fresh", fresh)
+    torch.cuda.synchronize()
+    check(isinstance(rm.engine, HubTailEngine), "slice E cache: auto did "
+          f"not pick hub/tail: {type(rm.engine).__name__}")
+    for name in ("src", "dst", "w", "inv_deg"):
+        check(torch.equal(getattr(rm.dg, name), getattr(rf.dg, name)),
+              f"slice E cache: registered {name} differs")
+    for name in ("inv_deg", "tail_src", "tail_dst", "panel_cols",
+                 "panel_hub", "hub_ids"):
+        check(torch.equal(getattr(rm.engine, name),
+                          getattr(rf.engine, name)),
+              f"slice E cache: hub/tail {name} differs")
+    svc = PageRankService(reg, max_batch=8, max_top_k=16, adaptive=True)
+    rng = np.random.default_rng(70)
+    seeds = [tuple(int(s) for s in rng.choice(fresh.n, 2, replace=False))
+             for _ in range(8)]
+    reset_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for off, name in ((0, "mapped"), (100, "fresh")):
+                for j, sd in enumerate(seeds):
+                    svc.submit(PPRQuery(qid=off + j, graph=name, seeds=sd,
+                                        top_k=16))
+            res = svc.run_until_drained()
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    counts = read_counts()
+    nondet = sorted({str(w.message)[:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    check(svc.stats["solves"] == 2, f"slice E cache: {svc.stats}")
+    for j in range(len(seeds)):
+        a, b = res[j], res[100 + j]
+        check(np.array_equal(a.indices, b.indices) and
+              np.array_equal(a.scores, b.scores),
+              f"slice E cache: q{j} answers of the mapped and fresh graphs "
+              f"differ (non-deterministic ops: {nondet})")
+    check(file_digest(files[0]) == digest, "slice E cache: the file changed")
+    log(f"slice E cache: chunglu-1m built + saved in {build_s:.2f} s, "
+        f"mapped in {map_s:.4f} s, file {size} bytes; mapped arrays "
+        f"bitwise equal to the build; registered from the map in "
+        f"{reg_s:.2f} s (file unchanged); one tick each: answers bitwise "
+        f"equal; launches {counts}; non-deterministic op warnings "
+        f"{nondet or 'none'}")
+    del svc, reg, rm, rf, mapped
+    torch.cuda.empty_cache()
+    return {"graph": fresh, "build_s": build_s, "map_s": map_s,
+            "size": size, "reg_s": reg_s}
+
+
+def e1_graphs(chunglu) -> dict:
+    from repro_torch.graph import generators
+    return {"naca": generators.paper_dataset("NACA0015", 1.0),
+            "kmer": generators.paper_dataset("kmer-V2", 1.0),
+            "naca10": generators.paper_dataset("NACA0015", 10.0),
+            "chunglu": chunglu}
+
+
+def phase_slice_e_tuned(chunglu) -> dict:
+    """E1: a tuned registry on a fresh store over `full_config()`'s graphs,
+    the paper-size NACA0015 and chunglu-1m (budget large enough to time
+    every feasible candidate); the winners against `pick_winner` and auto;
+    the fused candidate's launches; a second registry on the store (zero
+    measurements); the tuned service on NACA0015 x10 against float64."""
+    import torch
+    from repro_torch.core.autotune import TuningStore, WorkloadKey, \
+        pick_winner
+    from repro_torch.core.engine import heuristic_mode
+    from repro_torch.serve import GraphRegistry, PageRankService
+    store = E_DIR / "tuning.json"
+    store.unlink(missing_ok=True)
+    graphs = e1_graphs(chunglu)
+    kw = dict(device="cuda", engine="tuned", batch_hint=128,
+              tune_cache=store, tune_budget_s=300.0)
+    reset_counts()
+    reg = GraphRegistry(**kw)
+    secs = {}
+    for name, g in graphs.items():
+        t0 = time.perf_counter()
+        reg.register(name, g)
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+    counts = read_counts()
+    entries = TuningStore(store).entries()
+    table = {}
+    for name, g in graphs.items():
+        key = WorkloadKey.from_graph(g, 128, device="cuda").as_str()
+        e = entries[key]
+        auto = heuristic_mode(g, 128, device="cuda")
+        cands = e["candidates"]
+        check(e["heuristic"] == auto, f"slice E tuned {name}: heuristic "
+              f"{e['heuristic']} != auto {auto}")
+        check(e["engine"] == pick_winner({m: us * 1e-6 for m, us in
+                                          cands.items()}, auto),
+              f"slice E tuned {name}: winner {e['engine']} breaks "
+              f"pick_winner over {cands}")
+        check(reg.get(name).tuned_mode == e["engine"],
+              f"slice E tuned {name}: registry runs {reg.get(name)}")
+        table[name] = {"n": g.n, "m": g.m, "candidates_us": cands,
+                       "winner": e["engine"], "auto": auto,
+                       "skipped": e["skipped"],
+                       "register_s": secs[name]}
+        log(f"slice E tuned {name} (n={g.n}, m={g.m}): us per round "
+            + ", ".join(f"{m} {us:.2f}" for m, us in cands.items())
+            + f"; winner {e['engine']}, auto {auto}, skipped "
+            f"{e['skipped'] or 'none'}; registered in {secs[name]:.2f} s "
+            f"(device {e['device_name']})")
+    log(f"slice E tuned: decisions {reg.tuner.decision_counts}; launches "
+        f"of the measurement pass {counts}")
+    check(reg.tuner.decision_counts.get("measured", 0) >= 3,
+          f"slice E tuned: {reg.tuner.decision_counts}")
+    check(counts["bsr_spmm_variants"]["wgmma_3xtf32"] > 0 and
+          counts["cheb_step"] > 0, f"slice E tuned: the fused candidate's "
+          f"timing did not launch both kernels: {counts}")
+    del reg
+    torch.cuda.empty_cache()
+
+    # a restarted service on the same store: zero measurements
+    t0 = time.perf_counter()
+    reg2 = GraphRegistry(**kw)
+    for name, g in graphs.items():
+        reg2.register(name, g)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    check(reg2.tuner.measured_count() == 0 and
+          reg2.tuner.decision_counts == {"store_hit": len(graphs)},
+          f"slice E tuned: warm store decisions "
+          f"{reg2.tuner.decision_counts}")
+    for name in graphs:
+        check(reg2.get(name).tuned_mode == table[name]["winner"],
+              f"slice E tuned {name}: the warm start built another engine")
+    log(f"slice E tuned: second registry on the store in {warm_s:.2f} s, "
+        f"decisions {reg2.tuner.decision_counts}")
+
+    # the tuned service on NACA0015 x10 against a float64 solve
+    svc = PageRankService(reg2, max_batch=128, cache_capacity=4096,
+                          max_top_k=32, adaptive=True)
+    queries = [q for q in seeded_queries(svc, 400, seed=71, top_k=32)
+               if q.graph == "naca10"][:4]
+    reset_counts()
+    t0 = time.perf_counter()
+    for q in queries:
+        svc.submit(q)
+    res = svc.run_until_drained()
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    tick_counts = read_counts()
+    g10 = graphs["naca10"]
+    x = float64_ppr(g10, 0.85, [q.seeds for q in queries], iters=100)
+    worst = 0.0
+    for j, q in enumerate(queries):
+        err = answer_err(res[q.qid].indices, res[q.qid].scores, x[:, j])
+        check(err <= 2e-4, f"slice E tuned naca10 q{q.qid}: |answer - "
+              f"float64| {err:.3e} > 2 tol")
+        worst = max(worst, err)
+    del x
+    log(f"slice E tuned naca10: engine "
+        f"{type(reg2.get('naca10').engine).__name__}, one tick of "
+        f"{len(queries)} queries {tick_s * 1e3:.1f} ms host, launches "
+        f"{tick_counts}; max |answer - float64| {worst:.3e} (bound 2e-04)")
+    return {"table": table, "launches": add_counts(counts, tick_counts),
+            "registry": reg2, "graphs": graphs, "oracle_err": worst,
+            "warm_s": warm_s}
+
+
+def phase_slice_e_obs() -> dict:
+    """E2: `full_config()` drained with metrics detail on, off, and on with
+    the garbage collector paused (5 interleaved rounds each; medians and
+    ranges, no gate), the detailed
+    run's snapshot, ticks, accounting and device spans checked, one tick
+    under `profiled`, and the launcher once with --engine tuned,
+    --metrics-json and --profile-dir."""
+    import gc
+    import json as _json
+    import os
+    import torch
+    from repro_torch.configs.pagerank_serve import full_config, make_service
+    from repro_torch.obs.export import validate_snapshot
+    from repro_torch.obs.trace import profiled
+    from repro_torch.serve import PageRankService, ServeMetrics
+    cfg = full_config()
+    svc0 = make_service(cfg, device="cuda")
+    reg = svc0.registry
+    queries = seeded_queries(svc0, 256, seed=60, top_k=8)
+    repeats = repeats_of(queries, len(queries) // 10)
+    del svc0
+
+    def run(detail, gc_off=False):
+        svc = PageRankService(
+            reg, max_batch=cfg.max_batch, cache_capacity=cfg.cache_capacity,
+            max_top_k=cfg.max_top_k, adaptive=cfg.adaptive,
+            metrics=ServeMetrics(detail=detail))
+        torch.cuda.synchronize()
+        if gc_off:
+            gc.disable()
+        try:
+            t0 = time.perf_counter()
+            results, st, _ = drive(svc, queries, repeats)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            gc.enable()
+        return svc, results, wall
+
+    # detail on, detail off, and detail on with Python's cyclic garbage
+    # collector paused (the detail layer allocates per query; a collection
+    # walks every tracked object of this large process)
+    variants = {"on": (True, False), "off": (False, False),
+                "on, gc paused": (True, True)}
+    run(True)                                   # warm-up, not timed
+    reset_counts()
+    walls = {k: [] for k in variants}
+    detailed = None
+    for _ in range(5):
+        for name, (detail, gc_off) in variants.items():
+            svc, results, wall = run(detail, gc_off)
+            walls[name].append(wall * 1e3)
+            if name == "on":
+                detailed = (svc, results)
+    counts = read_counts()
+    med = {k: float(np.median(w)) for k, w in walls.items()}
+    log("slice E obs: full_config() drain (256 queries + 25 repeats), 5 "
+        "runs each interleaved, median (range) ms: " + "; ".join(
+            f"detail {k} {med[k]:.2f} ({min(w):.2f}-{max(w):.2f})"
+            for k, w in walls.items())
+        + f"; on/off {med['on'] / med['off']:.4f}, (on - off) per query "
+        f"{(med['on'] - med['off']) * 1e3 / (len(queries) + len(repeats)):.1f}"
+        f" us; launches {counts}")
+    svc, results = detailed
+    st = svc.stats
+    check(len(results) == len(queries) + len(repeats),
+          "slice E obs: not every query answered")
+    check(st["queries"] == st["cache_hits"] + st["solved_queries"]
+          + st["dropped_queries"], f"slice E obs: accounting {st}")
+    snap = svc.snapshot({"phase": "slice E obs"})
+    errs = validate_snapshot(snap)
+    check(errs == [], f"slice E obs: snapshot invalid: {errs}")
+    ticks = list(svc.metrics.convergence.ticks)
+    check(ticks and all(t.rounds_used <= t.rounds_bound for t in ticks),
+          "slice E obs: a tick ran past the Formula 8 bound")
+    spans = [sp for t in svc.metrics.tracer.finished for sp in t.spans
+             if sp.name == "solve_device"]
+    check(spans and all(sp.kind == "device" and sp.duration > 0
+                        for sp in spans),
+          "slice E obs: solve_device spans not device-timed")
+    dev_ms = sorted({round(sp.duration * 1e3, 4) for sp in spans})
+    log(f"slice E obs: snapshot valid ({len(snap['metrics'])} families); "
+        f"{len(ticks)} ticks, rounds used/bound "
+        + ", ".join(f"{t.graph} {t.rounds_used}/{t.rounds_bound} "
+                    f"resid {t.residual:.2e}" for t in ticks)
+        + f"; solve_device spans {len(spans)}, device ms {dev_ms}")
+
+    # one tick under the profiler: the trace names both kernels
+    prof_dir = E_DIR / "profile_tick"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    svc = PageRankService(reg, max_batch=cfg.max_batch,
+                          max_top_k=cfg.max_top_k, adaptive=cfg.adaptive)
+    for q in [q for q in seeded_queries(svc, 400, seed=61, top_k=8)
+              if q.graph == "naca"][:64]:
+        svc.submit(q)
+    reset_counts()
+    with profiled(str(prof_dir)):
+        out = svc.tick(force=True)
+    prof_counts = read_counts()
+    traces = sorted(prof_dir.glob("trace_*.json"))
+    check(len(traces) == 1 and out, "slice E obs: no profiler trace or "
+          "no answers")
+    text = traces[0].read_text()
+    events = _json.loads(text).get("traceEvents", [])
+    kernels = sorted({e.get("name", "")[:60] for e in events
+                      if e.get("cat") == "kernel"})
+    check("bsr_spmm" in text and "cheb_step" in text,
+          f"slice E obs: the profiler trace lacks a kernel: {kernels[:20]}")
+    log(f"slice E obs: profiled tick -> {traces[0].name} "
+        f"({traces[0].stat().st_size} bytes), launches {prof_counts}, "
+        f"kernel events: {kernels}")
+
+    # the launcher as a user runs it
+    launch_dir = E_DIR / "launcher"
+    shutil.rmtree(launch_dir, ignore_errors=True)
+    launch_dir.mkdir(parents=True)
+    snap_path = launch_dir / "snapshot.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "pagerank-serve", "--smoke", "--requests", "64", "--updates",
+           "4", "--engine", "tuned", "--tune-cache",
+           str(launch_dir / "tuning.json"), "--metrics-json",
+           str(snap_path), "--profile-dir", str(launch_dir / "profile")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    launch_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"slice E obs: the launcher exited "
+          f"{proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    check(validate_snapshot(_json.loads(snap_path.read_text())) == [],
+          "slice E obs: the launcher's snapshot is invalid")
+    check(any((launch_dir / "profile").glob("trace_*.json")),
+          "slice E obs: the launcher wrote no profiler trace")
+    tail = [ln for ln in proc.stdout.splitlines() if ln.strip()][-9:]
+    log(f"slice E obs: launcher --engine tuned exited 0 in "
+        f"{launch_s:.2f} s; its summary:\n  " + "\n  ".join(tail))
+    return {"launches": add_counts(counts, prof_counts), "walls": walls,
+            "median_ms": med, "launch_s": launch_s}
+
+
+def phase_slice_e_paper(reg, g10) -> dict:
+    """E4: the paper's comparison on the paper-size NACA0015 (the tuned
+    registry's engine, fused, at BT = 1, uniform p): CPAA at ERR < 1e-3
+    (c = 0.85) against power run to the same L1 gap from a float64 solve,
+    and forward push at CPAA's round count; then monte_carlo and
+    ortho_pagerank on small graphs against the dense oracle."""
+    import torch
+    from repro_torch.core.chebyshev import make_schedule
+    from repro_torch.core.engine import FusedBlockEllEngine
+    from repro_torch.core.orthopoly import ortho_pagerank
+    from repro_torch.core.pagerank import (cpaa, forward_push, monte_carlo,
+                                           power, true_pagerank_dense)
+    from repro_torch.graph import generators
+    from repro_torch.graph.ops import device_graph
+    eng = reg.get("naca10").engine
+    if not isinstance(eng, FusedBlockEllEngine):
+        eng = FusedBlockEllEngine.from_graph(g10, device="cuda")
+    n = g10.n
+    p = torch.full((n,), 1.0 / n, device="cuda")
+    x64 = float64_uniform_pagerank(g10, 0.85)
+    sched = make_schedule(0.85, 1e-3)
+
+    def gap(pi):
+        return float(np.abs(pi.double().cpu().numpy() - x64).sum())
+
+    def timed(fn):
+        reset_counts()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        ev0.record()
+        r = fn()
+        ev1.record()
+        torch.cuda.synchronize()
+        return r, ev0.elapsed_time(ev1), read_counts()
+
+    rows = {}
+    power(eng, tol=0.0, p=p, max_iter=2)            # warm-up
+    r, ms, cnt = timed(lambda: cpaa(eng, c=0.85, p=p, schedule=sched))
+    rows["cpaa"] = {"rounds": r.iterations, "ms": ms, "l1": gap(r.pi),
+                    "counts": cnt}
+    target = rows["cpaa"]["l1"]
+    k = sched.rounds
+    while gap(power(eng, c=0.85, tol=0.0, p=p, max_iter=k).pi) > target:
+        k += 1
+        check(k <= 500, "slice E paper: power never reached CPAA's gap")
+    r, ms, cnt = timed(lambda: power(eng, c=0.85, tol=0.0, p=p,
+                                     max_iter=k))
+    rows["power"] = {"rounds": r.iterations, "ms": ms, "l1": gap(r.pi),
+                     "counts": cnt}
+    r, ms, cnt = timed(lambda: forward_push(eng, c=0.85, p=p,
+                                            rounds=sched.rounds))
+    rows["forward_push"] = {"rounds": r.iterations, "ms": ms,
+                            "l1": gap(r.pi), "counts": cnt}
+    launches = add_counts(*(row.pop("counts") for row in rows.values()))
+    for name, row in rows.items():
+        log(f"slice E paper: {name} on NACA0015 x10 (fused, BT = 1, "
+            f"uniform p): {row['rounds']} rounds, {row['ms']:.3f} ms, L1 "
+            f"from float64 {row['l1']:.3e}")
+    log(f"slice E paper: launches {launches} (FFMA bsr_spmm "
+        f"{launches['bsr_spmm_variants'].get('ffma', 0)})")
+    check(rows["power"]["l1"] <= target and
+          launches["bsr_spmm_variants"].get("wgmma_3xtf32", 0) == 0,
+          f"slice E paper: {rows}, {launches}")
+    del x64, p
+
+    # monte_carlo and ortho_pagerank against the dense oracle (n <= 2000)
+    g = generators.powerlaw_ba(150, 3, seed=6)
+    mc = monte_carlo(device_graph(g, device="cuda"), walks_per_node=64,
+                     max_len=80, seed=1).pi.cpu().numpy()
+    corr = float(np.corrcoef(mc, true_pagerank_dense(g, 0.85))[0, 1])
+    check(corr > 0.97, f"slice E paper: monte_carlo corr {corr:.4f}")
+    gm = generators.tri_mesh(13, 15)
+    truth = true_pagerank_dense(gm, 0.85)
+    ortho = {}
+    for basis in ("chebyshev", "legendre", "chebyshev2"):
+        pi = ortho_pagerank(device_graph(gm, device="cuda"), basis, 0.85,
+                            rounds=40).double().cpu().numpy()
+        ortho[basis] = float(np.max(np.abs(pi - truth) / truth))
+        check(ortho[basis] < 1e-4, f"slice E paper: ortho {basis} max rel "
+              f"err {ortho[basis]:.3e}")
+    log(f"slice E paper: monte_carlo on powerlaw_ba(150) corr with the "
+        f"dense oracle {corr:.4f} (bound > 0.97); ortho_pagerank at 40 "
+        "rounds on tri_mesh(13, 15), max rel err "
+        + ", ".join(f"{b} {e:.3e}" for b, e in ortho.items())
+        + " (bound 1e-4)")
+    return {"rows": rows, "launches": launches, "mc_corr": corr,
+            "ortho": ortho}
+
+
 def profile_device(fn, label: str) -> dict:
     """Device-time breakdown of one call of `fn` (torch.profiler, after one
     warm call): the kernels by device time and the device's idle share of
@@ -1480,10 +1964,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     c = phase_slice_c()
     d_upd = phase_slice_d_updates()
-    d_scale = phase_slice_d_scale()
+    e_cache = phase_slice_e_cache()
+    d_scale = phase_slice_d_scale(e_cache["graph"], e_cache["build_s"])
     d_sched = phase_slice_d_scheduler()
     d = add_counts(d_upd["launches"], d_scale["launches"],
                    d_paper["launches"], d_sched["launches"])
+    e_tuned = phase_slice_e_tuned(e_cache.pop("graph"))
+    e_obs = phase_slice_e_obs()
+    e_paper = phase_slice_e_paper(e_tuned.pop("registry"),
+                                  e_tuned.pop("graphs")["naca10"])
+    torch.cuda.empty_cache()
+    e = add_counts(e_tuned["launches"], e_obs["launches"],
+                   e_paper["launches"])
+    log(f"slice E launches: tuned {e_tuned['launches']}; obs "
+        f"{e_obs['launches']}; paper {e_paper['launches']}")
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
@@ -1493,15 +1987,18 @@ def main() -> int:
          "source": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
          "replaces": "src/repro/kernels/bsr_spmm/bsr_spmm.py:42",
          "launches": a["launches"]["bsr_spmm"] + b["launches"]["bsr_spmm"]
-         + d["bsr_spmm"],
+         + d["bsr_spmm"] + e["bsr_spmm"],
          "launches_by_path": {"slice_a": a["launches"]["bsr_spmm"],
                               "slice_b": b["launches"]["bsr_spmm"],
-                              "slice_d": d["bsr_spmm"]},
+                              "slice_d": d["bsr_spmm"],
+                              "slice_e": e["bsr_spmm"]},
          "launches_by_variant": {
              k: a["launches"]["bsr_spmm_variants"][k]
              + b["launches"]["bsr_spmm_variants"][k]
              + d["bsr_spmm_variants"].get(k, 0)
+             + e["bsr_spmm_variants"].get(k, 0)
              for k in a["launches"]["bsr_spmm_variants"]},
+         "slice_e_by_variant": e["bsr_spmm_variants"],
          "max_abs_err": max(kerr["bsr_spmm"], b["bsr"]["err"]),
          "ms": b["bsr"]["ms"], "plain_ms": b["bsr"]["plain_ms"],
          "bound_ms": bsr_b, "bound_by": bsr_by,
@@ -1510,10 +2007,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/cheb_step/csrc/cheb_step.cu",
          "replaces": "src/repro/kernels/cheb_step/cheb_step.py:40",
          "launches": a["launches"]["cheb_step"] + b["launches"]["cheb_step"]
-         + d["cheb_step"],
+         + d["cheb_step"] + e["cheb_step"],
          "launches_by_path": {"slice_a": a["launches"]["cheb_step"],
                               "slice_b": b["launches"]["cheb_step"],
-                              "slice_d": d["cheb_step"]},
+                              "slice_d": d["cheb_step"],
+                              "slice_e": e["cheb_step"]},
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},

@@ -3,13 +3,13 @@
 
 `PPRServeConfig`, `full_config`, `smoke_config` and `serve_config` are
 copies of the reference's; `make_service` builds the port's registry and
-service on a device (None = cuda), with the engine, update, cache,
-refresh and scheduling knobs wired as in the reference. Knobs of paths
-not ported yet are kept so the configs stay identical: the engine modes
-"tuned" and "sharded-*" raise NotImplementedError when the registry
-builds a graph; `tune_cache`, `tune_budget_s`, `tune_require_cached`
-(ROADMAP A7), `mesh_grid`, `partition_lane` (A10), `ingest_chunk_edges`
-and `metrics_detail` (A8) are carried and have no effect.
+service on a device (None = cuda), with the engine (measured selection
+"tuned" and its `tune_*` knobs included), ingestion chunk, update, cache,
+refresh, metrics-detail and scheduling knobs wired as in the reference.
+The sharded engines are not ported yet: the modes "sharded-*" raise
+NotImplementedError when the registry builds a graph, and `mesh_grid` and
+`partition_lane` (ROADMAP A10) are carried so the configs stay identical,
+with no effect.
 """
 from __future__ import annotations
 
@@ -31,16 +31,20 @@ class PPRServeConfig:
     max_batch: int = 32
     cache_capacity: int = 4096
     max_top_k: int = 16
-    # solve-engine format: "auto", "coo", "hub-tail", "block_ell", "fused"
-    # (and the reference's "tuned", "sharded-1d", "sharded-2d", which raise
-    # until ported)
+    # solve-engine format: "auto", "tuned" (measured selection through the
+    # port's tuning store), "coo", "hub-tail", "block_ell", "fused" (and the
+    # reference's "sharded-1d", "sharded-2d", which raise until ported)
     engine: str = "auto"
+    # tuned mode only: tuning-store path (None = $REPRO_TORCH_TUNE_CACHE or
+    # ~/.cache/repro_torch/tuning.json), per-graph measurement budget in
+    # seconds, and whether a store miss falls back to the heuristic
     tune_cache: str | None = None
     tune_budget_s: float = 2.0
     tune_require_cached: bool = False
     # packed storage dtype for COO edge weights and hub/tail's inv_deg
     # ("bfloat16"); None = f32
     weight_dtype: str | None = None
+    # host->device transfer chunk (edges) at registration; None = one shot
     ingest_chunk_edges: int | None = None
     mesh_grid: tuple[int, int] | None = None
     partition_lane: int = 128
@@ -51,6 +55,8 @@ class PPRServeConfig:
     invalidation_radius: int | None = 2
     refresh_batch: int = 8
     refresh_rounds: int = 8
+    # observability depth: True arms latency/stage histograms, per-query
+    # traces and convergence telemetry; False keeps only the counters
     metrics_detail: bool = True
     scheduler: str = "fifo"
     # tenant classes as (name, priority, deadline_s, max_depth) rows
@@ -81,12 +87,17 @@ def make_service(cfg: PPRServeConfig, device=None):
     """Registry with every configured graph warm + the service over it, on
     `device` (None = cuda; raises without a GPU)."""
     from repro_torch.serve.graph_registry import GraphRegistry
-    from repro_torch.serve.pagerank_service import PageRankService
+    from repro_torch.serve.pagerank_service import PageRankService, \
+        ServeMetrics
     from repro_torch.serve.scheduler import TenantSpec
     reg = GraphRegistry(device=device, engine=cfg.engine,
                         batch_hint=cfg.max_batch,
                         update_mode=cfg.update_mode,
-                        weight_dtype=cfg.weight_dtype)
+                        weight_dtype=cfg.weight_dtype,
+                        ingest_chunk_edges=cfg.ingest_chunk_edges,
+                        tune_cache=cfg.tune_cache,
+                        tune_budget_s=cfg.tune_budget_s,
+                        tune_require_cached=cfg.tune_require_cached)
     for name, dataset, scale in cfg.graphs:
         reg.register(name, generators.paper_dataset(dataset, scale))
     tenants = [TenantSpec(name=n, priority=p,
@@ -101,6 +112,7 @@ def make_service(cfg: PPRServeConfig, device=None):
                           invalidation_radius=cfg.invalidation_radius,
                           refresh_batch=cfg.refresh_batch,
                           refresh_rounds=cfg.refresh_rounds,
+                          metrics=ServeMetrics(detail=cfg.metrics_detail),
                           scheduler=cfg.scheduler, tenants=tenants,
                           default_deadline_s=cfg.default_deadline_s,
                           admission_depth=cfg.admission_depth,

@@ -1,4 +1,5 @@
-"""CPAA (PageRank via Chebyshev polynomial approximation) in PyTorch."""
+"""CPAA (PageRank via Chebyshev polynomial approximation) in PyTorch, plus
+the paper's baselines and measured engine selection."""
 from repro_torch.core.chebyshev import (
     ChebSchedule,
     beta,
@@ -11,6 +12,14 @@ from repro_torch.core.chebyshev import (
     power_rounds_for_tolerance,
     rounds_for_tolerance,
     sigma_c,
+)
+from repro_torch.core.autotune import (
+    Autotuner,
+    TuningStore,
+    WorkloadKey,
+    default_tuner,
+    graph_fingerprint,
+    pick_winner,
 )
 from repro_torch.core.engine import (
     BlockEllEngine,
@@ -28,7 +37,11 @@ from repro_torch.core.pagerank import (
     cpaa_adaptive_fixed,
     cpaa_fixed,
     degree_prior,
+    forward_push,
+    monte_carlo,
+    power,
     power_refine,
+    true_pagerank_dense,
 )
 
 __all__ = [
@@ -39,5 +52,8 @@ __all__ = [
     "as_engine",
     "heuristic_mode", "select_engine",
     "PageRankResult", "cpaa", "cpaa_adaptive", "cpaa_adaptive_fixed",
-    "cpaa_fixed", "degree_prior", "power_refine",
+    "cpaa_fixed", "degree_prior", "forward_push", "monte_carlo", "power",
+    "power_refine", "true_pagerank_dense",
+    "Autotuner", "TuningStore", "WorkloadKey", "default_tuner",
+    "graph_fingerprint", "pick_winner",
 ]

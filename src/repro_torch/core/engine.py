@@ -39,8 +39,9 @@ delta can move vertices across the hub bar); block-ELL re-tiles, reusing
 its BFS perm when the delta touched at most REFRESH_PERM_MAX_TOUCHED of
 the vertices.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item: measured selection ("tuned", A7) and the sharded engines (A10).
+Measured selection ("tuned") goes through `core.autotune`. Not ported
+yet, raising NotImplementedError that names its ROADMAP item: the sharded
+engines (A10).
 """
 from __future__ import annotations
 
@@ -79,7 +80,6 @@ ENGINE_MODES = ("auto", "tuned", "coo", "hub_tail", "block_ell", "fused",
 
 # modes of the reference that this port does not run yet -> ROADMAP item
 UNPORTED_MODES = {
-    "tuned": "A7 (autotuner)",
     "sharded_1d": "A10 (sharded engines)",
     "sharded_2d": "A10 (sharded engines)",
 }
@@ -491,10 +491,13 @@ def _hub_edge_fraction(g: Graph, thr: int) -> float:
 
 
 def _auto_choice(g: Graph, batch: int | None = None, *, block: int = 128,
-                 min_fill: float | None = None, device=None):
+                 min_fill: float | None = None, device=None,
+                 probe_cache=None):
     """The zero-cost heuristic's decision WITHOUT building anything:
-    (mode, perm), perm being the BFS permutation of the fill probe (reused
-    by the block-ELL build) or None.
+    (mode, perm), perm being the BFS permutation when the fill probe ran
+    fresh (reused by the block-ELL build; None on a probe-cache hit or a
+    non-tiled pick). `probe_cache` is any object with get_fill(g, block) /
+    put_fill(g, block, fill) — see core.autotune.
 
     Auto counts only the one device it was given, so it never shards.
     """
@@ -504,7 +507,15 @@ def _auto_choice(g: Graph, batch: int | None = None, *, block: int = 128,
         return "hub_tail", None
     if g.n < 2 * block or (batch is not None and batch < 8 and g.n < 8 * block):
         return "coo", None
-    fill, perm = block_fill_rate(g, block=block)
+    # the probe cache remembers the fill per (graph fingerprint, block), so
+    # re-probes of an already-seen shape skip the host BFS + tile census
+    fill = perm = None
+    if probe_cache is not None:
+        fill = probe_cache.get_fill(g, block)
+    if fill is None:
+        fill, perm = block_fill_rate(g, block=block)
+        if probe_cache is not None:
+            probe_cache.put_fill(g, block, fill)
     threshold = _default_min_fill(dev) if min_fill is None else min_fill
     if fill < threshold:
         return "coo", None
@@ -512,18 +523,20 @@ def _auto_choice(g: Graph, batch: int | None = None, *, block: int = 128,
 
 
 def heuristic_mode(g: Graph, batch: int | None = None, *, block: int = 128,
-                   min_fill: float | None = None, device=None) -> str:
+                   min_fill: float | None = None, device=None,
+                   probe_cache=None) -> str:
     """What `select_engine(mode="auto")` picks for (g, batch) on `device`
-    (None = cuda), as a mode string, without building the engine."""
+    (None = cuda), as a mode string, without building the engine — the
+    zero-cost tier the autotuner measures against (and ties back toward)."""
     return _auto_choice(g, batch, block=block, min_fill=min_fill,
-                        device=device)[0]
+                        device=device, probe_cache=probe_cache)[0]
 
 
 def select_engine(g: Graph, batch: int | None = None, mode: str = "auto", *,
                   dg: DeviceGraph | None = None, dtype=torch.float32,
                   block: int = 128, min_fill: float | None = None,
                   stable_shapes: bool = False, weight_dtype=None,
-                  device=None):
+                  device=None, tuner=None, probe_cache=None):
     """Pick and build the solve engine for a graph (host side, once per
     epoch).
 
@@ -532,25 +545,41 @@ def select_engine(g: Graph, batch: int | None = None, mode: str = "auto", *,
     given, hub/tail for large skewed graphs (n >= HUB_TAIL_MIN_N and hubs
     receiving >= HUB_TAIL_MIN_EDGE_FRAC of the edges), COO for tiny graphs
     and the fused block-ELL engine when the tile fill clears `min_fill`
-    (default 0.01 on cuda, 0.05 on cpu), COO otherwise. Modes the port
-    does not run yet ("tuned", "sharded_1d", "sharded_2d") raise
-    NotImplementedError naming the ROADMAP item; no other engine is
-    substituted.
+    (default 0.01 on cuda, 0.05 on cpu), COO otherwise. "tuned" replaces
+    the guess with a measurement: the workload-bucketed autotuner
+    (core.autotune) consults its persistent store and, on a miss, times the
+    feasible candidates on `device` and picks the measured winner
+    (tie-break toward the heuristic's choice for that device). The
+    sharded modes ("sharded_1d", "sharded_2d") raise NotImplementedError
+    naming the ROADMAP item; no other engine is substituted.
     dg: reuse an existing DeviceGraph for the COO path (the registry passes
     its padded device graph). stable_shapes pads the ELL slot count to a
     power of two. weight_dtype packs the COO edge weights and hub/tail's
     inv_deg (bf16 halves them; accumulation stays in `dtype`); the tile
     engines keep f32 values. device None means cuda (raises without a
     GPU).
+    tuner: the `core.autotune.Autotuner` mode="tuned" consults (None = the
+    process-wide default over `$REPRO_TORCH_TUNE_CACHE`).
+    probe_cache: fill-probe cache for auto mode (get_fill/put_fill; None =
+    probe every call — the serving registry threads the process cache).
     """
     dev = resolve_device(device)
     mode = mode.replace("-", "_")
     if mode not in ENGINE_MODES:
         raise ValueError(f"engine mode {mode!r} not in {ENGINE_MODES}")
     perm = None
+    if mode == "tuned":
+        from repro_torch.core.autotune import default_tuner  # no cycle
+        t = default_tuner() if tuner is None else tuner
+        dec = t.tune(g, batch=batch, dg=dg, dtype=dtype, block=block,
+                     min_fill=min_fill, stable_shapes=stable_shapes,
+                     weight_dtype=weight_dtype, device=dev)
+        if dec.engine is not None:   # freshly measured winner: reuse as-is
+            return dec.engine
+        mode = dec.mode
     if mode == "auto":
         mode, perm = _auto_choice(g, batch, block=block, min_fill=min_fill,
-                                  device=dev)
+                                  device=dev, probe_cache=probe_cache)
     if mode in UNPORTED_MODES:
         raise NotImplementedError(
             f"engine mode {mode!r} is not ported to repro_torch yet "

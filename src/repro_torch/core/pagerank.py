@@ -25,8 +25,18 @@ ids. The default personalization is uniform with unit mass.
 * degree_prior  — deg / 2m, the exact stationary vector of P on an
                   undirected graph: an analytic oracle at any scale.
 
-The baseline solvers (power, forward push, Monte Carlo) come with a later
-slice.
+The paper's baselines:
+
+* power         — the Power method (SPI/MPI in the paper): a host loop over
+                  `eng.apply` that checks the relative max residual once
+                  per chunk of rounds, and stops at the round the
+                  reference's `while_loop` stops at.
+* forward_push  — truncated geometric series sum_{k<=M} (cP)^k p (the
+                  algebraic Forward Push / IFP1 analogue).
+* monte_carlo   — terminating random walks over the COO graph's CSR view,
+                  drawn from an explicit `torch.Generator`.
+* true_pagerank_dense — the O(n^3) float64 numpy oracle (test ground
+                  truth for small graphs), copied.
 """
 from __future__ import annotations
 
@@ -37,12 +47,13 @@ import torch
 
 from repro_torch.core.chebyshev import ChebSchedule, default_chunk, \
     make_schedule
-from repro_torch.core.engine import as_engine
+from repro_torch.core.engine import CooEngine, as_engine
 from repro_torch.graph.ops import device_graph
 from repro_torch.graph.structure import Graph
 
 __all__ = ["PageRankResult", "cpaa", "cpaa_adaptive", "cpaa_fixed",
-           "cpaa_adaptive_fixed", "power_refine", "degree_prior"]
+           "cpaa_adaptive_fixed", "power_refine", "degree_prior", "power",
+           "forward_push", "monte_carlo", "true_pagerank_dense"]
 
 
 @dataclass
@@ -266,3 +277,132 @@ def power_refine(dg, x0: torch.Tensor, p: torch.Tensor, c,
     for _ in range(rounds):
         x = (c * eng.apply(x) + (1.0 - c) * pp).to(x.dtype)
     return _normalize(eng.from_internal(x))
+
+
+# rounds between `power`'s host reads of its stop flag
+POWER_CHECK_EVERY = 8
+
+
+def power(dg, c: float = 0.85, tol: float = 1e-10,
+          p: torch.Tensor | None = None, max_iter: int = 500,
+          device=None) -> PageRankResult:
+    """Power iteration x <- c P x + (1-c) p (the paper's SPI/MPI baseline).
+
+    Runs until the relative max residual max|x' - x| / max|x'| (over all
+    entries, in p's dtype) drops under `tol`, or `max_iter` rounds. The
+    reference's `while_loop` tests the residual before every round; here
+    the test runs on the device (a done flag and the round count are
+    tensors, and a round after the stop is masked off), and the host reads
+    the flag back once per POWER_CHECK_EVERY rounds. So the result and the
+    iteration count are the reference's, and the card syncs once per
+    chunk; at most POWER_CHECK_EVERY - 1 masked rounds run past the stop.
+
+    dg: a host `Graph` (put on `device`, None = cuda), a DeviceGraph or an
+    engine. x starts at p (default uniform, unit mass).
+    """
+    eng = _solve_engine(dg, device)
+    if p is None:
+        p = _uniform_p(eng)
+    x0 = eng.to_internal(p)
+    dtype, dev = x0.dtype, x0.device
+    ct = torch.tensor(c, dtype=dtype, device=dev)
+    tol_t = torch.tensor(tol, dtype=dtype, device=dev)
+    tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=dev)
+    restart = (1.0 - ct) * x0
+    x = x0
+    k = torch.zeros((), dtype=torch.int32, device=dev)
+    active = torch.ones((), dtype=torch.bool, device=dev)
+    rounds = 0
+    while rounds < max_iter:
+        for _ in range(min(POWER_CHECK_EVERY, max_iter - rounds)):
+            x_new = (ct * eng.apply(x) + restart).to(dtype)
+            resid = (x_new - x).abs().max() / \
+                torch.maximum(x_new.abs().max(), tiny)
+            x = torch.where(active, x_new, x)
+            k = k + active.to(torch.int32)
+            active = active & (resid >= tol_t)
+            rounds += 1
+        if not bool(active):            # the chunk's one host sync
+            break
+    return PageRankResult(pi=_normalize(eng.from_internal(x)),
+                          iterations=int(k))
+
+
+def forward_push(dg, c: float = 0.85, rounds: int = 50,
+                 p: torch.Tensor | None = None,
+                 device=None) -> PageRankResult:
+    """Truncated geometric series sum_{k<=M} (cP)^k p — the monomial-basis
+    baseline CPAA is compared against (paper §1, §3). `rounds` SpMMs, no
+    host sync. dg: a host `Graph` (put on `device`, None = cuda), a
+    DeviceGraph or an engine."""
+    eng = _solve_engine(dg, device)
+    if p is None:
+        p = _uniform_p(eng)
+    r = eng.to_internal(p)
+    acc = r
+    ct = torch.tensor(c, dtype=r.dtype, device=r.device)
+    for _ in range(rounds):
+        r = ct * eng.apply(r)       # residual mass pushed one hop
+        acc = acc + r
+    return PageRankResult(pi=_normalize(eng.from_internal(acc)),
+                          iterations=rounds)
+
+
+def monte_carlo(dg, c: float = 0.85, walks_per_node: int = 16,
+                max_len: int = 64, seed: int = 0,
+                device=None) -> PageRankResult:
+    """Terminating random walks; pi_i ∝ #walks that stop at i (paper §1
+    [6]). COO only (a DeviceGraph or CooEngine; a host `Graph` goes on
+    `device`, None = cuda): walks step through the graph's sorted-src CSR
+    view. A walk stops with probability 1 - c per step, and at a degree-0
+    vertex, whose CSR range is empty. Random numbers come from a
+    `torch.Generator` on the graph's device seeded with `seed`, so a run is
+    reproducible on one device (not across devices, nor equal to the
+    reference's JAX stream)."""
+    eng = _solve_engine(dg, device)
+    if not isinstance(eng, CooEngine):
+        raise TypeError("monte_carlo samples the COO edge list; pass a "
+                        "DeviceGraph or CooEngine")
+    n = eng.dg.n
+    deg, row_start, dst_sorted = eng.dg.csr()   # host-built once, cached
+    dev = deg.device
+    if dst_sorted.shape[0] == 0:
+        # edgeless graph: every walk stops at its start
+        return PageRankResult(pi=torch.full((n,), 1.0 / n, device=dev),
+                              iterations=0)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    walkers = torch.arange(n, dtype=torch.int64,
+                           device=dev).repeat(walks_per_node)
+    alive = torch.ones_like(walkers, dtype=torch.bool)
+    counts = torch.zeros(n, dtype=torch.float32, device=dev)
+    last = dst_sorted.shape[0] - 1
+    for _ in range(max_len):
+        d = deg[walkers]
+        stop = (torch.rand(walkers.shape, generator=gen, device=dev) > c) \
+            | (d == 0)
+        counts.index_add_(0, walkers, (alive & stop).to(torch.float32))
+        alive = alive & ~stop
+        u = torch.rand(walkers.shape, generator=gen, device=dev)
+        pick = (row_start[walkers] + (u * d).to(torch.int32)).clamp(0, last)
+        walkers = torch.where(alive, dst_sorted[pick.long()].long(), walkers)
+    counts.index_add_(0, walkers, alive.to(torch.float32))
+    return PageRankResult(pi=counts / counts.sum(), iterations=max_len)
+
+
+def true_pagerank_dense(g: Graph, c: float = 0.85, p=None) -> np.ndarray:
+    """O(n^3) direct solve (1-c)(I - cP)^{-1} p in float64 numpy — the test
+    oracle for small graphs (a copy of the reference's).
+
+    p: optional [n] or [n, B] personalization (default uniform). Columns are
+    normalized like the solvers' output (each sums to 1).
+    """
+    n = g.n
+    a = np.zeros((n, n), float)
+    a[g.dst, g.src] = 1.0
+    deg = a.sum(axis=0)
+    p_mat = a / np.maximum(deg, 1.0)[None, :]
+    if p is None:
+        p = np.ones(n) / n
+    p = np.asarray(p, float)
+    pi = np.linalg.solve(np.eye(n) - c * p_mat, (1.0 - c) * p)
+    return pi / pi.sum(axis=0, keepdims=p.ndim > 1)

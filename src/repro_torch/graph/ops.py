@@ -8,8 +8,11 @@ Pallas kernel, so the port uses torch ops here.
 Edge updates go through `EdgeSlots`, a host mirror of a padded
 DeviceGraph's slots: `apply_delta` turns an `EdgeDelta` into a
 `SlotPatch`, and `patch_device_graph` writes it into the SAME device
-tensors in place, so every engine holding them sees the update. Chunked
-ingestion and the GNN aggregations come with later slices.
+tensors in place, so every engine holding them sees the update.
+`chunk_edges` bounds the host memory of a registration: the edge arrays
+go to the device in chunks, each converted on the host and copied into
+its slice of one preallocated device tensor. The GNN aggregations come
+with a later slice.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.graph.structure import Graph
 
-__all__ = ["DeviceGraph", "device_graph", "check_int32_range", "spmv",
+__all__ = ["DeviceGraph", "device_graph", "check_int32_range",
+           "CapacityError", "spmv",
            "spmm", "as_torch_dtype", "upload", "SlotPatch", "EdgeSlots",
            "patch_device_graph"]
 
@@ -41,24 +45,56 @@ class DeviceGraph:
         self.dst = dst
         self.inv_deg = inv_deg
         self.w = w
+        self._csr = None
 
     @property
     def device(self) -> torch.device:
         return self.src.device
 
+    def csr(self):
+        """Sorted-src CSR view (deg, row_start, dst_sorted), int32 tensors
+        on the graph's device, built on the host once and cached on the
+        instance (`patch_device_graph` drops it). Zero-weight padding edges
+        are excluded so sampling never walks them."""
+        if self._csr is None:
+            src = self.src.cpu().numpy()
+            dst = self.dst.cpu().numpy()
+            if self.w is not None:
+                keep = self.w.cpu().numpy() > 0
+                src, dst = src[keep], dst[keep]
+            deg = np.bincount(src, minlength=self.n).astype(np.int32)
+            row_start = np.concatenate(
+                [np.zeros(1, np.int32), np.cumsum(deg, dtype=np.int32)[:-1]])
+            order = np.argsort(src, kind="stable")
+            dev = self.device
+            self._csr = (upload(deg, torch.int32, dev),
+                         upload(row_start, torch.int32, dev),
+                         upload(dst[order], torch.int32, dev))
+        return self._csr
+
 
 _INT32_MAX = np.iinfo(np.int32).max
 
 
+class CapacityError(ValueError):
+    """A graph does not fit the device arrays' int32 indices. A ValueError,
+    as the reference raises; its own class lets the autotuner tell an
+    infeasible candidate from a failure."""
+
+
 def check_int32_range(n: int, nnz: int, what: str = "graph") -> None:
     """Fail loudly where an index would silently wrap in the int32 edge
-    arrays (vertex ids and edge slot ids are stored as int32)."""
+    arrays (vertex ids and edge slot ids are stored as int32).
+
+    Raises:
+        CapacityError: n or nnz exceeds the int32 range.
+    """
     if n > _INT32_MAX:
-        raise ValueError(
+        raise CapacityError(
             f"{what}: n={n} exceeds int32 range ({_INT32_MAX}); "
             "vertex ids are stored as int32 device arrays")
     if nnz > _INT32_MAX:
-        raise ValueError(
+        raise CapacityError(
             f"{what}: nnz={nnz} exceeds int32 range ({_INT32_MAX}); "
             "edge slot ids are stored as int32 device arrays")
 
@@ -73,25 +109,40 @@ def as_torch_dtype(dtype) -> torch.dtype:
     return out
 
 
-def upload(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+def upload(arr: np.ndarray, dtype: torch.dtype, device,
+           chunk: int | None = None) -> torch.Tensor:
     """Host->device transfer, converted to `dtype` on the host first.
 
     On the CPU with a matching dtype the result SHARES `arr`'s buffer
     (`torch.from_numpy` is zero-copy): callers whose array is mutated later
-    (the `EdgeSlots` mirror) pass a copy."""
+    (the `EdgeSlots` mirror) pass a copy. A read-only array (a memory-mapped
+    dataset cache) is copied first: torch would alias the file.
+
+    chunk: convert and copy at most this many elements at a time into one
+    preallocated tensor, so the extra host memory of the conversion is
+    O(chunk) instead of O(len(arr)) (None or 0 = one shot).
+    """
+    if chunk and arr.ndim == 1 and arr.shape[0] > chunk:
+        out = torch.empty(arr.shape[0], dtype=dtype, device=device)
+        for s in range(0, arr.shape[0], chunk):
+            out[s:s + chunk].copy_(upload(arr[s:s + chunk], dtype, "cpu"))
+        return out
+    if not arr.flags.writeable:
+        arr = np.array(arr)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(dtype).to(device)
 
 
 def device_graph(g: Graph, dtype=torch.float32,
                  pad_edges_to: int | None = None, weight_dtype=None,
-                 device=None) -> DeviceGraph:
+                 device=None, chunk_edges: int | None = None) -> DeviceGraph:
     """Build the device-resident COO graph.
 
     w = 1/deg[src] is computed exactly in float64 on the host, then cast
     to `weight_dtype` (default `dtype`; bfloat16 halves the weight array
     and the product upcasts before the multiply). `pad_edges_to` appends
     zero-weight (0 -> 0) padding edges. `device` None means CUDA (raises
-    without a GPU).
+    without a GPU). `chunk_edges` transfers the edge arrays in chunks of
+    that many edges (see `upload`; None = one shot).
     """
     dev = resolve_device(device)
     dtype = as_torch_dtype(dtype)
@@ -106,10 +157,10 @@ def device_graph(g: Graph, dtype=torch.float32,
         src = np.concatenate([src, zeros])
         dst = np.concatenate([dst, zeros])
         w = np.concatenate([w, np.zeros(pad)])
-    return DeviceGraph(n=g.n, src=upload(src, torch.int32, dev),
-                       dst=upload(dst, torch.int32, dev),
+    return DeviceGraph(n=g.n, src=upload(src, torch.int32, dev, chunk_edges),
+                       dst=upload(dst, torch.int32, dev, chunk_edges),
                        inv_deg=upload(inv_deg, dtype, dev),
-                       w=upload(w, wdtype, dev))
+                       w=upload(w, wdtype, dev, chunk_edges))
 
 
 class SlotPatch:
@@ -250,7 +301,7 @@ class EdgeSlots:
                    free=np.arange(m, cap, dtype=np.int64))
 
     def to_device(self, dtype=torch.float32, weight_dtype=None,
-                  device=None) -> DeviceGraph:
+                  device=None, chunk_edges: int | None = None) -> DeviceGraph:
         """DeviceGraph over the mirror: identical tensors to
         `device_graph(g, pad_edges_to=cap)` on the same graph, the weights
         cast the same way.
@@ -258,17 +309,23 @@ class EdgeSlots:
         src/dst go over as private COPIES: on the CPU `torch.from_numpy`
         shares the numpy buffer, and the mirror mutates its arrays in place
         on every `apply_delta`, so an aliased device graph would drift
-        silently."""
+        silently. With `chunk_edges` the chunked transfer copies chunk by
+        chunk instead (see `upload`)."""
         dev = resolve_device(device)
         dtype = as_torch_dtype(dtype)
         wdtype = dtype if weight_dtype is None \
             else as_torch_dtype(weight_dtype)
         inv = 1.0 / np.maximum(self.deg, 1)
+        if chunk_edges and self.cap > chunk_edges:
+            # every chunk is converted into a fresh tensor: nothing aliases
+            src, dst, w64 = self.src, self.dst, self.w64
+        else:
+            src, dst, w64 = self.src.copy(), self.dst.copy(), self.w64.copy()
         return DeviceGraph(n=self.n,
-                           src=upload(self.src.copy(), torch.int32, dev),
-                           dst=upload(self.dst.copy(), torch.int32, dev),
+                           src=upload(src, torch.int32, dev, chunk_edges),
+                           dst=upload(dst, torch.int32, dev, chunk_edges),
                            inv_deg=upload(inv, dtype, dev),
-                           w=upload(self.w64.copy(), wdtype, dev))
+                           w=upload(w64, wdtype, dev, chunk_edges))
 
     def to_graph(self) -> Graph:
         """Host Graph of the live slots (slot order, which is NOT the
@@ -382,6 +439,7 @@ def patch_device_graph(dg: DeviceGraph, patch: SlotPatch) -> DeviceGraph:
                          "folded weights (device_graph builds one)")
     if patch.slots.size == 0 and patch.rows.size == 0:
         return dg
+    dg._csr = None      # the edges move under the cached CSR view
     dev = dg.device
     m = patch.mirror
     if m is not None and patch.slots.size * 64 >= m.cap:

@@ -2,14 +2,21 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pagerank-serve \
         --smoke --requests 64 --updates 2 [--max-batch N] [--engine MODE] \
+        [--tune-cache PATH] [--tune-budget S] [--tune-require-cached] \
         [--adaptive | --fixed-rounds] [--scheduler fifo|deadline] \
-        [--async-dispatch] [--device cuda|cpu]
+        [--async-dispatch] [--metrics-port P] [--metrics-json PATH] \
+        [--profile-dir DIR] [--device cuda|cpu]
 
 Builds the service from `configs/pagerank_serve.py`, submits seeded
 queries, drains them, applies `--updates` single-edge insert batches
 (alternating over the graphs), submits about 10% of the queries again and
 drains, then prints the per-graph engine, the rounds used against the
-Formula 8 bound and the service counters. The device defaults to cuda.
+Formula 8 bound, the service counters and the metrics summary. With
+`--metrics-json` the final snapshot is written and validated (an invalid
+one exits non-zero); `--metrics-port` serves /metrics and /metrics.json
+while the workload runs; `--profile-dir` wraps the workload in the
+PyTorch profiler and writes a Chrome trace there. The device defaults to
+cuda.
 """
 from __future__ import annotations
 
@@ -46,6 +53,12 @@ def _config(mod, args):
         cfg = replace(cfg, max_batch=args.max_batch)
     if args.engine:
         cfg = replace(cfg, engine=args.engine)
+    if args.tune_cache:
+        cfg = replace(cfg, tune_cache=args.tune_cache)
+    if args.tune_budget is not None:
+        cfg = replace(cfg, tune_budget_s=args.tune_budget)
+    if args.tune_require_cached:
+        cfg = replace(cfg, tune_require_cached=True)
     if args.weight_dtype:
         cfg = replace(cfg, weight_dtype=None
                       if args.weight_dtype == "float32" else args.weight_dtype)
@@ -97,22 +110,39 @@ def serve_pagerank(mod, args) -> dict:
     repeats = [PPRQuery(qid=args.requests + j, graph=q.graph, seeds=q.seeds,
                         c=q.c, tol=q.tol, top_k=q.top_k)
                for j, q in enumerate(queries[:max(1, args.requests // 10)])]
-    t0 = time.perf_counter()
-    results = {}
-    for q in queries:
-        svc.submit(q)
-    results.update(svc.run_until_drained())   # warm the cache before churn
-    for u in range(args.updates):
-        name = names[u % len(names)]
-        # rg.n, not rg.host.n: reading .host after an in-place patch would
-        # materialize the lazy host Graph on every batch
-        n = svc.registry.get(name).n
-        edge = (int(rng.integers(0, n // 2)), int(rng.integers(n // 2, n)))
-        svc.update_graph(name, insert=[edge])
-    for q in repeats:
-        svc.submit(q)
-    results.update(svc.run_until_drained())
-    dt = time.perf_counter() - t0
+    from repro_torch.obs import (MetricsServer, render_summary,
+                                 validate_snapshot, write_snapshot)
+    from repro_torch.obs.trace import profiled
+
+    server = None
+    if args.metrics_port is not None:
+        server = MetricsServer(svc.metrics.registry, port=args.metrics_port,
+                               convergence=svc.metrics.convergence,
+                               tracer=svc.metrics.tracer).start()
+        print(f"metrics: http://127.0.0.1:{server.port}/metrics "
+              f"(and /metrics.json)")
+    try:
+        t0 = time.perf_counter()
+        results = {}
+        with profiled(args.profile_dir):
+            for q in queries:
+                svc.submit(q)
+            results.update(svc.run_until_drained())  # warm before churn
+            for u in range(args.updates):
+                name = names[u % len(names)]
+                # rg.n, not rg.host.n: reading .host after an in-place patch
+                # would materialize the lazy host Graph on every batch
+                n = svc.registry.get(name).n
+                edge = (int(rng.integers(0, n // 2)),
+                        int(rng.integers(n // 2, n)))
+                svc.update_graph(name, insert=[edge])
+            for q in repeats:
+                svc.submit(q)
+            results.update(svc.run_until_drained())
+        dt = time.perf_counter() - t0
+    finally:
+        if server is not None:
+            server.stop()
     st = svc.stats
     mode = "adaptive" if svc.adaptive else "fixed"
     dispatch = "async" if svc.async_dispatch else "sync"
@@ -126,6 +156,24 @@ def serve_pagerank(mod, args) -> dict:
           f"{st['cache_dropped']}, retained {st['cache_retained']}, "
           f"refreshed {st['refreshes']}; deadline misses "
           f"{st['deadline_misses']}, held ticks {st['held_ticks']}")
+    # one snapshot feeds the summary below and the JSON dump
+    meta = {"elapsed_s": dt, "arch": args.arch, "mode": mode,
+            "scheduler": svc.policy, "async_dispatch": svc.async_dispatch,
+            "update_mode": svc.registry.update_mode, "engines": engines,
+            "device": str(svc.registry.device), "served": len(results)}
+    if svc.registry.tuner is not None:
+        meta["tune_decisions"] = dict(svc.registry.tuner.decision_counts)
+    snap = svc.snapshot(meta)
+    if args.metrics_json:
+        write_snapshot(args.metrics_json, svc.metrics.registry,
+                       convergence=svc.metrics.convergence,
+                       tracer=svc.metrics.tracer, meta=meta)
+        errs = validate_snapshot(snap)
+        if errs:
+            raise SystemExit("metrics snapshot failed validation:\n  "
+                             + "\n  ".join(errs))
+        print(f"metrics snapshot -> {args.metrics_json}")
+    print(render_summary(snap))
     return dict(st, served=len(results), engines=engines)
 
 
@@ -142,7 +190,20 @@ def main(argv=None):
                     choices=["auto", "tuned", "coo", "hub-tail", "block_ell",
                              "fused", "sharded-1d", "sharded-2d"],
                     help="solve-engine override (default from config); "
-                         "tuned and sharded-* are not ported yet and raise")
+                         "tuned measures the engine per graph through the "
+                         "tuning store; sharded-* are not ported yet and "
+                         "raise")
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="tuning-store path for --engine tuned (default "
+                         "$REPRO_TORCH_TUNE_CACHE or ~/.cache/repro_torch/"
+                         "tuning.json)")
+    ap.add_argument("--tune-budget", type=float, default=None,
+                    metavar="SECONDS",
+                    help="per-graph measurement budget for --engine tuned "
+                         "(default from config)")
+    ap.add_argument("--tune-require-cached", action="store_true",
+                    help="--engine tuned never measures: a store miss takes "
+                         "the heuristic's engine")
     ap.add_argument("--weight-dtype", default=None,
                     choices=["float32", "bfloat16"],
                     help="packed edge-weight storage dtype (accumulation "
@@ -181,6 +242,17 @@ def main(argv=None):
     ap.add_argument("--sync-dispatch", dest="async_dispatch",
                     action="store_false",
                     help="dispatch and fence each batch in its own tick")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve Prometheus text at /metrics and the JSON "
+                         "snapshot at /metrics.json on this port while the "
+                         "workload runs (0 = ephemeral)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write the final metrics snapshot (metrics, "
+                         "convergence telemetry, recent traces) as JSON, "
+                         "validated before exit")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="wrap the workload in torch.profiler and write a "
+                         "Chrome trace to DIR")
     ap.add_argument("--device", default=None,
                     help="torch device for graphs and solves (default cuda)")
     args = ap.parse_args(argv)

@@ -28,16 +28,28 @@ Edge updates come in two flavours, selected by `update_mode`:
     to exactly this when a batch overflows the bucket (which then grows).
 
 A batch whose effective delta is EMPTY (duplicate inserts, deletes of
-absent edges) changes nothing: no rebuild, no epoch bump. The chunked
-ingestion, the autotuner and the metrics binding come with later slices.
+absent edges) changes nothing: no rebuild, no epoch bump.
+
+With `engine="tuned"` the registry owns an `Autotuner` (core/autotune.py)
+whose store doubles as the fill-probe cache: each graph's engine is
+measured once per shape class, and a rebuild keeps the winner while the
+edge count stays in its log2 bucket. Every other mode shares the process
+probe cache. `bind_metrics` points the build/update/BFS timings and the
+per-graph gauges at the service's metrics registry. A graph whose arrays
+are read-only (a memory-mapped dataset cache) is copied at registration,
+before anything mutates or uploads from it; `ingest_chunk_edges` bounds
+the host memory of the upload.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from repro_torch.core.autotune import (Autotuner, TuningStore, log2_bucket,
+                                       process_probe_cache)
 from repro_torch.core.chebyshev import ChebSchedule, default_chunk, \
     make_schedule
 from repro_torch.core.engine import CooEngine, select_engine
@@ -45,6 +57,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.ops import (DeviceGraph, EdgeSlots, as_torch_dtype,
                                    device_graph, patch_device_graph)
 from repro_torch.graph.structure import EdgeDelta, Graph, edge_delta
+from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
 
 __all__ = ["AdaptiveSchedule", "RegisteredGraph", "GraphRegistry",
            "UPDATE_MODES"]
@@ -89,6 +102,14 @@ class RegisteredGraph:
         self.last_delta: EdgeDelta | None = None
         self.last_update_incremental = False
         self._csr_cache = None
+        # tuned-mode state: the autotuner's winner for the current shape
+        # class, its measured per-round time (the service seeds its
+        # solve-time estimator from it), and the log2 edge bucket the winner
+        # was tuned at — a rebuild re-tunes only when m leaves the bucket.
+        # None outside engine="tuned".
+        self.tuned_mode: str | None = None
+        self.tune_us_per_iter: float | None = None
+        self.m_bucket = log2_bucket(host.m)
 
     @property
     def host(self) -> Graph:
@@ -137,6 +158,53 @@ def _edges_to_keys(n: int, edges) -> np.ndarray:
     return np.unique(lo * n + hi)
 
 
+class _RegistryObs:
+    """The registry's instrument bundle. Built against NULL_REGISTRY by
+    default (every call a no-op), swapped for live families when a metrics
+    registry is bound — the service binds its own at construction so
+    build/update/BFS timings land next to the serve metrics."""
+
+    def __init__(self, reg: MetricsRegistry):
+        self.build_seconds = reg.histogram(
+            "registry_build_seconds",
+            "DeviceGraph + engine (re)build duration per (graph, epoch)",
+            ("graph",))
+        self.update_seconds = reg.histogram(
+            "registry_update_seconds",
+            "apply_updates duration by effective path", ("graph", "path"))
+        self.hop_seconds = reg.histogram(
+            "registry_hop_bfs_seconds",
+            "hop_neighborhood BFS duration", ("graph",))
+        self.epoch = reg.gauge(
+            "graph_epoch", "current epoch per registered graph", ("graph",))
+        self.edges = reg.gauge(
+            "graph_edges", "undirected edge count per registered graph",
+            ("graph",))
+        self.engine_info = reg.gauge(
+            "graph_engine_info",
+            "1 for the engine class currently serving the graph",
+            ("graph", "engine"))
+
+    def set_graph_gauges(self, rg: "RegisteredGraph") -> None:
+        self.epoch.labels(graph=rg.name).set(rg.epoch)
+        self.edges.labels(graph=rg.name).set(
+            len(rg.keys) if rg.keys is not None else rg.host.m)
+        current = type(rg.engine).__name__
+        for values, inst in self.engine_info.children():
+            if values[0] == rg.name:    # a rebuild may have switched class
+                inst.set(0.0)
+        self.engine_info.labels(graph=rg.name, engine=current).set(1.0)
+
+
+def _writable(g: Graph) -> Graph:
+    """`g` itself, or a private copy when its arrays are read-only (the
+    memory-mapped dataset cache): torch would alias the file on upload,
+    and nothing may mutate it."""
+    if g.src.flags.writeable and g.dst.flags.writeable:
+        return g
+    return Graph(n=g.n, src=np.array(g.src), dst=np.array(g.dst))
+
+
 class GraphRegistry:
     """Name -> RegisteredGraph, plus the shared (c, tol) schedule cache.
 
@@ -144,14 +212,23 @@ class GraphRegistry:
         device: where graphs, engines and solves live (None = cuda; raises
             without a GPU).
         dtype: accumulation dtype of device graphs and solves.
-        engine: engine mode for `select_engine` ("auto", "coo",
-            "hub_tail", "block_ell", "fused"; the unported modes raise).
+        engine: engine mode for `select_engine` ("auto", "tuned", "coo",
+            "hub_tail", "block_ell", "fused"; the sharded modes raise).
+            "tuned" measures the engine once per (graph, shape class) on
+            this registry's device and persists it in the tuning store.
         batch_hint: expected micro-batch width, steering auto selection.
         update_mode: "incremental" (in-place device patch when the batch
             fits the edge bucket) or "rebuild" (always the full path).
         weight_dtype: packed storage dtype for COO edge weights and
             hub/tail's inv_deg (None = `dtype`); accumulation stays in
             `dtype`.
+        ingest_chunk_edges: host->device transfer chunk at registration
+            (None = one shot).
+        tune_cache: tuning-store path for engine="tuned" (None =
+            `$REPRO_TORCH_TUNE_CACHE` / the user-cache default).
+        tune_budget_s: wall-clock cap per measurement pass.
+        tune_require_cached: never measure — a store miss falls back to
+            the heuristic.
 
     Invariant: `rg.engine` is always current for (graph, epoch) — every
     effective update refreshes or rebuilds it before the epoch bumps.
@@ -159,7 +236,10 @@ class GraphRegistry:
 
     def __init__(self, device=None, dtype=torch.float32,
                  engine: str = "auto", batch_hint: int | None = None,
-                 update_mode: str = "incremental", weight_dtype=None):
+                 update_mode: str = "incremental", weight_dtype=None,
+                 ingest_chunk_edges: int | None = None,
+                 tune_cache=None, tune_budget_s: float = 2.0,
+                 tune_require_cached: bool = False):
         if update_mode not in UPDATE_MODES:
             raise ValueError(f"update_mode {update_mode!r} not in "
                              f"{UPDATE_MODES}")
@@ -170,50 +250,99 @@ class GraphRegistry:
         self.batch_hint = batch_hint
         self.weight_dtype = None if weight_dtype is None \
             else as_torch_dtype(weight_dtype)
+        self.ingest_chunk_edges = ingest_chunk_edges
+        # engine="tuned" owns an Autotuner whose store doubles as the
+        # fill-probe cache; every other mode shares the process-wide
+        # in-memory probe cache so epoch bumps on unchanged shapes skip the
+        # host BFS + tile census
+        self.tuner: Autotuner | None = None
+        if engine == "tuned":
+            self.tuner = Autotuner(TuningStore(tune_cache),
+                                   budget_s=tune_budget_s,
+                                   require_cached=tune_require_cached)
+            self._probe_cache = self.tuner.store
+        else:
+            self._probe_cache = process_probe_cache()
         self._graphs: dict[str, RegisteredGraph] = {}
         self._schedules: dict[tuple[float, float],
                               tuple[ChebSchedule, torch.Tensor]] = {}
         self._adaptive: dict[tuple[float, float, int | None],
                              AdaptiveSchedule] = {}
+        self._obs = _RegistryObs(NULL_REGISTRY)
 
-    def _build(self, g: Graph):
-        """(DeviceGraph, engine, EdgeSlots) for one epoch of a graph. The
-        COO engine reuses the padded device graph; block-ELL engines pad
-        their slot count to a power of two. The EdgeSlots mirror is what
-        later updates patch through (None, and a plain `device_graph`, for
-        a graph that breaks the symmetrized-edge contract: those always
-        rebuild)."""
+    def bind_metrics(self, registry: MetricsRegistry) -> None:
+        """Point the registry's instrumentation at a live MetricsRegistry
+        (idempotent; called by PageRankService with its own). Gauges for
+        already-registered graphs are published immediately."""
+        self._obs = _RegistryObs(registry)
+        if self.tuner is not None:
+            self.tuner.bind_metrics(registry)
+        for rg in self._graphs.values():
+            self._obs.set_graph_gauges(rg)
+
+    def _build(self, g: Graph, name: str = "graph", rg=None):
+        """(DeviceGraph, engine, EdgeSlots, tuned_mode, tune_us_per_iter)
+        for one epoch of a graph. The COO engine reuses the padded device
+        graph; block-ELL engines pad their slot count to a power of two.
+        The EdgeSlots mirror is what later updates patch through (None, and
+        a plain `device_graph`, for a graph that breaks the
+        symmetrized-edge contract: those always rebuild).
+
+        In tuned mode the selection is measured once per (graph, shape
+        class): a rebuild whose edge count stays inside the previous log2
+        bucket reuses the prior winner (counted as a "sticky" decision),
+        anything else consults the tuner's store / measures afresh."""
         try:
             slots = EdgeSlots.from_graph(g, cap=_edge_bucket(g.m))
         except ValueError:
             slots = None
         if slots is not None:
             dg = slots.to_device(self.dtype, weight_dtype=self.weight_dtype,
-                                 device=self.device)
+                                 device=self.device,
+                                 chunk_edges=self.ingest_chunk_edges)
         else:
             dg = device_graph(g, self.dtype, pad_edges_to=_edge_bucket(g.m),
                               weight_dtype=self.weight_dtype,
-                              device=self.device)
-        eng = select_engine(g, batch=self.batch_hint, mode=self.engine_mode,
-                            dg=dg, dtype=self.dtype, stable_shapes=True,
-                            weight_dtype=self.weight_dtype,
-                            device=self.device)
-        return dg, eng, slots
+                              device=self.device,
+                              chunk_edges=self.ingest_chunk_edges)
+        build_kw = dict(batch=self.batch_hint, dg=dg, dtype=self.dtype,
+                        stable_shapes=True, weight_dtype=self.weight_dtype,
+                        device=self.device)
+        if self.tuner is None:
+            eng = select_engine(g, mode=self.engine_mode,
+                                probe_cache=self._probe_cache, **build_kw)
+            return dg, eng, slots, None, None
+        if rg is not None and rg.tuned_mode is not None and \
+                log2_bucket(g.m) == rg.m_bucket:
+            self.tuner.record("sticky", name, rg.tuned_mode)
+            eng = select_engine(g, mode=rg.tuned_mode, **build_kw)
+            return dg, eng, slots, rg.tuned_mode, rg.tune_us_per_iter
+        dec = self.tuner.tune(g, graph_name=name, **build_kw)
+        eng = dec.engine if dec.engine is not None else \
+            select_engine(g, mode=dec.mode, **build_kw)
+        return dg, eng, slots, dec.mode, dec.us_per_iter
 
     # ---- graphs -----------------------------------------------------------
     def register(self, name: str, g: Graph) -> RegisteredGraph:
         """Register `g` under `name`: build its device graph + engine once
-        and keep them warm (epoch 0).
+        and keep them warm (epoch 0). A graph with read-only arrays (a
+        memory-mapped cache) is copied first; the file is never touched.
 
         Raises:
             ValueError: the name is already registered.
         """
         if name in self._graphs:
             raise ValueError(f"graph {name!r} already registered")
-        dg, eng, slots = self._build(g)
+        g = _writable(g)
+        t0 = time.perf_counter()
+        dg, eng, slots, tuned_mode, tune_us = self._build(g, name)
+        self._obs.build_seconds.labels(graph=name).observe(
+            time.perf_counter() - t0)
         rg = RegisteredGraph(name=name, host=g, dg=dg, engine=eng,
                              keys=_undirected_keys(g), slots=slots)
+        rg.tuned_mode, rg.tune_us_per_iter = tuned_mode, tune_us
         self._graphs[name] = rg
+        self._obs.set_graph_gauges(rg)
         return rg
 
     def get(self, name: str) -> RegisteredGraph:
@@ -250,6 +379,7 @@ class GraphRegistry:
             KeyError: unknown graph.
             ValueError: an endpoint out of range or a self loop.
         """
+        t0 = time.perf_counter()
         rg = self.get(name)
         n = rg.n
         ins = _edges_to_keys(n, insert) if len(insert) else \
@@ -262,6 +392,8 @@ class GraphRegistry:
         rg.last_delta = delta
         rg.last_update_incremental = False
         if delta.is_noop:
+            self._obs.update_seconds.labels(graph=name, path="noop").observe(
+                time.perf_counter() - t0)
             return rg
 
         patch = None
@@ -290,10 +422,21 @@ class GraphRegistry:
                              delta.inserted)
             g_new = Graph.from_undirected_edges(n, keys // n, keys % n)
             rg.host = g_new
-            rg.dg, rg.engine, rg.slots = self._build(g_new)
+            t_build = time.perf_counter()
+            dg, eng, slots, tuned_mode, tune_us = self._build(g_new, name,
+                                                              rg=rg)
+            rg.dg, rg.engine, rg.slots = dg, eng, slots
+            rg.tuned_mode, rg.tune_us_per_iter = tuned_mode, tune_us
+            rg.m_bucket = log2_bucket(g_new.m)
+            self._obs.build_seconds.labels(graph=name).observe(
+                time.perf_counter() - t_build)
             rg.keys = keys
         rg.epoch += 1
         rg._csr_cache = None
+        path = "incremental" if rg.last_update_incremental else "rebuild"
+        self._obs.update_seconds.labels(graph=name, path=path).observe(
+            time.perf_counter() - t0)
+        self._obs.set_graph_gauges(rg)
         return rg
 
     def hop_neighborhood(self, name: str, vertices, radius: int,
@@ -308,6 +451,7 @@ class GraphRegistry:
         per epoch for graphs without a mirror. This is the locality
         primitive behind selective cache invalidation.
         """
+        t0 = time.perf_counter()
         rg = self.get(name)
         n = rg.n
         mask = np.zeros(n, bool)
@@ -364,6 +508,8 @@ class GraphRegistry:
                 hops_done += 1
                 if extra > 0 and hops_done == radius and inner is None:
                     inner = mask.copy()
+        self._obs.hop_seconds.labels(graph=name).observe(
+            time.perf_counter() - t0)
         if extra <= 0:
             return mask
         return (mask if inner is None else inner), mask

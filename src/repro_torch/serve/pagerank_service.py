@@ -34,9 +34,25 @@
     warm-started `power_refine`. The refresh tick yields (defers, counted)
     while foreground queries are queued or in flight.
 
-`stats` holds the reference's counter keys as plain counters. The
-observability layer (metrics, traces, convergence telemetry) comes with a
-later slice.
+Observability (`repro_torch.obs`, as in the reference): every counter is
+a labeled metric in a `ServeMetrics` bundle, and `stats` renders the
+reference's flat dict from the metric totals. Each query is counted at
+DISPOSITION time, exactly once, as one of cache_hit | solved | dropped;
+rejected queries are refused before acceptance and counted under
+`serve_admission_total`. With `ServeMetrics(detail=True)` (the default)
+the service also records latency and stage histograms, per-query
+lifecycle traces (submit -> queue -> batch_form -> solve_dispatch ->
+solve_device -> materialize) and per-tick convergence telemetry (rounds
+used against the Formula 8 bound, residual at exit, converged column
+fraction). `detail=False` keeps only the counters.
+
+One fence per tick: on CUDA the tick's only wait on the card is the CUDA
+event `_harvest` synchronizes on. The adaptive solve's per-column
+residuals ride the same pinned copy as the answers, and the
+`solve_device` span (kind "device") is the elapsed time between two CUDA
+events recorded around the solve on its stream, read after that fence.
+On the CPU, where the solve ran at dispatch, the span is the host clock
+around the fence point, as in the reference.
 """
 from __future__ import annotations
 
@@ -51,6 +67,11 @@ import torch
 
 from repro_torch.core.pagerank import cpaa_adaptive_fixed, cpaa_fixed, \
     power_refine
+from repro_torch.obs import export as obs_export
+from repro_torch.obs.convergence import (ConvergenceLog, TickTelemetry,
+                                         UpdateTelemetry)
+from repro_torch.obs.metrics import NULL_REGISTRY, MetricsRegistry
+from repro_torch.obs.trace import Tracer
 from repro_torch.serve.graph_registry import GraphRegistry
 from repro_torch.serve.result_cache import ResultCache
 from repro_torch.serve.scheduler import (AdmissionRejected, DeadlineScheduler,
@@ -58,19 +79,12 @@ from repro_torch.serve.scheduler import (AdmissionRejected, DeadlineScheduler,
                                          SolveTimeEstimator, TenantSpec)
 from repro_torch.topk import topk_lower_index_first
 
-__all__ = ["PPRQuery", "PPRResult", "PageRankService",
-           "topk_lower_index_first", "STATS_KEYS"]
+__all__ = ["PPRQuery", "PPRResult", "PageRankService", "ServeMetrics",
+           "topk_lower_index_first"]
 
 # Nominal round count that scales a tuner's per-round measurement into a
 # whole-batch-solve seed for the deadline estimator (the reference's).
 _SEED_ROUNDS = 12
-
-STATS_KEYS = ("queries", "cache_hits", "solves", "solved_queries",
-              "dropped_queries", "rejected_queries", "deadline_misses",
-              "ticks", "held_ticks", "padded_columns", "updates",
-              "rounds_used", "rounds_bound", "noop_updates",
-              "incremental_updates", "cache_dropped", "cache_retained",
-              "refreshes", "refresh_deferred")
 
 
 @dataclass(frozen=True)
@@ -112,6 +126,139 @@ class PPRResult:
     scores: np.ndarray       # [top_k] float32, normalized PPR mass
     cached: bool = False
     batch_size: int = 0      # distinct columns in the solve that produced this
+
+
+class ServeMetrics:
+    """The service's observability bundle: metric families + tracer +
+    convergence log, all hanging off one `MetricsRegistry`.
+
+    Args:
+        registry: `MetricsRegistry` to register families on (None = new).
+        detail: True (default) arms the full layer — latency/stage
+            histograms, per-query traces, convergence series. False keeps
+            only the counters (the histograms come from a disabled registry
+            and the tracer hands out null traces): the metrics-off operating
+            point the detail layer's overhead is measured against.
+        trace_keep: bounded ring size of retained query traces.
+        history: bounded length of the convergence time series.
+
+    Invariant: the counter layer is always live — disposition accounting
+    (`queries == cache_hits + solved + dropped`) holds at either detail
+    level.
+    """
+
+    def __init__(self, registry: MetricsRegistry | None = None,
+                 detail: bool = True, trace_keep: int = 256,
+                 history: int = 1024):
+        self.registry = MetricsRegistry() if registry is None else registry
+        self.detail = detail
+        self.tracer = Tracer(enabled=detail, keep=trace_keep)
+        self.convergence = ConvergenceLog(keep=history)
+        r = self.registry
+        hr = r if detail else NULL_REGISTRY   # detail gates the histograms
+        self.queries = r.counter(
+            "serve_queries_total", "queries accepted by submit()", ("graph",))
+        self.served = r.counter(
+            "serve_served_total",
+            "queries answered, by disposition (cache_hit | solved | dropped)",
+            ("graph", "disposition"))
+        self.admission = r.counter(
+            "serve_admission_total",
+            "admission decisions (accept | reject) with machine-readable "
+            "reason", ("graph", "tenant", "decision", "reason"))
+        self.solves = r.counter(
+            "serve_solves_total", "batched device solves",
+            ("graph", "engine", "bucket", "mode"))
+        self.ticks = r.counter("serve_ticks_total", "micro-batch ticks")
+        self.held = r.counter(
+            "serve_hold_total",
+            "ticks the deadline scheduler held batch formation, betting on "
+            "more arrivals")
+        self.overlap = r.counter(
+            "serve_overlap_dispatch_total",
+            "async-dispatch ticks whose host batch formation overlapped an "
+            "in-flight device solve")
+        self.deadline_miss = r.counter(
+            "serve_deadline_miss_total",
+            "queries answered after their latency budget expired",
+            ("graph", "tenant"))
+        self.padded = r.counter(
+            "serve_padded_columns_total",
+            "pad columns solved (bucket width minus live columns)")
+        self.updates = r.counter(
+            "serve_updates_total", "edge-update batches by effective path",
+            ("graph", "kind"))
+        self.refreshes = r.counter(
+            "serve_refreshes_total", "background warm-start cache refreshes",
+            ("graph",))
+        self.engine_swaps = r.counter(
+            "serve_engine_swaps_total",
+            "graph rebuilds that changed the engine class (each resets the "
+            "solve-time estimator for the graph)", ("graph",))
+        self.refresh_deferred = r.counter(
+            "serve_refresh_deferred_total",
+            "refresh_tick calls that yielded to pending foreground queries")
+        self.cache_dropped = r.counter(
+            "serve_cache_dropped_total",
+            "cache entries invalidated by graph updates", ("graph",))
+        self.cache_retained = r.counter(
+            "serve_cache_retained_total",
+            "cache entries re-stamped across graph updates", ("graph",))
+        self.rounds_used = r.counter(
+            "serve_rounds_used_total", "solver rounds actually run",
+            ("graph", "mode"))
+        self.rounds_bound = r.counter(
+            "serve_rounds_bound_total",
+            "Formula 8 a-priori round bound accumulated over ticks",
+            ("graph", "mode"))
+        self.queue_depth = r.gauge(
+            "serve_queue_depth", "queries waiting for a tick")
+        self.tenant_depth = r.gauge(
+            "serve_tenant_depth", "queries queued per tenant class",
+            ("tenant",))
+        self.solve_ewma = r.gauge(
+            "serve_solve_ewma_seconds",
+            "EWMA expected batch solve time per (graph, bucket) — the "
+            "deadline math's solve-estimate term", ("graph", "bucket"))
+        self.latency = hr.histogram(
+            "serve_query_latency_seconds", "submit-to-answer e2e latency",
+            ("graph", "disposition"))
+        self.stage = hr.histogram(
+            "serve_stage_seconds",
+            "per-tick stage durations (queue is per-query)", ("stage",))
+        self.slack = hr.histogram(
+            "serve_slack_seconds",
+            "dispatch-time slack: latency budget minus expected solve time "
+            "(<= 0 lands in the zero bucket)", ("graph",))
+        self.solve_seconds = hr.histogram(
+            "serve_solve_seconds",
+            "dispatch-to-ready batch solve duration (feeds the EWMA "
+            "estimator)", ("graph", "bucket"))
+        self.refresh_seconds = hr.histogram(
+            "serve_refresh_seconds", "per-entry background refresh duration",
+            ("graph",))
+
+    def _label_total(self, fam, pos: int, value: str) -> float:
+        return sum(inst.value for values, inst in fam.children()
+                   if values[pos] == value)
+
+    def disposition_total(self, disposition: str) -> float:
+        """Total queries answered under one disposition label."""
+        return self._label_total(self.served, 1, disposition)
+
+    def update_kind_total(self, kind: str) -> float:
+        """Total edge-update batches of one effective kind."""
+        return self._label_total(self.updates, 1, kind)
+
+    def admission_total(self, decision: str) -> float:
+        """Total admission decisions of one kind (accept | reject)."""
+        return self._label_total(self.admission, 2, decision)
+
+    def snapshot(self, meta: dict | None = None) -> dict:
+        """JSON-ready snapshot of metrics + convergence + recent traces."""
+        return obs_export.snapshot(self.registry,
+                                   convergence=self.convergence,
+                                   tracer=self.tracer, meta=meta)
 
 
 def _solve_topk(engine, coeffs: torch.Tensor, p: torch.Tensor, rounds: int,
@@ -163,11 +310,13 @@ def _to_device_async(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
 class _InFlight:
     """One dispatched batch solve, harvested later.
 
-    On CUDA the solve, its top-k and the copy of the answers into pinned
-    host memory may still be running; `event` was recorded after them on
-    the stream that ran them, and `_harvest` synchronizes on it. The rest
-    is the host context that materializes the results: which queries ride
-    which column, the epoch the solve is valid at, and the dispatch
+    On CUDA the solve, its top-k and the copies of the answers (and of the
+    adaptive residuals) into pinned host memory may still be running;
+    `event` was recorded after them on the stream that ran them, and
+    `_harvest` synchronizes on it. `solve_events` (detail metrics on CUDA
+    only) bracket the solve on the same stream for the device span. The
+    rest is the host context that materializes the results: which queries
+    ride which column, the epoch the solve is valid at, and the dispatch
     timestamp the solve-time EWMA feeds on.
     """
 
@@ -179,11 +328,16 @@ class _InFlight:
     col_of: list                # per live entry: its column index
     n_reps: int                 # distinct columns (pre-padding)
     b_pad: int
+    mode: str                   # "adaptive" | "fixed"
     rounds_used: int
     rounds_bound: int
+    tol: float
+    c: float
     idx: torch.Tensor           # [B, k] on the host (pinned on CUDA)
     scores: torch.Tensor        # [B, k] on the host (pinned on CUDA)
+    resid: torch.Tensor | None = None   # adaptive: [B] residuals, host
     event: object = None        # torch.cuda.Event, None on the CPU
+    solve_events: tuple | None = None   # (start, stop) timing events
     t_dispatch0: float = 0.0    # when the host started dispatching
 
 
@@ -198,11 +352,12 @@ class PageRankService:
     background refresh of retained entries within `refresh_margin` hops
     outside the drop radius, up to this many per `refresh_tick`),
     refresh_rounds (the floor on power_refine rounds per refresh),
-    refresh_margin, scheduler ("fifo", "deadline" or a scheduler
-    instance), tenants, default_deadline_s, admission_depth,
-    slack_margin_s (a deadline batch releases once its slack falls to
-    this), async_dispatch (depth-1 pipelining, see the module note) and
-    clock (injectable for tests).
+    refresh_margin, metrics (a `ServeMetrics` bundle; None = a fresh
+    detailed one), scheduler ("fifo", "deadline" or a scheduler instance),
+    tenants, default_deadline_s, admission_depth, slack_margin_s (a
+    deadline batch releases once its slack falls to this), async_dispatch
+    (depth-1 pipelining, see the module note) and clock (injectable for
+    tests).
 
     Invariant: every accepted query is answered under exactly one
     disposition, so `queries == cache_hits + solved_queries +
@@ -215,6 +370,7 @@ class PageRankService:
                  invalidation_radius: int | None = None,
                  refresh_batch: int = 0, refresh_rounds: int = 8,
                  refresh_margin: int = 1,
+                 metrics: ServeMetrics | None = None,
                  scheduler: str | object = "fifo",
                  tenants=None,
                  default_deadline_s: float | None = None,
@@ -276,23 +432,53 @@ class PageRankService:
             self.scheduler = scheduler
         self.policy = getattr(self.scheduler, "name",
                               type(self.scheduler).__name__)
-        self._counts = dict.fromkeys(STATS_KEYS, 0)
+        self.metrics = ServeMetrics() if metrics is None else metrics
+        # the registry shares the service's metric registry (build/update/
+        # BFS timings and per-graph gauges land next to the serve metrics)
+        registry.bind_metrics(self.metrics.registry)
         for gname in registry.names():
             self._seed_estimator(gname)
         self._submitted = 0     # total accepted queries (qid autogeneration)
+        self._tick_no = 0
 
     def _seed_estimator(self, name: str) -> None:
-        """Prime the solve-time estimator from a tuner's per-round time.
-        No registry of the port records one until the autotuner is ported
-        (ROADMAP A7), so this is a no-op today."""
+        """Prime the solve-time estimator from the tuner's per-round time
+        (a tuned registry records one per graph), scaled by a nominal round
+        count. No-op when untuned."""
         us = getattr(self.registry.get(name), "tune_us_per_iter", None)
         if us is not None:
             self.estimator.seed(name, us * 1e-6 * _SEED_ROUNDS)
 
     @property
     def stats(self) -> dict:
-        """Counter dict with the reference's keys."""
-        return dict(self._counts)
+        """The reference's counter dict, rendered from the metric families'
+        totals."""
+        m = self.metrics
+        return {
+            "queries": int(m.queries.total()),
+            "cache_hits": int(m.disposition_total("cache_hit")),
+            "solves": int(m.solves.total()),
+            "solved_queries": int(m.disposition_total("solved")),
+            "dropped_queries": int(m.disposition_total("dropped")),
+            "rejected_queries": int(m.admission_total("reject")),
+            "deadline_misses": int(m.deadline_miss.total()),
+            "ticks": int(m.ticks.total()),
+            "held_ticks": int(m.held.total()),
+            "padded_columns": int(m.padded.total()),
+            "updates": int(m.updates.total()),
+            "rounds_used": int(m.rounds_used.total()),
+            "rounds_bound": int(m.rounds_bound.total()),
+            "noop_updates": int(m.update_kind_total("noop")),
+            "incremental_updates": int(m.update_kind_total("incremental")),
+            "cache_dropped": int(m.cache_dropped.total()),
+            "cache_retained": int(m.cache_retained.total()),
+            "refreshes": int(m.refreshes.total()),
+            "refresh_deferred": int(m.refresh_deferred.total()),
+        }
+
+    def snapshot(self, meta: dict | None = None) -> dict:
+        """JSON-ready snapshot of metrics + convergence + recent traces."""
+        return self.metrics.snapshot(meta)
 
     # ---- submission -------------------------------------------------------
     def _tenant_spec(self, tenant: str) -> TenantSpec:
@@ -320,7 +506,8 @@ class PageRankService:
                 service bound.
             KeyError: unknown graph name.
             AdmissionRejected: the tenant's queue is at its admission bound
-                (counted in `rejected_queries`, never accepted).
+                (counted under `serve_admission_total{decision="reject"}`,
+                never accepted).
         """
         if not q.seeds:
             raise ValueError("query needs at least one seed vertex")
@@ -330,27 +517,48 @@ class PageRankService:
         if q.top_k > self.max_top_k:
             raise ValueError(f"top_k {q.top_k} exceeds service max_top_k "
                              f"{self.max_top_k}")
+        m = self.metrics
         t0 = self._clock()
         hit = self.cache.lookup(q.key(rg.epoch))
         if hit is not None:
-            self._counts["queries"] += 1
-            self._counts["cache_hits"] += 1
+            # disposition decided here: served from cache, counted once
+            m.queries.labels(graph=q.graph).inc()
             self._submitted += 1
             self.cache.count_hit()
             res = self._materialize(q, rg.epoch, *hit, cached=True)
             self._results[q.qid] = res
+            m.served.labels(graph=q.graph, disposition="cache_hit").inc()
+            m.latency.labels(graph=q.graph, disposition="cache_hit").observe(
+                self._clock() - t0)
+            tr = m.tracer.start("query", qid=q.qid, graph=q.graph)
+            tr.mark("submit")
+            tr.begin("cache_hit")
+            tr.end("cache_hit")
+            m.tracer.finish(tr)
             return res
+        # the miss is not counted yet: this query's disposition (solved at
+        # a later tick, twin-filled cache hit, or dropped) is still open
         spec = self._tenant_spec(q.tenant)
         entry = QueueEntry(q=q, t0=t0, tr=None,
                            deadline=t0 + self._deadline_budget(q, spec),
                            tenant=q.tenant, priority=spec.priority)
         try:
             self.scheduler.admit(entry, now=t0)
-        except AdmissionRejected:
-            self._counts["rejected_queries"] += 1
+        except AdmissionRejected as e:
+            m.admission.labels(graph=q.graph, tenant=q.tenant,
+                               decision="reject", reason=e.reason).inc()
             raise
-        self._counts["queries"] += 1
+        m.queries.labels(graph=q.graph).inc()
+        m.admission.labels(graph=q.graph, tenant=q.tenant,
+                           decision="accept", reason="ok").inc()
         self._submitted += 1
+        tr = m.tracer.start("query", qid=q.qid, graph=q.graph)
+        tr.mark("submit")
+        tr.begin("queue")
+        entry.tr = tr
+        m.queue_depth.set(self.scheduler.depth())
+        m.tenant_depth.labels(tenant=q.tenant).set(
+            self.scheduler.depth_for(q.tenant))
         return None
 
     def submit_many(self, queries) -> list[PPRResult]:
@@ -378,22 +586,33 @@ class PageRankService:
         is materialized under the epoch it was solved at.
         """
         self._flush_inflight()
+        m = self.metrics
+        t0 = self._clock()
         prev_engine = type(self.registry.get(name).engine)
         rg = self.registry.apply_updates(name, insert=insert, delete=delete)
         if type(rg.engine) is not prev_engine:
             # a rebuild picked another engine: the old EWMAs time a layout
-            # that no longer runs
+            # that no longer runs, so the deadline math restarts from the
+            # tuner's seed (or cold)
             self.estimator.reset(graph=name)
             self._seed_estimator(name)
-        self._counts["updates"] += 1
+            m.engine_swaps.labels(graph=name).inc()
         delta = rg.last_delta
-        if delta.is_noop:
-            self._counts["noop_updates"] += 1
+        edges_changed = (len(delta.inserted) + len(delta.deleted)
+                         if delta is not None else 0)
+        if delta is not None and delta.is_noop:
+            m.updates.labels(graph=name, kind="noop").inc()
+            m.convergence.record_update(UpdateTelemetry(
+                graph=name, kind="noop", edges_changed=0, cache_dropped=0,
+                cache_retained=self.cache.count_for(name),
+                duration_s=self._clock() - t0))
             return rg.epoch
-        if rg.last_update_incremental:
-            self._counts["incremental_updates"] += 1
-        if self.invalidation_radius is None:
-            self._counts["cache_dropped"] += self.cache.invalidate_graph(name)
+        kind = "incremental" if rg.last_update_incremental else "rebuild"
+        m.updates.labels(graph=name, kind=kind).inc()
+        dropped = retained = 0
+        if self.invalidation_radius is None or delta is None:
+            dropped = self.cache.invalidate_graph(name)
+            m.cache_dropped.labels(graph=name).inc(dropped)
         elif self.cache.count_for(name) > 0:
             # one BFS yields both rings: the drop mask and (with the refresh
             # tick armed) the ring refresh_margin hops further out
@@ -407,12 +626,17 @@ class PageRankService:
 
             dropped, retained_keys = self.cache.invalidate_selective(
                 name, rg.epoch, drop)
-            self._counts["cache_dropped"] += dropped
-            self._counts["cache_retained"] += len(retained_keys)
+            retained = len(retained_keys)
+            m.cache_dropped.labels(graph=name).inc(dropped)
+            m.cache_retained.labels(graph=name).inc(retained)
             if ring is not None:
                 for key in retained_keys:
                     if any(ring[s] for s in key[2]):
                         self._refresh.append(key)
+        m.convergence.record_update(UpdateTelemetry(
+            graph=name, kind=kind, edges_changed=edges_changed,
+            cache_dropped=dropped, cache_retained=retained,
+            duration_s=self._clock() - t0))
         return rg.epoch
 
     # ---- the background refresh tick --------------------------------------
@@ -441,16 +665,19 @@ class PageRankService:
         skipped. Returns the number refreshed.
 
         Invariant (foreground yield): while any foreground query is queued
-        or in flight the tick returns 0 at once, counted in
-        `refresh_deferred`, and the queued keys stay for the next idle tick.
+        or in flight the tick returns 0 at once, counted under
+        `serve_refresh_deferred_total`, and the queued keys stay for the
+        next idle tick.
         """
+        m = self.metrics
         if self.scheduler.depth() or self._inflight:
             if self._refresh:
-                self._counts["refresh_deferred"] += 1
+                m.refresh_deferred.inc()
             return 0      # yield: foreground queries own the device
         budget = self.refresh_batch if max_entries is None else max_entries
         done = 0
         dev = self.registry.device
+        t_all = self._clock()
         while self._refresh and done < budget:
             key = self._refresh.popleft()
             graph, epoch, seeds, c, tol = key
@@ -460,6 +687,7 @@ class PageRankService:
             hit = self.cache.lookup(key)
             if hit is None:
                 continue      # evicted before we got to it
+            t0 = self._clock()
             idx, scores = hit
             n = rg.n
             k = min(self.max_top_k, n)
@@ -476,8 +704,15 @@ class PageRankService:
                 rounds=self._refresh_round_count(gap, c, tol), k=k)
             self.cache.put(key, (new_idx.cpu().numpy(),
                                  new_scores.cpu().numpy()))
-            self._counts["refreshes"] += 1
+            m.refreshes.labels(graph=graph).inc()
+            m.refresh_seconds.labels(graph=graph).observe(
+                self._clock() - t0)
             done += 1
+        if done:
+            m.convergence.record_update(UpdateTelemetry(
+                graph=graph, kind="refresh", edges_changed=0,
+                cache_dropped=0, cache_retained=done,
+                duration_s=self._clock() - t_all))
         return done
 
     # ---- the micro-batcher ------------------------------------------------
@@ -505,15 +740,18 @@ class PageRankService:
         Invariant: with `async_dispatch` at most one batch is in flight; a
         tick that dispatches batch k+1 harvests batch k before returning.
         """
+        m = self.metrics
         now = self._clock() if now is None else now
         out: list[PPRResult] = []
         rec = None
         if self.scheduler.depth():
             group = self.scheduler.next_group(now, force=force)
             if group is None:
-                self._counts["held_ticks"] += 1
+                m.held.inc()
             else:
-                self._counts["ticks"] += 1
+                m.ticks.inc()
+                self._tick_no += 1
+                m.queue_depth.set(self.scheduler.depth())
                 hits, rec = self._form_and_dispatch(group)
                 out.extend(hits)
         if rec is not None:
@@ -537,6 +775,7 @@ class PageRankService:
         cache-hit results, the dispatched batch — None when every query of
         the group was answered from cache). On CUDA the returned batch may
         still be running; `_harvest` fences it."""
+        m = self.metrics
         graph = group[0].q.graph
         rg = self.registry.get(graph)
         epoch = rg.epoch
@@ -548,14 +787,30 @@ class PageRankService:
             hit = self.cache.lookup(e.q.key(epoch))
             if hit is not None:
                 self.cache.count_hit()
-                self._counts["cache_hits"] += 1
+                m.served.labels(graph=e.q.graph,
+                                disposition="cache_hit").inc()
+                done = self._clock()
+                e.tr.end("queue")
+                m.latency.labels(graph=e.q.graph,
+                                 disposition="cache_hit").observe(done - e.t0)
+                m.tracer.finish(e.tr)
                 out.append(self._materialize(e.q, epoch, *hit, cached=True))
             else:
                 live.append(e)
         if not live:
             return out, None
 
-        # identical queries share a column
+        # ---- batch formation: identical queries share a column
+        if self._inflight:
+            # the card is still solving the previous batch while this
+            # host-side formation runs: the overlap async dispatch buys
+            m.overlap.inc()
+        t_stage = self._clock()
+        for e in live:
+            queued = e.tr.end("queue")
+            m.stage.labels(stage="queue").observe(
+                queued if queued else t_stage - e.t0)
+            e.tr.begin("batch_form")
         cols: dict[tuple, int] = {}
         col_of: list[int] = []
         reps: list[PPRQuery] = []
@@ -572,7 +827,7 @@ class PageRankService:
         n = rg.n
         dev = self.registry.device
         b_pad = self._bucket(len(reps))
-        self._counts["padded_columns"] += b_pad - len(reps)
+        m.padded.inc(b_pad - len(reps))
         # the personalization matrix is built on the device: only the seed
         # coordinates cross from the host
         rows = np.concatenate([np.asarray(q.seeds, np.int64) for q in reps])
@@ -581,58 +836,146 @@ class PageRankService:
         p = torch.zeros((n, b_pad), dtype=self.registry.dtype, device=dev)
         p[_to_device_async(rows, dev), _to_device_async(cidx, dev)] = 1.0
         p[:, len(reps):] = 1.0  # pad columns: uniform mass, discarded
+        for e in live:
+            e.tr.end("batch_form")
+        m.stage.labels(stage="batch_form").observe(self._clock() - t_stage)
 
+        # dispatch-time slack telemetry: how much budget the most urgent
+        # rider had left, net of the expected solve (deadline health)
+        deadlines = [e.deadline for e in live if e.deadline != math.inf]
+        if deadlines:
+            est = self.estimator.estimate(graph, b_pad)
+            m.slack.labels(graph=graph).observe(
+                min(deadlines) - self._clock() - est)
+
+        # ---- dispatch (host): enqueue the solve, the top-k and the copies
+        # to the host on the stream; the fence is _harvest's
         k = min(self.max_top_k, n)
-        t_dispatch0 = self._clock()
+        mode = "adaptive" if self.adaptive else "fixed"
+        cuda = dev.type == "cuda"
+        t_stage = self._clock()
+        for e in live:
+            e.tr.begin("solve_dispatch")
+        solve_events = None
+        if cuda and m.detail:
+            solve_events = (torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True))
+            solve_events[0].record()
+        resid = None
+        tol_eff, c_eff = float(live[0].q.tol), float(live[0].q.c)
         if self.adaptive:
             plan = self.registry.adaptive_schedule(live[0].q.c, live[0].q.tol,
                                                    chunk=self.adaptive_chunk)
-            idx, scores, used, _, _ = _solve_topk_adaptive(
+            idx, scores, used, _, resid = _solve_topk_adaptive(
                 rg.engine, p, plan.c, plan.tol, max_rounds=plan.max_rounds,
                 chunk=plan.chunk, k=k)
+            tol_eff, c_eff = plan.tol, plan.c
+            resid = _start_copy_to_host(resid)
         else:
             idx, scores = _solve_topk(rg.engine, coeffs, p,
                                       rounds=sched.rounds, k=k)
             used = sched.rounds
+        if solve_events is not None:
+            solve_events[1].record()
         idx, scores = _start_copy_to_host(idx), _start_copy_to_host(scores)
         event = None
-        if dev.type == "cuda":
+        if cuda:
             event = torch.cuda.Event()
             event.record()      # on the current stream, which ran the solve
+        for e in live:
+            e.tr.end("solve_dispatch")
+        m.stage.labels(stage="solve_dispatch").observe(
+            self._clock() - t_stage)
         return out, _InFlight(graph=graph, epoch=epoch, rg=rg, live=live,
                               cols=cols, col_of=col_of, n_reps=len(reps),
-                              b_pad=b_pad, rounds_used=int(used),
-                              rounds_bound=sched.rounds, idx=idx,
-                              scores=scores, event=event,
-                              t_dispatch0=t_dispatch0)
+                              b_pad=b_pad, mode=mode, rounds_used=int(used),
+                              rounds_bound=sched.rounds, tol=tol_eff,
+                              c=c_eff, idx=idx, scores=scores, resid=resid,
+                              event=event, solve_events=solve_events,
+                              t_dispatch0=t_stage)
 
     def _harvest(self, rec: _InFlight) -> list[PPRResult]:
         """Fence one dispatched batch and materialize its results: wait on
         its CUDA event (the only fence of the tick), feed the measured
-        dispatch-to-ready time into the solve-time EWMA, fill the cache and
-        settle each rider's disposition and deadline."""
+        dispatch-to-ready time into the solve-time EWMA, fill the cache,
+        settle each rider's disposition, latency and deadline, and record
+        the tick's convergence telemetry."""
+        m = self.metrics
+        graph, epoch = rec.graph, rec.epoch
+
+        # ---- device: the only fence
+        t_stage = self._clock()
         if rec.event is not None:
             rec.event.synchronize()
         t_ready = self._clock()
-        self.estimator.observe(rec.graph, rec.b_pad,
-                               t_ready - rec.t_dispatch0)
-        self._counts["solves"] += 1
-        self._counts["rounds_used"] += rec.rounds_used
-        self._counts["rounds_bound"] += rec.rounds_bound
+        if rec.solve_events is not None:
+            # device time of the solve, between events on its stream
+            device_s = rec.solve_events[0].elapsed_time(
+                rec.solve_events[1]) * 1e-3
+        else:
+            device_s = t_ready - t_stage
+        for e in rec.live:
+            e.tr.record("solve_device", t_stage, device_s, kind="device")
+        m.stage.labels(stage="solve_device").observe(device_s)
+
+        # the EWMA the deadline scheduler plans with: dispatch-to-ready,
+        # what a batch riding this (graph, bucket) should expect
+        t_solve = t_ready - rec.t_dispatch0
+        self.estimator.observe(graph, rec.b_pad, t_solve)
+        m.solve_seconds.labels(graph=graph, bucket=rec.b_pad).observe(t_solve)
+        m.solve_ewma.labels(graph=graph, bucket=rec.b_pad).set(
+            self.estimator.estimate(graph, rec.b_pad))
+
+        engine_name = type(rec.rg.engine).__name__
+        m.solves.labels(graph=graph, engine=engine_name, bucket=rec.b_pad,
+                        mode=rec.mode).inc()
+        m.rounds_used.labels(graph=graph, mode=rec.mode).inc(rec.rounds_used)
+        m.rounds_bound.labels(graph=graph, mode=rec.mode).inc(
+            rec.rounds_bound)
+
+        # ---- materialize: cache fills, per-query results
+        out: list[PPRResult] = []
+        t_stage = self._clock()
+        for e in rec.live:
+            e.tr.begin("materialize")
         idx = rec.idx.numpy()
         scores = rec.scores.numpy()
         for key, j in rec.cols.items():
             self.cache.put(key, (idx[j], scores[j]))
-        out: list[PPRResult] = []
         for i, e in enumerate(rec.live):
+            # disposition: served by this solve (twins included — each
+            # query counts itself, the COLUMNS were deduplicated)
             self.cache.count_miss()
-            self._counts["solved_queries"] += 1
+            m.served.labels(graph=e.q.graph, disposition="solved").inc()
             j = rec.col_of[i]
-            out.append(self._materialize(e.q, rec.epoch, idx[j], scores[j],
+            out.append(self._materialize(e.q, epoch, idx[j], scores[j],
                                          cached=False,
                                          batch_size=rec.n_reps))
-            if self._clock() > e.deadline:
-                self._counts["deadline_misses"] += 1
+            e.tr.end("materialize")
+            done = self._clock()
+            m.latency.labels(graph=e.q.graph, disposition="solved").observe(
+                done - e.t0)
+            if done > e.deadline:
+                m.deadline_miss.labels(graph=e.q.graph,
+                                       tenant=e.tenant).inc()
+            m.tracer.finish(e.tr)
+        m.stage.labels(stage="materialize").observe(self._clock() - t_stage)
+
+        # ---- convergence telemetry: the paper's bound, checked per tick
+        if rec.resid is not None:
+            r_live = rec.resid.numpy()[:rec.n_reps]
+            residual = float(r_live.max()) if r_live.size else 0.0
+            converged = float(np.mean(r_live <= rec.tol)) if r_live.size \
+                else 1.0
+        else:
+            residual = 0.0      # fixed path: no residual is measured
+            converged = 1.0     # by construction of the a-priori bound
+        m.convergence.record_tick(TickTelemetry(
+            tick=self._tick_no, graph=graph, engine=engine_name,
+            bucket=rec.b_pad, columns=rec.n_reps,
+            rounds_used=rec.rounds_used, rounds_bound=rec.rounds_bound,
+            residual=residual, converged_frac=converged, tol=rec.tol,
+            c=rec.c))
         return out
 
     def _flush_inflight(self) -> None:
@@ -659,12 +1002,27 @@ class PageRankService:
 
     def _drop_pending(self, max_ticks: int) -> None:
         """Overrun policy "drop": discard the undrained queue, counting and
-        warning instead of raising."""
-        n_drop = len(self.scheduler.drain())
-        self._counts["dropped_queries"] += n_drop
+        warning instead of raising. Dropped queries get no result."""
+        m = self.metrics
+        entries = self.scheduler.drain()
+        n_drop = len(entries)
+        now = self._clock()
+        tenants = set()
+        for e in entries:
+            m.served.labels(graph=e.q.graph, disposition="dropped").inc()
+            m.latency.labels(graph=e.q.graph, disposition="dropped").observe(
+                now - e.t0)
+            e.tr.end("queue")
+            e.tr.mark("dropped")
+            m.tracer.finish(e.tr)
+            tenants.add(e.tenant)
+        m.queue_depth.set(0)
+        for t in tenants:
+            m.tenant_depth.labels(tenant=t).set(0)
         warnings.warn(
             f"PPR serve loop dropped {n_drop} undrained queries after "
-            f"{max_ticks} ticks", RuntimeWarning, stacklevel=3)
+            f"{max_ticks} ticks (see serve_served_total"
+            '{disposition="dropped"})', RuntimeWarning, stacklevel=3)
 
     def run_until_drained(self, max_ticks: int = 10_000,
                           on_overrun: str = "raise") -> dict[int, PPRResult]:

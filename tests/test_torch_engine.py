@@ -256,7 +256,7 @@ class TestSelection:
         assert teng.heuristic_mode(g, 128, device="cpu") == "coo"
         assert teng.heuristic_mode(g, 128, device="cuda") == "fused"
 
-    @pytest.mark.parametrize("mode", ["tuned", "sharded_1d", "sharded-2d"])
+    @pytest.mark.parametrize("mode", ["sharded_1d", "sharded-2d"])
     def test_unported_modes_raise(self, mode):
         _, gt = _pair("mesh")
         with pytest.raises(NotImplementedError, match="ROADMAP"):

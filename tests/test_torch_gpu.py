@@ -341,3 +341,64 @@ class TestDlrmOnCard:
                                                device=cuda)}, cfg, top_k=50)
         assert idx.dtype == torch.int32 and bool((scores[:-1] >= scores[1:])
                                                   .all())
+
+
+@pytest.mark.gpu
+class TestSlice5OnCard:
+    """Measured selection, the traced tick and the paper's baseline on the
+    card."""
+
+    def test_tuned_selection_times_the_fused_kernels(self, cuda, tmp_path):
+        from repro_torch.core.autotune import Autotuner, TuningStore
+        from repro_torch.core.engine import select_engine
+        from repro_torch.kernels.cheb_step import ops as cheb_ops
+        g = generators.tri_mesh(60, 70)
+        tuner = Autotuner(TuningStore(tmp_path / "t.json"), budget_s=60.0)
+        bsr_ops.reset_launches()
+        cheb_ops.reset_launches()
+        eng = select_engine(g, 128, mode="tuned", tuner=tuner)
+        entry = next(iter(tuner.store.entries().values()))
+        assert entry["backend"] == "torch-cuda"
+        assert entry["device_name"] == torch.cuda.get_device_name(0)
+        assert "fused" in entry["candidates"] and "coo" in entry["candidates"]
+        assert bsr_ops.launches_by_variant()["wgmma_3xtf32"] > 0
+        assert cheb_ops.launches() > 0
+        assert eng.device.type == "cuda"
+        warm = Autotuner(TuningStore(tmp_path / "t.json"))
+        select_engine(g, 128, mode="tuned", tuner=warm)
+        assert warm.measured_count() == 0
+
+    def test_traced_tick_device_span(self, cuda, tmp_path):
+        from repro_torch.obs.export import validate_snapshot
+        from repro_torch.obs.trace import profiled
+        from repro_torch.serve import GraphRegistry, PageRankService, \
+            PPRQuery
+        reg = GraphRegistry(engine="fused", device=cuda)
+        reg.register("g", generators.tri_mesh(60, 70))
+        svc = PageRankService(reg, max_batch=8, adaptive=True)
+        for i in range(8):
+            svc.submit(PPRQuery(qid=i, graph="g", seeds=(11 * i + 3,)))
+        with profiled(str(tmp_path)):
+            svc.tick(force=True)
+        text = next(tmp_path.glob("trace_*.json")).read_text()
+        assert "bsr_spmm" in text and "cheb_step" in text
+        spans = [s for t in svc.metrics.tracer.finished for s in t.spans
+                 if s.name == "solve_device"]
+        assert len(spans) == 8
+        assert all(s.kind == "device" and s.duration > 0 for s in spans)
+        tick = svc.metrics.convergence.ticks[-1]
+        assert tick.rounds_used <= tick.rounds_bound
+        assert np.isfinite(tick.residual)
+        assert validate_snapshot(svc.snapshot()) == []
+
+    def test_power_on_fused_matches_plain(self, cuda):
+        from repro_torch.core.engine import FusedBlockEllEngine
+        from repro_torch.core.pagerank import power
+        g = generators.tri_mesh(60, 70)
+        eng = FusedBlockEllEngine.from_graph(g, device=cuda)
+        bsr_ops.reset_launches()
+        rk = power(eng, tol=1e-5)
+        assert bsr_ops.launches_by_variant()["ffma"] >= rk.iterations
+        rp = power(eng.with_kernels(False), tol=1e-5)
+        assert rk.iterations == rp.iterations
+        assert float((rk.pi - rp.pi).abs().sum()) <= 1e-5

@@ -54,7 +54,11 @@ def test_fresh_import_leaves_jax_and_reference_out():
             "repro_torch.kernels.cheb_step.ops, "
             "repro_torch.kernels.embedding_bag.ops, "
             "repro_torch.models.recsys.dlrm, repro_torch.configs.dlrm_rm2, "
-            "repro_torch.train.data, repro_torch.topk\n"
+            "repro_torch.train.data, repro_torch.topk, repro_torch.obs, "
+            "repro_torch.obs.metrics, repro_torch.obs.trace, "
+            "repro_torch.obs.convergence, repro_torch.obs.export, "
+            "repro_torch.core.autotune, repro_torch.core.orthopoly, "
+            "repro_torch.core, repro_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
@@ -141,6 +145,21 @@ class TestDefaultDeviceIsCuda:
         with pytest.raises(RuntimeError, match="CUDA"):
             interop.hub_tail_engine(np.ones(4), z, z, z.reshape(0, 32), z, z,
                                     n=4)
+
+    def test_tuner_and_solvers(self, no_gpu, tmp_path):
+        from repro_torch.core.autotune import Autotuner, TuningStore
+        from repro_torch.core.engine import select_engine
+        from repro_torch.core.pagerank import forward_push, power
+        from repro_torch.graph.generators import caveman
+        g = caveman(5, 4)
+        tuner = Autotuner(TuningStore(tmp_path / "t.json"))
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tuner.tune(g, 8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            select_engine(g, mode="tuned", tuner=tuner)
+        for fn in (power, forward_push):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn(g)
 
     def test_launcher(self, no_gpu):
         from repro_torch.launch import serve

@@ -166,10 +166,10 @@ class TestServiceSurface:
         assert set(self._svc().stats) == set(js.stats)
 
     def test_unported_knobs_raise(self):
-        # updates, the refresh tick, the deadline scheduler, async dispatch
-        # and hub/tail are ported; measured selection and the sharded
-        # engines still raise when the registry builds a graph
-        for engine in ("tuned", "sharded-1d", "sharded-2d"):
+        # updates, the refresh tick, the deadline scheduler, async dispatch,
+        # hub/tail and measured selection are ported; the sharded engines
+        # still raise when the registry builds a graph
+        for engine in ("sharded-1d", "sharded-2d"):
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 self._svc(engine=engine)
         svc = self._svc(scheduler="deadline", async_dispatch=True,
