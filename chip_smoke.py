@@ -98,6 +98,19 @@ package. Phases, each of which must pass:
        at CPAA's round count (rounds, ms, L1, FFMA launches);
        monte_carlo and ortho_pagerank (three bases) against the dense
        oracle at the reference tests' bounds.
+  8. slice F, the sharded engines over NCCL at world size 1 (`init_mesh`,
+     a single-rank group; no kernel of their own, so no new kernel row):
+     on NACA0015 x10 and chunglu-1m, Sharded1DEngine and Sharded2DEngine
+     at grid (1, 1) through CPAA at ERR < 1e-3 at BT = 1 and 128, and the
+     2D engine with the bf16 wire at BT = 1, each held to the COO solve
+     (L1 <= 1e-5 per column; bf16 max rel < 2e-2 and >= 95% of the top
+     decile) with the collective counters checked per solve; ms per apply
+     beside COO's, the NCCL kernels' device time (torch.profiler),
+     partition build seconds and memory; one tick of 128 queries through
+     the service over sharded-1d (4 answers against a float64 solve); and
+     `configs/pagerank_cpaa.smoke_run` on the card. At world size 1 NCCL
+     moves no bytes between cards: this shows the engines and the cost
+     of their collective calls on the card, not multi-card scaling.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -1886,6 +1899,288 @@ def phase_slice_e_paper(reg, g10) -> dict:
             "ortho": ortho}
 
 
+# ---------------------------------------------------------------- slice F --
+def device_time_by_kernel(fn, calls: int = 3) -> dict:
+    """{kernel name: device us per call} over `calls` calls of `fn`
+    (torch.profiler, after one warm call); {} if the profiler sees no
+    kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        dev = getattr(e, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(e, "self_cuda_time_total", 0)
+        if dev > 0:
+            out[e.key] = out.get(e.key, 0.0) + dev / calls
+    return out
+
+
+def sharded_collectives(eng, x):
+    """The collectives of one sharded apply on buffers of its shapes, and
+    nothing else: 1D one all-gather of x; 2D a reduce-scatter of the
+    [rows, ...] partial over the column group and an all-gather over the
+    row group (with the bf16 wire's cast)."""
+    from repro_torch.core import distributed
+    if eng.name == "sharded_1d":
+        xs = x if eng.comm_dtype is None else x.to(eng.comm_dtype)
+        return distributed.all_gather(xs, eng.group)
+    partial = x.new_empty((eng.rows_per_chunk,) + tuple(x.shape[1:]))
+    y = distributed.reduce_scatter(partial, eng.col_group)
+    if eng.comm_dtype is not None:
+        y = y.to(eng.comm_dtype)
+    return distributed.all_gather(y, eng.row_group)
+
+
+# Slice F's gate on the timed (atomic) path: a sharded solve with atomics
+# against COO's with atomics. COO against itself moves up to 3.6e-5 in L1
+# on chunglu-1m's hubs (H100), from the order of the atomic adds alone; a
+# solve one round short or a dropped shard moves 1e-3 or more.
+L1_ATOMICS_LIMIT = 2e-4
+
+
+def deterministic(fn):
+    """fn() with torch's deterministic algorithms on (raising on an op that
+    has none): `index_add_` then sums in a fixed order on the card."""
+    import torch
+    torch.use_deterministic_algorithms(True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_slice_f(graphs: dict) -> dict:
+    """F: the sharded engines over NCCL at world size 1 (`init_mesh`, a
+    single-rank group on an in-process store), on NACA0015 x10 and
+    chunglu-1m: Sharded1DEngine and Sharded2DEngine at grid (1, 1), CPAA
+    at the paper's operating point (ERR < 1e-3, 12 rounds) at BT = 1 and
+    BT = 128, the 2D engine with the bf16 wire at BT = 1; each held to the
+    COO engine's solve (L1 <= 1e-5 per column; bf16: max rel < 2e-2 and
+    >= 95% of the top decile) with deterministic algorithms on for both,
+    so both sum in one order (with atomics, COO against itself moves more
+    than 1e-5 on chunglu-1m's hubs: that spread is printed, and each f32
+    engine's L1 from COO with atomics, the path timed here, is held to
+    L1_ATOMICS_LIMIT), the collective counters checked per
+    solve; CUDA-event ms per apply beside COO's and of the apply's
+    collectives alone, the NCCL kernels of a 2D apply at BT = 128 by
+    torch.profiler, partition build seconds and peak memory. Then one service tick of 128 queries on
+    NACA0015 x10 over sharded-1d (4 answers against a float64 solve,
+    within 2 tol) and `pagerank_cpaa.smoke_run` on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import pagerank_cpaa
+    from repro_torch.core import distributed
+    from repro_torch.core.chebyshev import make_schedule
+    from repro_torch.core.engine import (CooEngine, Sharded1DEngine,
+                                         Sharded2DEngine, collective_counts,
+                                         reset_collective_counts)
+    from repro_torch.core.pagerank import cpaa
+    from repro_torch.graph.ops import device_graph
+    from repro_torch.serve.graph_registry import GraphRegistry
+    from repro_torch.serve.pagerank_service import PageRankService
+    t_phase = time.perf_counter()
+    mesh1 = distributed.init_mesh((1,), ("dev",), device="cuda")
+    mesh2 = distributed.init_mesh((1, 1), ("row", "col"), device="cuda")
+    backend = str(dist.get_backend())
+    check("nccl" in backend and distributed.world_size() == 1,
+          f"slice F: process group {backend!r}, world "
+          f"{distributed.world_size()}")
+    sched = make_schedule(pagerank_cpaa.C, pagerank_cpaa.TOL)
+    rounds = sched.rounds
+    rows = {}
+    for gname in ("naca10", "chunglu"):
+        g = graphs[gname]
+        coo = CooEngine(device_graph(g, device="cuda"))
+        rng = np.random.default_rng(5)
+        p128 = torch.zeros((g.n, 128), device="cuda")
+        seeds = torch.from_numpy(rng.choice(g.n, 128, replace=False)).cuda()
+        p128[seeds, torch.arange(128, device="cuda")] = 1.0
+        ps = {1: torch.full((g.n,), 1.0 / g.n, device="cuda"), 128: p128}
+
+        def solve(eng, p):
+            return cpaa(eng, pagerank_cpaa.C, schedule=sched, p=p).pi
+
+        def l1(a, b) -> float:
+            return float((a.double() - b.double()).abs().sum(dim=0).max())
+        refs = {bt: solve(coo, p) for bt, p in ps.items()}
+        refs_det = {bt: deterministic(lambda: solve(coo, p))
+                    for bt, p in ps.items()}
+        spread = {bt: l1(solve(coo, p), refs[bt]) for bt, p in ps.items()}
+        log(f"slice F {gname}: COO against itself with atomics, L1 "
+            + ", ".join(f"{v:.3e} at BT {bt}" for bt, v in spread.items()))
+        # applies are timed on a dense x, as mid-solve: one-hot or
+        # constant columns compress on the card and read faster
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        xs = {bt: torch.rand((g.n,) if bt == 1 else (g.n, bt),
+                             generator=gen, device="cuda") for bt in ps}
+        coo_ms = {bt: time_ms(lambda: coo.apply(x), reps=10)
+                  for bt, x in xs.items()}
+        engines = {}
+        for kind, cls, mesh in (("1d", Sharded1DEngine, mesh1),
+                                ("2d", Sharded2DEngine, mesh2)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eng = cls.from_graph(g, mesh=mesh, device="cuda")
+            torch.cuda.synchronize()
+            engines[kind] = (eng, time.perf_counter() - t0,
+                             torch.cuda.max_memory_allocated() - base)
+        e2 = engines["2d"][0]
+        engines["2d_bf16"] = (Sharded2DEngine(
+            mesh=mesh2, src_local=e2.src_local, dst_local=e2.dst_local,
+            weight=e2.weight, perm=e2.perm, inv_perm=e2.inv_perm,
+            n_orig=e2.n_orig, n_pad=e2.n_pad,
+            rows_per_chunk=e2.rows_per_chunk, comm_dtype=torch.bfloat16),
+            0.0, 0)
+        for kind, (eng, build_s, build_mem) in engines.items():
+            for bt in ((1,) if kind == "2d_bf16" else (1, 128)):
+                p = ps[bt]
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                reset_collective_counts()
+                pi = solve(eng, p)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                coll = collective_counts()
+                counts = read_counts()
+                check(counts["applies"] == {eng.name: rounds},
+                      f"slice F {gname} {kind} BT {bt}: applies {counts}")
+                vec = eng.n_pad * bt * 4
+                if kind == "1d":
+                    want = {f"{eng.name}/apply/all_gather/world":
+                            {"calls": rounds, "bytes": rounds * vec},
+                            f"{eng.name}/layout/all_gather/world":
+                            {"calls": 1, "bytes": vec}}
+                else:
+                    wire = 2 if kind == "2d_bf16" else 4
+                    want = {f"{eng.name}/apply/reduce_scatter/col":
+                            {"calls": rounds, "bytes": rounds * vec},
+                            f"{eng.name}/apply/all_gather/row":
+                            {"calls": rounds,
+                             "bytes": rounds * eng.n_pad * bt * wire},
+                            f"{eng.name}/layout/all_gather/col":
+                            {"calls": 1, "bytes": vec}}
+                check(coll == want, f"slice F {gname} {kind} BT {bt}: "
+                      f"collectives {coll} != {want}")
+                row = {"build_s": build_s, "build_bytes": build_mem,
+                       "peak_bytes": peak, "collectives": coll,
+                       "l1_atomics": l1(pi, refs[bt]),
+                       "coo_spread": spread[bt]}
+                pi = deterministic(lambda: solve(eng, p))
+                if kind == "2d_bf16":
+                    a = pi.double().cpu().numpy()
+                    b = refs_det[bt].double().cpu().numpy()
+                    rel = float(np.max(np.abs(a - b) / b))
+                    top = set(np.argsort(-b)[: g.n // 10].tolist())
+                    kept = len(top & set(np.argsort(-a)[: g.n // 10]
+                                         .tolist())) / len(top)
+                    check(rel < 2e-2 and kept >= 0.95,
+                          f"slice F {gname} bf16: max rel {rel:.3e}, top "
+                          f"decile kept {kept:.4f}")
+                    row.update(max_rel=rel, top_decile_kept=kept)
+                else:
+                    row["l1"] = l1(pi, refs_det[bt])
+                    check(row["l1"] <= 1e-5, f"slice F {gname} {kind} BT "
+                          f"{bt}: L1 {row['l1']:.3e} from COO > 1e-5")
+                    check(row["l1_atomics"] <= L1_ATOMICS_LIMIT,
+                          f"slice F {gname} {kind} BT {bt}: with atomics, "
+                          f"L1 {row['l1_atomics']:.3e} from COO > "
+                          f"{L1_ATOMICS_LIMIT:.0e}")
+                x = eng.to_internal(xs[bt])
+                row["apply_ms"] = time_ms(lambda: eng.apply(x), reps=10)
+                row["coo_apply_ms"] = coo_ms[bt]
+                row["collectives_ms"] = time_ms(
+                    lambda: sharded_collectives(eng, x), reps=10)
+                rows[(gname, kind, bt)] = row
+                log(f"slice F {gname} (n={g.n}, m={g.m}) {kind} BT {bt}: "
+                    + (f"L1 from COO {row['l1']:.3e}" if "l1" in row else
+                       f"max rel {row['max_rel']:.3e}, top decile kept "
+                       f"{row['top_decile_kept']:.4f}")
+                    + f" (with atomics {row['l1_atomics']:.3e})"
+                    + f"; apply {row['apply_ms']:.3f} ms (COO "
+                    f"{coo_ms[bt]:.3f} ms), its collectives alone "
+                    f"{row['collectives_ms']:.3f} ms; partition build "
+                    f"{build_s:.2f} s, +{build_mem / 2**20:.0f} MiB; solve "
+                    f"peak {peak / 2**30:.2f} GiB; collectives {coll}")
+                del x, pi
+        e2, x2 = engines["2d"][0], engines["2d"][0].to_internal(xs[128])
+        kern = device_time_by_kernel(lambda: e2.apply(x2))
+        nccl = {k: v for k, v in kern.items() if "nccl" in k.lower()}
+        log(f"slice F {gname}: torch.profiler over a 2D apply at BT 128: "
+            f"device {sum(kern.values()):.1f} us per apply (CUDA events "
+            f"{rows[(gname, '2d', 128)]['apply_ms'] * 1e3:.1f} us), NCCL "
+            + (", ".join(f"{k} {v:.1f} us" for k, v in nccl.items())
+               or "none seen"))
+        rows[(gname, "2d", 128)]["profiler_nccl_us"] = nccl
+        del e2, x2
+        del engines, coo, ps, xs, refs, refs_det, p128
+        torch.cuda.empty_cache()
+
+    # one tick of 128 queries through the service over sharded-1d
+    g10 = graphs["naca10"]
+    reg = GraphRegistry(device="cuda", engine="sharded-1d", batch_hint=128)
+    t0 = time.perf_counter()
+    reg.register("naca10", g10)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    check(reg.get("naca10").dg is None,
+          "slice F service: a sharded registry uploaded the whole graph")
+    svc = PageRankService(reg, max_batch=128, cache_capacity=4096,
+                          max_top_k=32, adaptive=True)
+    queries = seeded_queries(svc, 128, seed=81, top_k=32)
+    reset_counts()
+    t0 = time.perf_counter()
+    for q in queries:
+        svc.submit(q)
+    res = svc.run_until_drained()
+    torch.cuda.synchronize()
+    tick_s = time.perf_counter() - t0
+    st = svc.stats
+    check(st["ticks"] == 1 and len(res) == 128 and st["solves"] == 1,
+          f"slice F service: {st}")
+    tick_counts = read_counts()
+    check(set(tick_counts["applies"]) == {"sharded_1d"},
+          f"slice F service: applies {tick_counts['applies']}")
+    sub = queries[:4]
+    x = float64_ppr(g10, 0.85, [q.seeds for q in sub], iters=100)
+    worst = max(answer_err(res[q.qid].indices, res[q.qid].scores, x[:, j])
+                for j, q in enumerate(sub))
+    check(worst <= 2e-4, f"slice F service: |answer - float64| "
+          f"{worst:.3e} > 2 tol")
+    log(f"slice F service: NACA0015 x10 on sharded-1d registered in "
+        f"{reg_s:.2f} s; one tick of 128 queries {tick_s * 1e3:.1f} ms "
+        f"host ({st['rounds_used']} rounds of bound {st['rounds_bound']}); "
+        f"max |answer - float64| over 4 queries {worst:.3e} (bound 2e-04)")
+    svc.close()
+    del svc, reg, x
+    torch.cuda.empty_cache()
+
+    smoke = pagerank_cpaa.smoke_run(device="cuda")
+    check(smoke["max_rel_err"] < 5e-5 and
+          smoke["adaptive_max_rel_err"] < 5e-5 and
+          smoke["adaptive_rounds"] <= smoke["adaptive_rounds_bound"],
+          f"slice F pagerank_cpaa.smoke_run: {smoke}")
+    log("slice F pagerank_cpaa.smoke_run on the card: "
+        + ", ".join(f"{k} {v}" for k, v in smoke.items()))
+    dist.destroy_process_group()
+    secs = time.perf_counter() - t_phase
+    log(f"slice F: {secs:.1f} s")
+    return {"rows": rows, "tick_s": tick_s, "oracle_err": worst,
+            "smoke": smoke, "seconds": secs}
+
+
 def profile_device(fn, label: str) -> dict:
     """Device-time breakdown of one call of `fn` (torch.profiler, after one
     warm call): the kernels by device time and the device's idle share of
@@ -1971,13 +2266,16 @@ def main() -> int:
                    d_paper["launches"], d_sched["launches"])
     e_tuned = phase_slice_e_tuned(e_cache.pop("graph"))
     e_obs = phase_slice_e_obs()
+    e_graphs = e_tuned.pop("graphs")
     e_paper = phase_slice_e_paper(e_tuned.pop("registry"),
-                                  e_tuned.pop("graphs")["naca10"])
+                                  e_graphs["naca10"])
     torch.cuda.empty_cache()
     e = add_counts(e_tuned["launches"], e_obs["launches"],
                    e_paper["launches"])
     log(f"slice E launches: tuned {e_tuned['launches']}; obs "
         f"{e_obs['launches']}; paper {e_paper['launches']}")
+    phase_slice_f(e_graphs)
+    del e_graphs
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])

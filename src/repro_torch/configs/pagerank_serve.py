@@ -5,11 +5,10 @@
 copies of the reference's; `make_service` builds the port's registry and
 service on a device (None = cuda), with the engine (measured selection
 "tuned" and its `tune_*` knobs included), ingestion chunk, update, cache,
-refresh, metrics-detail and scheduling knobs wired as in the reference.
-The sharded engines are not ported yet: the modes "sharded-*" raise
-NotImplementedError when the registry builds a graph, and `mesh_grid` and
-`partition_lane` (ROADMAP A10) are carried so the configs stay identical,
-with no effect.
+refresh, metrics-detail, scheduling and sharded-engine knobs
+(`mesh_grid`, `partition_lane`) wired as in the reference. With a sharded
+engine every rank calls `make_service`; rank 0 then drives the service
+and the other ranks run its `follow()` loop.
 """
 from __future__ import annotations
 
@@ -32,8 +31,9 @@ class PPRServeConfig:
     cache_capacity: int = 4096
     max_top_k: int = 16
     # solve-engine format: "auto", "tuned" (measured selection through the
-    # port's tuning store), "coo", "hub-tail", "block_ell", "fused" (and the
-    # reference's "sharded-1d", "sharded-2d", which raise until ported)
+    # port's tuning store), "coo", "hub-tail", "block_ell", "fused",
+    # "sharded-1d", "sharded-2d" (auto shards at world size >= 2 once a
+    # graph clears the sharding bar)
     engine: str = "auto"
     # tuned mode only: tuning-store path (None = $REPRO_TORCH_TUNE_CACHE or
     # ~/.cache/repro_torch/tuning.json), per-graph measurement budget in
@@ -46,6 +46,8 @@ class PPRServeConfig:
     weight_dtype: str | None = None
     # host->device transfer chunk (edges) at registration; None = one shot
     ingest_chunk_edges: int | None = None
+    # sharded-2d's (R, C) grid (None = most-square factorization of the
+    # world size) and the sharded partitions' padding lane
     mesh_grid: tuple[int, int] | None = None
     partition_lane: int = 128
     # residual-controlled ticks (the Formula 8 round count stays the cap)
@@ -97,7 +99,9 @@ def make_service(cfg: PPRServeConfig, device=None):
                         ingest_chunk_edges=cfg.ingest_chunk_edges,
                         tune_cache=cfg.tune_cache,
                         tune_budget_s=cfg.tune_budget_s,
-                        tune_require_cached=cfg.tune_require_cached)
+                        tune_require_cached=cfg.tune_require_cached,
+                        grid=cfg.mesh_grid,
+                        partition_lane=cfg.partition_lane)
     for name, dataset, scale in cfg.graphs:
         reg.register(name, generators.paper_dataset(dataset, scale))
     tenants = [TenantSpec(name=n, priority=p,

@@ -1,5 +1,6 @@
 """CPAA (PageRank via Chebyshev polynomial approximation) in PyTorch, plus
-the paper's baselines and measured engine selection."""
+the paper's baselines, measured engine selection and the sharded engines
+over torch.distributed."""
 from repro_torch.core.chebyshev import (
     ChebSchedule,
     beta,
@@ -26,7 +27,11 @@ from repro_torch.core.engine import (
     CooEngine,
     FusedBlockEllEngine,
     HubTailEngine,
+    Sharded1DEngine,
+    Sharded2DEngine,
+    ShardedEngine,
     as_engine,
+    factor_grid,
     heuristic_mode,
     select_engine,
 )
@@ -49,7 +54,8 @@ __all__ = [
     "default_chunk", "err_bound", "make_schedule",
     "power_rounds_for_tolerance", "rounds_for_tolerance", "sigma_c",
     "BlockEllEngine", "CooEngine", "FusedBlockEllEngine", "HubTailEngine",
-    "as_engine",
+    "ShardedEngine", "Sharded1DEngine", "Sharded2DEngine", "as_engine",
+    "factor_grid",
     "heuristic_mode", "select_engine",
     "PageRankResult", "cpaa", "cpaa_adaptive", "cpaa_adaptive_fixed",
     "cpaa_fixed", "degree_prior", "forward_push", "monte_carlo", "power",

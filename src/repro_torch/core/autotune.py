@@ -10,7 +10,8 @@ This module replaces the guess with a measurement, in three pieces:
     `_hub_edge_fraction` probe the heuristic uses, the power-of-two batch
     bucket, and the (backend, device_count) pair. The backend is the
     port's own tag ("torch-cuda" / "torch-cpu"), so a key can never match
-    one the JAX package wrote.
+    one the JAX package wrote; the device count is the process group's
+    world size (1 without a group).
   * `Autotuner` — on a store miss, short-lists the feasible candidates
     (int32 range, a memory census from the tile-fill probe for block-ELL),
     builds each with the caller's exact build knobs, and times warm rounds
@@ -43,6 +44,14 @@ check) — and lets a kernel build or launch error propagate.
 
 Every decision is counted (`autotune_decisions_total`, by source) so a
 warm-store service start can be ASSERTED to perform zero tuning solves.
+
+At world size >= 2 (one process per rank, SPMD) the sharded engines join
+the shortlist, and the decision is rank 0's: rank 0 reads the store,
+decides each skip, and its timings pick the winner; each of those is
+broadcast, so every rank builds and times the same candidates in the same
+order (a sharded candidate's timing rounds are collectives) and ends on
+the same engine. A per-rank decision could pick different engines and
+hang the next collective. Only rank 0 writes the store file.
 """
 from __future__ import annotations
 
@@ -57,6 +66,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import all_true, broadcast_object, \
+    rank, world_size
 from repro_torch.core.engine import (ENGINE_MODES, HUB_MIN_DEG,
                                      _hub_edge_fraction, heuristic_mode,
                                      select_engine)
@@ -95,9 +106,7 @@ TUNE_FORMAT_VERSION = 1
 # cuts through the middle of a bucket.
 SKEW_BANDS = (0.1, 0.4, 0.7)
 
-# Candidate measurement order AFTER the heuristic's pick (the reference's,
-# sharded modes included for the tie-break order; the port never
-# shortlists them until they are ported).
+# Candidate measurement order AFTER the heuristic's pick (the reference's).
 CANDIDATE_ORDER = ("coo", "hub_tail", "fused", "sharded_1d", "sharded_2d")
 
 # The block-ELL values-tensor cap of the census on the host, as in the
@@ -240,6 +249,10 @@ class TuningStore:
         return data
 
     def _save(self) -> None:
+        if rank() != 0:
+            # the ranks of a group share the file path: a stale copy saved
+            # by another rank would drop rank 0's entries
+            return
         data = self._load()
         self.path.parent.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_name(self.path.name + ".tmp")
@@ -289,7 +302,8 @@ class WorkloadKey:
                    device_count: int | None = None,
                    device=None) -> "WorkloadKey":
         """Key of (g, batch). `backend` None = `backend_tag(device)`;
-        `device_count` None = 1 (the port's engines run on one device)."""
+        `device_count` None = the process group's world size (1 without
+        a group)."""
         frac = _hub_edge_fraction(g, HUB_MIN_DEG)
         b = 1
         target = 1 if batch is None else max(1, int(batch))
@@ -301,7 +315,8 @@ class WorkloadKey:
             skew_bucket=sum(frac >= edge for edge in SKEW_BANDS),
             batch_bucket=b.bit_length() - 1,
             backend=backend_tag(device) if backend is None else backend,
-            device_count=1 if device_count is None else int(device_count))
+            device_count=world_size() if device_count is None
+            else int(device_count))
 
     @property
     def batch(self) -> int:
@@ -462,28 +477,42 @@ class Autotuner:
              graph_name: str = "graph", dg=None, dtype=torch.float32,
              block: int = 128, min_fill: float | None = None,
              stable_shapes: bool = False, weight_dtype=None,
-             device=None) -> TuneDecision:
+             device=None, mesh=None, grid: tuple[int, int] | None = None,
+             lane: int = 128, comm_dtype=None,
+             sharded_min_n: int | None = None) -> TuneDecision:
         """Select the engine mode for (g, batch) on `device` (None = cuda) —
         store hit, measurement, or heuristic fallback. Build knobs mirror
         `select_engine` and are used verbatim for candidate builds, so a
         freshly measured winner (`TuneDecision.engine`) is directly usable
         by the caller. The heuristic is the one for `device` (the cuda
-        fill bar on the card)."""
+        fill bar on the card). At world size >= 2 every rank calls it with
+        the same arguments and gets rank 0's decision (module docstring).
+        """
         dev = resolve_device(device)
-        key = WorkloadKey.from_graph(g, batch=batch, device=dev)
+        n_dev = mesh.size() if mesh is not None else world_size()
+        key = WorkloadKey.from_graph(g, batch=batch, device=dev,
+                                     device_count=n_dev)
         ks = key.as_str()
         build_kw = dict(dg=dg, dtype=dtype, block=block, min_fill=min_fill,
                         stable_shapes=stable_shapes,
-                        weight_dtype=weight_dtype, device=dev)
+                        weight_dtype=weight_dtype, device=dev, mesh=mesh,
+                        grid=grid, lane=lane, comm_dtype=comm_dtype,
+                        sharded_min_n=sharded_min_n)
         heuristic = heuristic_mode(g, batch, block=block, min_fill=min_fill,
-                                   device=dev, probe_cache=self.store)
+                                   device=dev, mesh=mesh,
+                                   sharded_min_n=sharded_min_n,
+                                   probe_cache=self.store)
 
-        entry = self.store.get(ks)
-        if entry is not None and entry.get("engine") in ENGINE_MODES:
-            us = entry.get("us_per_iter")
-            self.record("store_hit", graph_name, entry["engine"], us)
-            return TuneDecision(mode=entry["engine"], source="store_hit",
-                                key=ks, us_per_iter=us, heuristic=heuristic)
+        hit = us = None
+        if rank() == 0:
+            entry = self.store.get(ks)
+            if entry is not None and entry.get("engine") in ENGINE_MODES:
+                hit, us = entry["engine"], entry.get("us_per_iter")
+        hit, us = broadcast_object((hit, us))
+        if hit is not None:
+            self.record("store_hit", graph_name, hit, us)
+            return TuneDecision(mode=hit, source="store_hit", key=ks,
+                                us_per_iter=us, heuristic=heuristic)
 
         if self.require_cached:
             self.record("fallback_heuristic", graph_name, heuristic)
@@ -492,7 +521,7 @@ class Autotuner:
 
         t0 = time.perf_counter()
         measured, engines, skipped = self._measure_candidates(
-            g, key, heuristic, build_kw)
+            g, key, heuristic, n_dev, build_kw)
         self._obs.measure_seconds.labels(graph=graph_name).observe(
             time.perf_counter() - t0)
         if not measured:
@@ -526,16 +555,16 @@ class Autotuner:
 
     # ---- candidates -------------------------------------------------------
     def _shortlist(self, g: Graph, heuristic: str, block: int,
-                   device=None) -> list[str]:
+                   device=None, n_dev: int = 1) -> list[str]:
         """Feasible candidate modes, heuristic's pick first (the
-        reference's shortlist on one device: no sharded modes)."""
+        reference's shortlist: the sharded modes join at >= 2 ranks)."""
         cands = ["coo"]
         try:
             check_int32_range(g.n, g.m, what="autotune candidates")
         except CapacityError:
             return cands
-        if g.n >= self.MIN_CANDIDATE_N and \
-                _hub_edge_fraction(g, HUB_MIN_DEG) > 0.0:
+        big_enough = g.n >= self.MIN_CANDIDATE_N
+        if big_enough and _hub_edge_fraction(g, HUB_MIN_DEG) > 0.0:
             cands.append("hub_tail")
         if g.n >= 2 * block:
             fill = self.store.get_fill(g, block)
@@ -547,22 +576,33 @@ class Autotuner:
             # the estimate blows the cap (scattered graphs at scale)
             if fill > 0.0 and 4.0 * g.m / fill <= max_tile_bytes(device):
                 cands.append("fused")
+        if n_dev >= 2 and big_enough:
+            cands.append("sharded_1d")
+            if n_dev >= 4:
+                cands.append("sharded_2d")
         ordered = [m for m in CANDIDATE_ORDER
                    if m in cands and m != heuristic]
         return ([heuristic] if heuristic in cands else []) + ordered
 
     def _measure_candidates(self, g: Graph, key: WorkloadKey, heuristic: str,
-                            build_kw: dict):
+                            n_dev: int, build_kw: dict):
         """Build + time each shortlisted candidate within the budget.
         Returns ({mode: seconds}, {mode: engine}, [skipped modes]).
 
         Only infeasibility disqualifies a candidate: running out of device
         memory, or the port's own capacity check (`CapacityError`: an index
         past int32). Anything else — a failed kernel build or launch —
-        propagates."""
+        propagates.
+
+        At world size >= 2 the shortlist, each budget skip and the returned
+        timings are rank 0's, and a candidate infeasible on any rank is
+        skipped on all (an OOM inside a sharded candidate's timed round,
+        after its first collective, is not caught that way)."""
         block = build_kw.get("block", 128)
         dev = build_kw["device"]
-        cands = self._shortlist(g, heuristic, block, device=dev)
+        cands = broadcast_object(
+            self._shortlist(g, heuristic, block, device=dev, n_dev=n_dev)
+            if rank() == 0 else None)
         B = min(key.batch, 128)   # bounded sample: bucket width, capped
         dtype = as_torch_dtype(build_kw.get("dtype", torch.float32))
         p = torch.full((g.n, B), 1.0 / max(g.n, 1), dtype=dtype, device=dev)
@@ -571,19 +611,30 @@ class Autotuner:
         skipped: list[str] = []
         t0 = time.perf_counter()
         for mode in cands:
-            if measured and time.perf_counter() - t0 > self.budget_s:
+            over = bool(measured) and \
+                time.perf_counter() - t0 > self.budget_s
+            if broadcast_object(over):
                 skipped.append(mode)
                 continue
             try:
                 eng = select_engine(g, batch=key.batch, mode=mode,
                                     **build_kw)
                 x = eng.to_internal(p.to(eng.dtype))
-                measured[mode] = _time_round(eng, x, x, 0.5 * x, self.reps)
-                engines[mode] = eng
             except (torch.cuda.OutOfMemoryError, CapacityError):
-                skipped.append(mode)   # infeasible in practice: disqualify
-                if dev.type == "cuda":
-                    torch.cuda.empty_cache()
+                eng = None
+            # a candidate infeasible on any rank is skipped on every rank
+            if all_true(eng is not None):
+                try:
+                    measured[mode] = _time_round(eng, x, x, 0.5 * x,
+                                                 self.reps)
+                    engines[mode] = eng
+                    continue
+                except (torch.cuda.OutOfMemoryError, CapacityError):
+                    pass
+            skipped.append(mode)   # infeasible in practice: disqualify
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        measured, skipped = broadcast_object((measured, skipped))
         return measured, engines, skipped
 
 

@@ -19,6 +19,18 @@ work. How P x is computed is a format choice, so it lives behind an engine:
   * FusedBlockEllEngine — BlockEllEngine whose Chebyshev round is the fused
                           `cheb_step` kernel (5nB bytes per round instead of
                           8nB).
+  * ShardedEngine       — the paper's Algorithm 1 vertex-set decomposition
+                          over `torch.distributed` (`core.distributed` shard
+                          bodies), one process per rank: `Sharded1DEngine`
+                          owns a 1D row partition (all-gather x per round,
+                          ~n floats per rank), `Sharded2DEngine` an (R, C)
+                          grid partition (reduce-scatter + all-gather,
+                          ~n/R + n/C floats per rank). Each rank holds its
+                          own edge shard and its own slice of the solve
+                          vectors; the engine owns the mesh, the partition
+                          placement and (2D) the nested column layout, so
+                          callers pass and receive whole vectors in
+                          original vertex ids.
 
 Solvers call:
 
@@ -30,7 +42,13 @@ Solvers call:
 Mass invariant (the adaptive solver depends on it): the internal layout is
 a permutation of the caller's vertices plus ZERO-mass padding rows that stay
 zero through every `apply`/`cheb_round`, so column sums and L1 norms on
-internal-layout arrays equal the external ones.
+internal-layout arrays equal the external ones. The solvers take those
+sums and maxima through the engine's `colsum` / `amax` hooks: local on one
+device; on a sharded engine an all-reduce over the ranks that together
+hold one copy of the vector (the world for 1D, the column group for 2D,
+whose vectors are replicated down the grid rows). Every rank then reads
+the same reduced values, so host decisions (`any(active)`, the stop
+round) agree across ranks.
 
 Refresh protocol (edge updates): `eng.refresh(g, delta, dg=...)` returns
 the engine for the updated graph. COO needs nothing when the registry
@@ -39,18 +57,30 @@ delta can move vertices across the hub bar); block-ELL re-tiles, reusing
 its BFS perm when the delta touched at most REFRESH_PERM_MAX_TOUCHED of
 the vertices.
 
-Measured selection ("tuned") goes through `core.autotune`. Not ported
-yet, raising NotImplementedError that names its ROADMAP item: the sharded
-engines (A10).
+Measured selection ("tuned") goes through `core.autotune`. `select_engine`
+shards in auto mode when the initialized process group has >= 2 ranks and
+the graph clears `SHARDED_MIN_N` (2D when >= 4 ranks and n >= 4x the bar).
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core.distributed import (all_gather, all_reduce,
+                                          collective_counts, flat_rank,
+                                          grid_coordinate, init_mesh,
+                                          put_partition_1d, put_partition_2d,
+                                          reset_collective_counts,
+                                          spmv_1d_shard, spmv_2d_shard,
+                                          world_size)
 from repro_torch.device import resolve_device
 from repro_torch.graph.ops import DeviceGraph, as_torch_dtype, \
     check_int32_range, device_graph, spmm, spmv, upload
+from repro_torch.graph.partition import (col_layout_perm, partition_1d,
+                                         partition_2d)
 from repro_torch.graph.structure import (BlockEll, Graph, block_fill_rate,
                                          build_block_ell)
 from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
@@ -63,26 +93,29 @@ __all__ = [
     "HubTailEngine",
     "BlockEllEngine",
     "FusedBlockEllEngine",
+    "ShardedEngine",
+    "Sharded1DEngine",
+    "Sharded2DEngine",
     "as_engine",
+    "auto_shard_mode",
     "heuristic_mode",
     "select_engine",
+    "factor_grid",
     "ENGINE_MODES",
-    "UNPORTED_MODES",
+    "SHARDED_MODES",
+    "SHARDED_MIN_N",
     "apply_counts",
     "reset_apply_counts",
+    "collective_counts",
+    "reset_collective_counts",
 ]
 
 # hub bar of the degree split (the reference's HubTailEngine.DEFAULT_MIN_DEG)
 HUB_MIN_DEG = 32
 
-ENGINE_MODES = ("auto", "tuned", "coo", "hub_tail", "block_ell", "fused",
-                "sharded_1d", "sharded_2d")
-
-# modes of the reference that this port does not run yet -> ROADMAP item
-UNPORTED_MODES = {
-    "sharded_1d": "A10 (sharded engines)",
-    "sharded_2d": "A10 (sharded engines)",
-}
+SHARDED_MODES = ("sharded_1d", "sharded_2d")
+ENGINE_MODES = ("auto", "tuned", "coo", "hub_tail", "block_ell",
+                "fused") + SHARDED_MODES
 
 # Per-engine apply() execution counts (eager: every call is one SpMM).
 APPLY_COUNTS: dict[str, int] = {}
@@ -107,7 +140,20 @@ def _default_cheb_round(y, t, acc, ck):
     return t_next, acc + ck * t_next
 
 
-class CooEngine:
+class _LocalReductions:
+    """The solvers' reduction hooks on a single-device engine, whose
+    internal-layout arrays hold the whole vector: plain local reductions."""
+
+    def colsum(self, a: torch.Tensor) -> torch.Tensor:
+        """Column sums of an internal-layout [n] / [n, B] array."""
+        return a.sum(dim=0)
+
+    def amax(self, a: torch.Tensor) -> torch.Tensor:
+        """Max over every entry of an internal-layout array."""
+        return a.max()
+
+
+class CooEngine(_LocalReductions):
     """index_add_ over the COO edge list with precomputed edge weights."""
 
     name = "coo"
@@ -148,7 +194,7 @@ class CooEngine:
         return self if dg is self.dg else CooEngine(dg)
 
 
-class HubTailEngine:
+class HubTailEngine(_LocalReductions):
     """Degree-split SpMM engine for skewed (power-law) graphs at scale.
 
     On a scale-free graph the hubs — the top few percent of vertices by
@@ -307,7 +353,7 @@ class HubTailEngine:
                                      device=self.device)
 
 
-class BlockEllEngine:
+class BlockEllEngine(_LocalReductions):
     """Block-ELL SpMM engine over BFS-reordered, block-padded vertices.
 
     Internal layout: [n_pad] (or [n_pad, B]) float32 in BFS order, where
@@ -458,6 +504,256 @@ class FusedBlockEllEngine(BlockEllEngine):
         return cheb_step_ref(y, t, acc, ck)
 
 
+def factor_grid(n_dev: int) -> tuple[int, int]:
+    """Most-square (R, C) with R * C == n_dev and R <= C (wider column axis
+    keeps the all-gathered sub-chunks small): 8 -> (2, 4), 16 -> (4, 4)."""
+    r = int(math.isqrt(n_dev))
+    while n_dev % r:
+        r -= 1
+    return (r, n_dev // r)
+
+
+def _check_mesh(mesh, dev: torch.device) -> None:
+    if mesh.device_type != dev.type:
+        raise ValueError(f"mesh runs on {mesh.device_type!r}, engine device "
+                         f"is {dev}")
+
+
+class ShardedEngine:
+    """Shared surface of the rank-sharded engines (see module docstring).
+
+    SPMD: every rank builds the same engine over its own shard and calls
+    every method in the same order, since `apply`, `from_internal` and the
+    reduction hooks run collectives. `to_internal` takes the WHOLE vector
+    (every rank passes the same one) and keeps this rank's slice;
+    `from_internal` gathers the whole vector back on every rank, as the
+    reference returns a global array, so a top-k after it stays local.
+    The Chebyshev update runs on the local slices. Collectives are counted
+    per engine name in `core.distributed` (`collective_counts`).
+    """
+
+    def cheb_round(self, y, t, acc, ck):
+        return _default_cheb_round(y, t, acc, ck)
+
+    @property
+    def n(self) -> int:
+        return self.n_orig
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.weight.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.weight.device
+
+    def colsum(self, a: torch.Tensor) -> torch.Tensor:
+        """Column sums of an internal-layout slice, all-reduced over the
+        ranks that together hold one copy of the vector."""
+        return all_reduce(a.sum(dim=0), self.reduce_group,
+                          dist.ReduceOp.SUM, tag=self.name,
+                          dim=self.reduce_dim)
+
+    def amax(self, a: torch.Tensor) -> torch.Tensor:
+        """Max over every entry of the vector, all-reduced like colsum."""
+        return all_reduce(a.max(), self.reduce_group, dist.ReduceOp.MAX,
+                          tag=self.name, dim=self.reduce_dim)
+
+
+class Sharded1DEngine(ShardedEngine):
+    """Row-partitioned CPAA engine (the paper-faithful decomposition).
+
+    Rank d owns every edge whose dst falls in row-chunk d; each round
+    all-gathers x (~n floats per rank) and computes its local rows.
+    Internal layout: this rank's [rows_per_dev] (or [rows_per_dev, B])
+    chunk of the original vertex order zero-padded to
+    n_pad = rows_per_dev * n_dev. A multi-dimensional mesh is flattened in
+    row-major order.
+    """
+
+    name = "sharded_1d"
+    reduce_dim = "world"
+
+    def __init__(self, mesh, src: torch.Tensor, dst_local: torch.Tensor,
+                 weight: torch.Tensor, n_orig: int, n_pad: int,
+                 rows_per_dev: int, comm_dtype=None, lane: int = 128):
+        self.mesh = mesh
+        self.group, self.index, self.n_dev = flat_rank(mesh)
+        if n_pad != rows_per_dev * self.n_dev:
+            raise ValueError(f"n_pad {n_pad} != rows_per_dev {rows_per_dev}"
+                             f" x {self.n_dev} ranks")
+        self.src = src                 # [E] int32, global src ids
+        self.dst_local = dst_local     # [E] int32, chunk-local dst
+        self.weight = weight           # [E] f32, 1/deg[src] (0 on padding)
+        self.n_orig = n_orig
+        self.n_pad = n_pad
+        self.rows_per_dev = rows_per_dev
+        self.comm_dtype = None if comm_dtype is None \
+            else as_torch_dtype(comm_dtype)
+        self.lane = lane
+        self.reduce_group = self.group
+
+    @classmethod
+    def from_graph(cls, g: Graph, mesh=None, lane: int = 128,
+                   dtype=torch.float32, comm_dtype=None,
+                   device=None) -> "Sharded1DEngine":
+        """Partition on the host (every rank builds the same partition) and
+        put this rank's slice on `device` (None = cuda). mesh None = a 1-D
+        mesh over the whole world (`init_mesh`, which starts a single-rank
+        group when none is initialized)."""
+        dev = resolve_device(device)
+        if mesh is None:
+            mesh = init_mesh((world_size(),), ("dev",), device=dev)
+        _check_mesh(mesh, dev)
+        check_int32_range(g.n, g.m, what="Sharded1DEngine")
+        part = partition_1d(g, mesh.size(), lane=lane)
+        src, dst_local, weight = put_partition_1d(part, mesh)
+        return cls(mesh=mesh, src=src, dst_local=dst_local,
+                   weight=weight.to(as_torch_dtype(dtype)), n_orig=g.n,
+                   n_pad=part.n, rows_per_dev=part.rows_per_dev,
+                   comm_dtype=comm_dtype, lane=lane)
+
+    def to_internal(self, x: torch.Tensor) -> torch.Tensor:
+        pad = self.n_pad - x.shape[0]
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        lo = self.index * self.rows_per_dev
+        return x[lo:lo + self.rows_per_dev].contiguous()
+
+    def from_internal(self, x: torch.Tensor) -> torch.Tensor:
+        full = all_gather(x, self.group, tag=self.name, site="layout")
+        return full[:self.n_orig] if self.n_orig != self.n_pad else full
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        _count_apply(self.name)
+        return spmv_1d_shard(x, self.src, self.dst_local, self.weight,
+                             group=self.group, rows=self.rows_per_dev,
+                             comm_dtype=self.comm_dtype, tag=self.name)
+
+    def refresh(self, g: Graph, delta=None, *, dg=None, lane=None,
+                **kw) -> "Sharded1DEngine":
+        """Rebuild the row partition for the updated graph on the SAME
+        mesh (lane, dtypes and device kept). Every rank must call it."""
+        return type(self).from_graph(g, mesh=self.mesh,
+                                     lane=self.lane if lane is None else lane,
+                                     dtype=self.weight.dtype,
+                                     comm_dtype=self.comm_dtype,
+                                     device=self.device)
+
+
+class Sharded2DEngine(ShardedEngine):
+    """Grid-partitioned CPAA engine (beyond-paper collective optimization).
+
+    Rank (r, c) owns edges with dst in row-chunk r and src in nested column
+    group c; per round the partial row results are reduce-scattered over
+    the column group (~n/R floats) and the new column chunks all-gathered
+    over the row group (~n/C floats) — see `graph.partition.Partition2D`.
+
+    Internal layout: this rank's column chunk c of the nested COLUMN
+    layout, `padded(x)[perm]` with perm = col_layout_perm(n_pad, grid)
+    ([n_pad / C] rows, the same on every rank of grid column c). With
+    perm=None (the `cpaa_distributed_2d` convention) callers pass and
+    receive column-layout vectors themselves.
+    """
+
+    name = "sharded_2d"
+    reduce_dim = "col"
+
+    def __init__(self, mesh, src_local: torch.Tensor,
+                 dst_local: torch.Tensor, weight: torch.Tensor,
+                 perm: torch.Tensor | None, inv_perm: torch.Tensor | None,
+                 n_orig: int, n_pad: int, rows_per_chunk: int,
+                 comm_dtype=None, lane: int = 128):
+        self.mesh = mesh
+        self.coord = grid_coordinate(mesh)
+        self.row_group = mesh.get_group(0)   # ranks (*, c)
+        self.col_group = mesh.get_group(1)   # ranks (r, *)
+        self.src_local = src_local     # [E] int32 (col-chunk-local src)
+        self.dst_local = dst_local     # [E] int32 (row-chunk-local dst)
+        self.weight = weight           # [E] f32
+        self.perm = perm               # [n_pad] column-layout gather, or None
+        self.inv_perm = inv_perm       # [n_pad] inverse gather, or None
+        self.n_orig = n_orig
+        self.n_pad = n_pad
+        self.rows_per_chunk = rows_per_chunk
+        self.cols_per_chunk = n_pad // int(mesh.shape[1])
+        self.comm_dtype = None if comm_dtype is None \
+            else as_torch_dtype(comm_dtype)
+        self.lane = lane
+        self._lo = lo = self.coord[1] * self.cols_per_chunk
+        self._perm_local = None if perm is None \
+            else perm[lo:lo + self.cols_per_chunk]
+        self._inv_orig = None if inv_perm is None else inv_perm[:n_orig]
+        # the vectors are sharded over col and replicated down row: a sum
+        # over the world would count each entry R times
+        self.reduce_group = self.col_group
+
+    @classmethod
+    def from_graph(cls, g: Graph, mesh=None,
+                   grid: tuple[int, int] | None = None, lane: int = 128,
+                   dtype=torch.float32, comm_dtype=None,
+                   device=None) -> "Sharded2DEngine":
+        """Partition on the host and put this rank's [r, c] slice on
+        `device` (None = cuda). mesh None = an (R, C) mesh named
+        ("row", "col") over the world, (R, C) = `grid` or the most-square
+        factorization of the world size."""
+        dev = resolve_device(device)
+        if mesh is None:
+            grid = factor_grid(world_size()) if grid is None \
+                else tuple(grid)
+            mesh = init_mesh(grid, ("row", "col"), device=dev)
+        _check_mesh(mesh, dev)
+        if mesh.ndim != 2 or \
+                (grid is not None and tuple(grid) != tuple(mesh.shape)):
+            raise ValueError(f"sharded_2d needs a 2-D mesh of grid {grid}, "
+                             f"got {tuple(mesh.shape)}")
+        check_int32_range(g.n, g.m, what="Sharded2DEngine")
+        grid = tuple(int(s) for s in mesh.shape)
+        part = partition_2d(g, grid, lane=lane)
+        src_local, dst_local, weight = put_partition_2d(part, mesh)
+        perm = col_layout_perm(part.n, grid)
+        return cls(mesh=mesh, src_local=src_local, dst_local=dst_local,
+                   weight=weight.to(as_torch_dtype(dtype)),
+                   perm=torch.from_numpy(perm).to(dev),
+                   inv_perm=torch.from_numpy(np.argsort(perm)).to(dev),
+                   n_orig=g.n, n_pad=part.n,
+                   rows_per_chunk=part.rows_per_chunk,
+                   comm_dtype=comm_dtype, lane=lane)
+
+    def to_internal(self, x: torch.Tensor) -> torch.Tensor:
+        if self._perm_local is None:
+            return x[self._lo:self._lo + self.cols_per_chunk].contiguous()
+        pad = self.n_pad - x.shape[0]
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        return x.index_select(0, self._perm_local)
+
+    def from_internal(self, x: torch.Tensor) -> torch.Tensor:
+        full = all_gather(x, self.col_group, tag=self.name, site="layout",
+                          dim="col")
+        return full if self._inv_orig is None \
+            else full.index_select(0, self._inv_orig)
+
+    def apply(self, x: torch.Tensor) -> torch.Tensor:
+        _count_apply(self.name)
+        return spmv_2d_shard(x, self.src_local, self.dst_local, self.weight,
+                             row_group=self.row_group,
+                             col_group=self.col_group,
+                             rows=self.rows_per_chunk,
+                             comm_dtype=self.comm_dtype, tag=self.name)
+
+    def refresh(self, g: Graph, delta=None, *, dg=None, lane=None,
+                **kw) -> "Sharded2DEngine":
+        """Rebuild the grid partition for the updated graph on the SAME
+        mesh (grid, lane, dtypes and device kept). Every rank must call
+        it."""
+        return type(self).from_graph(g, mesh=self.mesh,
+                                     lane=self.lane if lane is None else lane,
+                                     dtype=self.weight.dtype,
+                                     comm_dtype=self.comm_dtype,
+                                     device=self.device)
+
+
 def as_engine(obj) -> CooEngine | HubTailEngine | BlockEllEngine:
     """Coerce a DeviceGraph to the COO engine; pass engines through."""
     if isinstance(obj, DeviceGraph):
@@ -475,6 +771,13 @@ def _default_min_fill(device: torch.device) -> float:
     return 0.01 if device.type == "cuda" else 0.05
 
 
+# auto mode only shards graphs at least this large: below it one rank's
+# SpMV is faster than any per-round collective (1D moves ~n floats per rank
+# per round, 2D ~n/R + n/C but needs a still larger n, 4x this bar, to
+# amortize its two collective phases and the grid padding). The
+# reference's bar, set for the TPU and not yet measured across cards.
+SHARDED_MIN_N = 1 << 16
+
 # auto mode considers the hub/tail split only past this size and only when
 # hubs (deg >= HUB_MIN_DEG) receive at least this fraction of all edges
 # (the reference's HUB_TAIL_MIN_N / HUB_TAIL_MIN_EDGE_FRAC, set on a CPU
@@ -490,18 +793,38 @@ def _hub_edge_fraction(g: Graph, thr: int) -> float:
     return float(deg[deg >= thr].sum()) / m
 
 
+def auto_shard_mode(g: Graph, *, mesh=None,
+                    sharded_min_n: int | None = None) -> str | None:
+    """Auto mode's sharding branch alone: "sharded_2d" / "sharded_1d" when
+    auto shards `g`, else None. The device count is the mesh's size, else
+    the initialized process group's world size (1 without a group): with
+    >= 2 ranks and g.n >= `sharded_min_n` (default SHARDED_MIN_N) it
+    shards — 2D when >= 4 ranks, n >= 4x the bar and the mesh (if given)
+    has two dimensions, 1D rows otherwise."""
+    n_dev = mesh.size() if mesh is not None else world_size()
+    thr = SHARDED_MIN_N if sharded_min_n is None else sharded_min_n
+    if n_dev < 2 or g.n < thr:
+        return None
+    if n_dev >= 4 and g.n >= 4 * thr and (mesh is None or mesh.ndim >= 2):
+        return "sharded_2d"
+    return "sharded_1d"
+
+
 def _auto_choice(g: Graph, batch: int | None = None, *, block: int = 128,
-                 min_fill: float | None = None, device=None,
-                 probe_cache=None):
+                 min_fill: float | None = None, device=None, mesh=None,
+                 sharded_min_n: int | None = None, probe_cache=None):
     """The zero-cost heuristic's decision WITHOUT building anything:
     (mode, perm), perm being the BFS permutation when the fill probe ran
     fresh (reused by the block-ELL build; None on a probe-cache hit or a
     non-tiled pick). `probe_cache` is any object with get_fill(g, block) /
     put_fill(g, block, fill) — see core.autotune.
 
-    Auto counts only the one device it was given, so it never shards.
+    It shards first when `auto_shard_mode` says so.
     """
     dev = torch.device("cuda" if device is None else device)
+    shard = auto_shard_mode(g, mesh=mesh, sharded_min_n=sharded_min_n)
+    if shard is not None:
+        return shard, None
     if g.n >= HUB_TAIL_MIN_N and \
             _hub_edge_fraction(g, HUB_MIN_DEG) >= HUB_TAIL_MIN_EDGE_FRAC:
         return "hub_tail", None
@@ -523,41 +846,55 @@ def _auto_choice(g: Graph, batch: int | None = None, *, block: int = 128,
 
 
 def heuristic_mode(g: Graph, batch: int | None = None, *, block: int = 128,
-                   min_fill: float | None = None, device=None,
+                   min_fill: float | None = None, device=None, mesh=None,
+                   sharded_min_n: int | None = None,
                    probe_cache=None) -> str:
     """What `select_engine(mode="auto")` picks for (g, batch) on `device`
     (None = cuda), as a mode string, without building the engine — the
     zero-cost tier the autotuner measures against (and ties back toward)."""
     return _auto_choice(g, batch, block=block, min_fill=min_fill,
-                        device=device, probe_cache=probe_cache)[0]
+                        device=device, mesh=mesh,
+                        sharded_min_n=sharded_min_n,
+                        probe_cache=probe_cache)[0]
 
 
 def select_engine(g: Graph, batch: int | None = None, mode: str = "auto", *,
                   dg: DeviceGraph | None = None, dtype=torch.float32,
                   block: int = 128, min_fill: float | None = None,
                   stable_shapes: bool = False, weight_dtype=None,
-                  device=None, tuner=None, probe_cache=None):
+                  device=None, mesh=None,
+                  grid: tuple[int, int] | None = None, lane: int = 128,
+                  comm_dtype=None, sharded_min_n: int | None = None,
+                  tuner=None, probe_cache=None):
     """Pick and build the solve engine for a graph (host side, once per
     epoch).
 
-    mode: "coo" | "hub_tail" | "block_ell" | "fused" force a format
-    (dashes accepted: "hub-tail"); "auto" takes, on the one device it is
-    given, hub/tail for large skewed graphs (n >= HUB_TAIL_MIN_N and hubs
-    receiving >= HUB_TAIL_MIN_EDGE_FRAC of the edges), COO for tiny graphs
-    and the fused block-ELL engine when the tile fill clears `min_fill`
-    (default 0.01 on cuda, 0.05 on cpu), COO otherwise. "tuned" replaces
+    mode: "coo" | "hub_tail" | "block_ell" | "fused" | "sharded_1d" |
+    "sharded_2d" force a format (dashes accepted: "hub-tail"); "auto" first
+    counts the ranks (the mesh's size, else the process group's world
+    size) — with >= 2 and g.n >= `sharded_min_n` it shards (see
+    `_auto_choice`) — then, on one rank, takes hub/tail for large skewed
+    graphs (n >= HUB_TAIL_MIN_N and hubs receiving
+    >= HUB_TAIL_MIN_EDGE_FRAC of the edges), COO for tiny graphs and the
+    fused block-ELL engine when the tile fill clears `min_fill` (default
+    0.01 on cuda, 0.05 on cpu), COO otherwise. "tuned" replaces
     the guess with a measurement: the workload-bucketed autotuner
     (core.autotune) consults its persistent store and, on a miss, times the
     feasible candidates on `device` and picks the measured winner
-    (tie-break toward the heuristic's choice for that device). The
-    sharded modes ("sharded_1d", "sharded_2d") raise NotImplementedError
-    naming the ROADMAP item; no other engine is substituted.
+    (tie-break toward the heuristic's choice for that device).
     dg: reuse an existing DeviceGraph for the COO path (the registry passes
     its padded device graph). stable_shapes pads the ELL slot count to a
     power of two. weight_dtype packs the COO edge weights and hub/tail's
     inv_deg (bf16 halves them; accumulation stays in `dtype`); the tile
     engines keep f32 values. device None means cuda (raises without a
     GPU).
+    mesh / grid / lane / comm_dtype / sharded_min_n: the sharded engines'
+    knobs — a `DeviceMesh` to run on (default: `init_mesh` over the whole
+    world, starting a single-rank group when none is initialized), the
+    (R, C) grid for sharded_2d, the partition padding lane, an optional
+    wire dtype for the all-gathers (bf16 halves them; reductions stay
+    f32), and auto's sharding bar. The sharded modes are SPMD: every rank
+    calls `select_engine` with the same arguments.
     tuner: the `core.autotune.Autotuner` mode="tuned" consults (None = the
     process-wide default over `$REPRO_TORCH_TUNE_CACHE`).
     probe_cache: fill-probe cache for auto mode (get_fill/put_fill; None =
@@ -573,17 +910,25 @@ def select_engine(g: Graph, batch: int | None = None, mode: str = "auto", *,
         t = default_tuner() if tuner is None else tuner
         dec = t.tune(g, batch=batch, dg=dg, dtype=dtype, block=block,
                      min_fill=min_fill, stable_shapes=stable_shapes,
-                     weight_dtype=weight_dtype, device=dev)
+                     weight_dtype=weight_dtype, device=dev, mesh=mesh,
+                     grid=grid, lane=lane, comm_dtype=comm_dtype,
+                     sharded_min_n=sharded_min_n)
         if dec.engine is not None:   # freshly measured winner: reuse as-is
             return dec.engine
         mode = dec.mode
     if mode == "auto":
         mode, perm = _auto_choice(g, batch, block=block, min_fill=min_fill,
-                                  device=dev, probe_cache=probe_cache)
-    if mode in UNPORTED_MODES:
-        raise NotImplementedError(
-            f"engine mode {mode!r} is not ported to repro_torch yet "
-            f"(ROADMAP {UNPORTED_MODES[mode]})")
+                                  device=dev, mesh=mesh,
+                                  sharded_min_n=sharded_min_n,
+                                  probe_cache=probe_cache)
+    if mode == "sharded_1d":
+        return Sharded1DEngine.from_graph(g, mesh=mesh, lane=lane,
+                                          dtype=dtype, comm_dtype=comm_dtype,
+                                          device=dev)
+    if mode == "sharded_2d":
+        return Sharded2DEngine.from_graph(g, mesh=mesh, grid=grid, lane=lane,
+                                          dtype=dtype, comm_dtype=comm_dtype,
+                                          device=dev)
     if mode == "coo":
         return CooEngine(dg if dg is not None else
                          device_graph(g, as_torch_dtype(dtype),

@@ -15,6 +15,12 @@ PyTorch runs eagerly, so the reference's `lax.scan` is a Python loop and its
 never once per round: the round counter is known on the host, and c_k
 stays on the device.
 
+Every reduction over an internal-layout array (a column sum, a residual, a
+max) goes through the engine's `colsum` / `amax` hooks: local on one
+device, all-reduced across ranks on the sharded engines, whose ranks each
+hold a slice of the vector. So every rank reads the same residuals and
+stops at the same round.
+
 Every solver takes a DeviceGraph or an engine (`core.engine`); the entry
 points `cpaa` and `cpaa_adaptive` also take a host `Graph` plus `device`
 (None = cuda). They return column-normalized PageRank in original vertex
@@ -74,10 +80,14 @@ class PageRankResult:
         return self.rounds_bound - self.iterations
 
 
-def _normalize(acc: torch.Tensor) -> torch.Tensor:
+def _normalize(acc: torch.Tensor, colsum=None) -> torch.Tensor:
+    """Columns of acc scaled to unit sum. `colsum` is the engine's hook for
+    an internal-layout acc (None = a whole vector, summed locally)."""
     # tiny guard: an all-zero column (empty seed set) comes back as zeros
     # instead of 0/0 NaNs that would poison result caches
-    s = acc.sum(dim=0, keepdim=acc.ndim > 1)
+    s = acc.sum(dim=0) if colsum is None else colsum(acc)
+    if acc.ndim > 1:
+        s = s[None, :]
     tiny = torch.finfo(acc.dtype).tiny
     return acc / torch.where(s.abs() < tiny, torch.full_like(s, tiny), s)
 
@@ -194,7 +204,7 @@ def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
     cols = () if t_prev.ndim == 1 else (t_prev.shape[1],)
 
     def colnorm(a):
-        s = a.sum(dim=0)
+        s = eng.colsum(a)               # all-reduced on sharded engines
         return a / torch.where(s.abs() < tiny, tiny, s)
 
     acc = (0.5 * c0) * t_prev           # (c0/2) T_0 p
@@ -223,7 +233,7 @@ def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
             acc = torch.where(mask, acc_next, acc)
             k += 1
         norm = colnorm(acc)
-        resid = (norm - snap).abs().sum(dim=0)
+        resid = eng.colsum((norm - snap).abs())
         col_rounds = torch.where(active, torch.full_like(col_rounds, k),
                                  col_rounds)
         active = active & (resid > tol)
@@ -272,7 +282,7 @@ def power_refine(dg, x0: torch.Tensor, p: torch.Tensor, c,
     """
     eng = as_engine(dg)
     x = eng.to_internal(x0)
-    pp = _normalize(eng.to_internal(p))   # unit restart mass
+    pp = _normalize(eng.to_internal(p), eng.colsum)   # unit restart mass
     c = torch.tensor(c, dtype=x.dtype, device=x.device)
     for _ in range(rounds):
         x = (c * eng.apply(x) + (1.0 - c) * pp).to(x.dtype)
@@ -316,8 +326,8 @@ def power(dg, c: float = 0.85, tol: float = 1e-10,
     while rounds < max_iter:
         for _ in range(min(POWER_CHECK_EVERY, max_iter - rounds)):
             x_new = (ct * eng.apply(x) + restart).to(dtype)
-            resid = (x_new - x).abs().max() / \
-                torch.maximum(x_new.abs().max(), tiny)
+            resid = eng.amax((x_new - x).abs()) / \
+                torch.maximum(eng.amax(x_new.abs()), tiny)
             x = torch.where(active, x_new, x)
             k = k + active.to(torch.int32)
             active = active & (resid >= tol_t)

@@ -23,7 +23,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.structure import Graph
 
 __all__ = ["DeviceGraph", "device_graph", "check_int32_range",
-           "CapacityError", "spmv",
+           "CapacityError", "edge_matmul", "spmv",
            "spmm", "as_torch_dtype", "upload", "SlotPatch", "EdgeSlots",
            "patch_device_graph"]
 
@@ -462,18 +462,26 @@ def patch_device_graph(dg: DeviceGraph, patch: SlotPatch) -> DeviceGraph:
     return dg
 
 
-def _transition_matmul(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """Shared spmv/spmm body: y[dst] += w[e] * x[src] over the edge list.
-    Packed (bf16) weights upcast to the solve dtype before the multiply,
-    so the accumulation runs at full precision. On CUDA `index_add_` adds
-    with atomics, so the order of the sums is not fixed."""
-    w = dg.w if dg.w is not None else dg.inv_deg.index_select(0, dg.src)
+def edge_matmul(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+                x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """y[dst[e]] += w[e] * x[src[e]] into `n_out` rows: the gather +
+    `index_add_` shared by the COO engine and the sharded engines' shard
+    bodies. x: [n] or [n, B]. Packed (bf16) weights upcast to the solve
+    dtype before the multiply, so the accumulation runs at full precision.
+    On CUDA `index_add_` adds with atomics, so the order of the sums is not
+    fixed."""
     if w.dtype != x.dtype:
         w = w.to(x.dtype)
-    contrib = x.index_select(0, dg.src) * (w if x.ndim == 1 else w[:, None])
-    out = torch.zeros((dg.n,) + tuple(x.shape[1:]), dtype=x.dtype,
+    contrib = x.index_select(0, src) * (w if x.ndim == 1 else w[:, None])
+    out = torch.zeros((n_out,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    return out.index_add_(0, dg.dst, contrib)
+    return out.index_add_(0, dst, contrib)
+
+
+def _transition_matmul(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+    """Shared spmv/spmm body over the DeviceGraph's edge list."""
+    w = dg.w if dg.w is not None else dg.inv_deg.index_select(0, dg.src)
+    return edge_matmul(dg.src, dg.dst, w, x, dg.n)
 
 
 def spmv(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,9 @@ edge weights and coefficients run through both packages.
   * COO: a `DeviceGraph`'s `src`, `dst`, `w`, `inv_deg` and `n`;
   * hub/tail: a `HubTailEngine`'s `inv_deg`, `tail_src`, `tail_dst`,
     `panel_cols`, `panel_hub`, `hub_ids` and `n_orig`;
+  * sharded engines: a reference partition's stacked `src` (or
+    `src_local`), `dst_local` and `weight` arrays (and for 2D the
+    `col_layout_perm`), of which each rank takes its own slice;
   * a `ChebSchedule`'s coefficient vector;
   * DLRM parameters ({"table", "bot": [{"w", "b"}], "top": [...]}).
 """
@@ -18,12 +21,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import flat_rank, grid_coordinate, \
+    init_mesh, world_size
 from repro_torch.core.engine import (BlockEllEngine, CooEngine,
-                                     FusedBlockEllEngine, HubTailEngine)
+                                     FusedBlockEllEngine, HubTailEngine,
+                                     Sharded1DEngine, Sharded2DEngine)
 from repro_torch.device import resolve_device
 from repro_torch.graph.ops import DeviceGraph, as_torch_dtype
 
 __all__ = ["block_ell_engine", "coo_engine", "hub_tail_engine",
+           "sharded_1d_engine", "sharded_2d_engine",
            "device_graph_from_arrays", "coeffs_tensor", "dlrm_params"]
 
 
@@ -82,6 +89,56 @@ def hub_tail_engine(inv_deg, tail_src, tail_dst, panel_cols, panel_hub,
         panel_hub=_tensor(panel_hub, torch.int32, dev),
         hub_ids=_tensor(hub_ids, torch.int32, dev), n_orig=int(n),
         hub_min_deg=int(hub_min_deg), panel_width=int(panel_width))
+
+
+def sharded_1d_engine(src, dst_local, weight, n_orig: int, n_pad: int,
+                      rows_per_dev: int, mesh=None, comm_dtype=None,
+                      device=None) -> Sharded1DEngine:
+    """This rank's 1D engine over a reference `Partition1D`'s stacked
+    [D, E] arrays, on `device` (None = cuda). mesh None = a 1-D mesh over
+    the world (`init_mesh`), whose size must be D."""
+    dev = resolve_device(device)
+    if mesh is None:
+        mesh = init_mesh((world_size(),), ("dev",), device=dev)
+    _, d, n_dev = flat_rank(mesh)
+    if n_dev != np.shape(src)[0]:
+        raise ValueError(f"partition of {np.shape(src)[0]} shards on a mesh "
+                         f"of {n_dev} ranks")
+    return Sharded1DEngine(
+        mesh=mesh, src=_tensor(np.asarray(src)[d], torch.int32, dev),
+        dst_local=_tensor(np.asarray(dst_local)[d], torch.int32, dev),
+        weight=_tensor(np.asarray(weight)[d], torch.float32, dev),
+        n_orig=int(n_orig), n_pad=int(n_pad),
+        rows_per_dev=int(rows_per_dev), comm_dtype=comm_dtype)
+
+
+def sharded_2d_engine(src_local, dst_local, weight, perm, n_orig: int,
+                      n_pad: int, rows_per_chunk: int, mesh=None,
+                      comm_dtype=None, device=None) -> Sharded2DEngine:
+    """This rank's 2D engine over a reference `Partition2D`'s stacked
+    [R, C, E] arrays and its `col_layout_perm` (None = vectors stay in
+    column layout), on `device` (None = cuda). mesh None = an (R, C) mesh
+    named ("row", "col") over the world."""
+    dev = resolve_device(device)
+    grid = tuple(np.shape(src_local)[:2])
+    if mesh is None:
+        mesh = init_mesh(grid, ("row", "col"), device=dev)
+    if tuple(mesh.shape) != grid:
+        raise ValueError(f"partition grid {grid} on a mesh "
+                         f"{tuple(mesh.shape)}")
+    r, c = grid_coordinate(mesh)
+    perm_t = inv_t = None
+    if perm is not None:
+        perm = np.asarray(perm, np.int64)
+        perm_t = _tensor(perm, torch.int64, dev)
+        inv_t = _tensor(np.argsort(perm), torch.int64, dev)
+    return Sharded2DEngine(
+        mesh=mesh, src_local=_tensor(np.asarray(src_local)[r, c],
+                                     torch.int32, dev),
+        dst_local=_tensor(np.asarray(dst_local)[r, c], torch.int32, dev),
+        weight=_tensor(np.asarray(weight)[r, c], torch.float32, dev),
+        perm=perm_t, inv_perm=inv_t, n_orig=int(n_orig), n_pad=int(n_pad),
+        rows_per_chunk=int(rows_per_chunk), comm_dtype=comm_dtype)
 
 
 def coeffs_tensor(coeffs, device=None) -> torch.Tensor:

@@ -5,7 +5,10 @@
         [--tune-cache PATH] [--tune-budget S] [--tune-require-cached] \
         [--adaptive | --fixed-rounds] [--scheduler fifo|deadline] \
         [--async-dispatch] [--metrics-port P] [--metrics-json PATH] \
-        [--profile-dir DIR] [--device cuda|cpu]
+        [--profile-dir DIR] [--device cuda|cpu] [--mesh-grid RxC]
+
+    torchrun --nproc-per-node N -m repro_torch.launch.serve \
+        --arch pagerank-serve --smoke --engine sharded-2d --mesh-grid RxC
 
 Builds the service from `configs/pagerank_serve.py`, submits seeded
 queries, drains them, applies `--updates` single-edge insert batches
@@ -17,16 +20,26 @@ one exits non-zero); `--metrics-port` serves /metrics and /metrics.json
 while the workload runs; `--profile-dir` wraps the workload in the
 PyTorch profiler and writes a Chrome trace there. The device defaults to
 cuda.
+
+Under torchrun (WORLD_SIZE > 1) every rank starts the process group
+(NCCL on cuda, gloo on cpu) and builds the same service; rank 0 runs the
+workload and prints, the other ranks follow its plans (the service's
+lockstep) until it closes. `--engine sharded-1d | sharded-2d` shards each
+graph over the ranks, `--mesh-grid RxC` sets sharded-2d's grid (R * C =
+N); auto shards a graph once it clears the sharding bar.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from dataclasses import replace
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.configs import pagerank_serve
+from repro_torch.core.distributed import init_process_group, rank
 
 ARCHS = {pagerank_serve.NAME: pagerank_serve}
 
@@ -84,16 +97,32 @@ def _config(mod, args):
         cfg = replace(cfg, slack_margin_s=args.slack_margin)
     if args.async_dispatch is not None:
         cfg = replace(cfg, async_dispatch=args.async_dispatch)
+    if args.mesh_grid:
+        r, _, c = args.mesh_grid.lower().partition("x")
+        if not (r.isdigit() and c.isdigit()):
+            raise SystemExit(f"--mesh-grid {args.mesh_grid!r}: expected RxC")
+        cfg = replace(cfg, mesh_grid=(int(r), int(c)))
     return cfg
 
 
 def serve_pagerank(mod, args) -> dict:
     """Mixed query/update workload through the PPR micro-batching service.
-    Returns the service's stats plus the per-graph engines."""
-    from repro_torch.serve.pagerank_service import PPRQuery
-
+    Returns the service's stats plus the per-graph engines on rank 0, and
+    {"followed": plans run} on the other ranks."""
     cfg = _config(mod, args)
     svc = mod.make_service(cfg, device=args.device)
+    if rank() != 0:
+        return {"followed": svc.follow()}
+    try:
+        return _workload(svc, cfg, args)
+    finally:
+        svc.close()
+
+
+def _workload(svc, cfg, args) -> dict:
+    """Rank 0's side of `serve_pagerank`."""
+    from repro_torch.serve.pagerank_service import PPRQuery
+
     names = svc.registry.names()
     engines = {name: svc.registry.get(name).engine.name for name in names}
     print(f"device: {svc.registry.device}")
@@ -191,8 +220,11 @@ def main(argv=None):
                              "fused", "sharded-1d", "sharded-2d"],
                     help="solve-engine override (default from config); "
                          "tuned measures the engine per graph through the "
-                         "tuning store; sharded-* are not ported yet and "
-                         "raise")
+                         "tuning store; sharded-* shard each graph over "
+                         "the ranks (run under torchrun for more than one)")
+    ap.add_argument("--mesh-grid", default=None, metavar="RxC",
+                    help="sharded-2d's rank grid, R * C = world size "
+                         "(default: the most-square factorization)")
     ap.add_argument("--tune-cache", default=None, metavar="PATH",
                     help="tuning-store path for --engine tuned (default "
                          "$REPRO_TORCH_TUNE_CACHE or ~/.cache/repro_torch/"
@@ -256,7 +288,16 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device for graphs and solves (default cuda)")
     args = ap.parse_args(argv)
-    return serve_pagerank(ARCHS[args.arch], args)
+    started = False
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
+            not dist.is_initialized():
+        init_process_group(args.device)   # torchrun: one process per rank
+        started = True
+    try:
+        return serve_pagerank(ARCHS[args.arch], args)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

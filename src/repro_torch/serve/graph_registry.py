@@ -21,7 +21,8 @@ Edge updates come in two flavours, selected by `update_mode`:
     changed slots fit the current edge bucket, PATCHES the device graph in
     place through the host `EdgeSlots` mirror; the engine is kept current
     by its `refresh(delta)` hook (free for COO, a host rebuild for
-    hub/tail, a re-tile reusing the BFS perm for block-ELL);
+    hub/tail, a re-tile reusing the BFS perm for block-ELL, a
+    repartition on the same mesh for the sharded engines);
   * **rebuild** — every batch takes the full path: the sorted key set is
     merged, `from_undirected_edges` rebuilds the host graph, and a fresh
     DeviceGraph + `select_engine` follow. The incremental mode falls back
@@ -39,6 +40,14 @@ per-graph gauges at the service's metrics registry. A graph whose arrays
 are read-only (a memory-mapped dataset cache) is copied at registration,
 before anything mutates or uploads from it; `ingest_chunk_edges` bounds
 the host memory of the upload.
+
+With the sharded engines (`engine="sharded-1d" | "sharded-2d"`, or auto
+at world size >= 2) every rank holds a registry with the same graphs and
+applies the same update batches in the same order (the service's
+lockstep does that), since building and refreshing those engines is SPMD.
+Such a graph keeps no whole-graph DeviceGraph on any card (`rg.dg` is
+None): each rank's card holds its shard alone, and an update patches only
+the host mirror before the engine repartitions.
 """
 from __future__ import annotations
 
@@ -52,7 +61,9 @@ from repro_torch.core.autotune import (Autotuner, TuningStore, log2_bucket,
                                        process_probe_cache)
 from repro_torch.core.chebyshev import ChebSchedule, default_chunk, \
     make_schedule
-from repro_torch.core.engine import CooEngine, select_engine
+from repro_torch.core.engine import (SHARDED_MODES, CooEngine,
+                                     ShardedEngine, auto_shard_mode,
+                                     select_engine)
 from repro_torch.device import resolve_device
 from repro_torch.graph.ops import (DeviceGraph, EdgeSlots, as_torch_dtype,
                                    device_graph, patch_device_graph)
@@ -77,7 +88,8 @@ class AdaptiveSchedule:
 
 
 class RegisteredGraph:
-    """One serving graph: host copy, device copy, the solve engine picked
+    """One serving graph: host copy, device copy (None under a sharded
+    engine, whose ranks hold only their shards), the solve engine picked
     for it, and the epoch stamped into every cache key. `keys` is the
     sorted canonical undirected key set and `slots` the host mirror of the
     padded device arrays (None when the graph broke the symmetrized-edge
@@ -89,7 +101,7 @@ class RegisteredGraph:
     stale and the next reader (a re-tiling refresh, a test oracle, the CSR
     walk) materializes it from the slot mirror."""
 
-    def __init__(self, name: str, host: Graph, dg: DeviceGraph,
+    def __init__(self, name: str, host: Graph, dg: DeviceGraph | None,
                  engine=None, epoch: int = 0, keys=None, slots=None):
         self.name = name
         self._host = host
@@ -213,7 +225,8 @@ class GraphRegistry:
             without a GPU).
         dtype: accumulation dtype of device graphs and solves.
         engine: engine mode for `select_engine` ("auto", "tuned", "coo",
-            "hub_tail", "block_ell", "fused"; the sharded modes raise).
+            "hub_tail", "block_ell", "fused", "sharded_1d", "sharded_2d";
+            dashes accepted).
             "tuned" measures the engine once per (graph, shape class) on
             this registry's device and persists it in the tuning store.
         batch_hint: expected micro-batch width, steering auto selection.
@@ -229,6 +242,11 @@ class GraphRegistry:
         tune_budget_s: wall-clock cap per measurement pass.
         tune_require_cached: never measure — a store miss falls back to
             the heuristic.
+        mesh: the `DeviceMesh` the sharded engines run on (None = a mesh
+            over the whole world from `init_mesh`).
+        grid: the (R, C) grid of sharded-2d (None = the mesh's, or the
+            most-square factorization of the world size).
+        partition_lane: the sharded partitions' padding lane.
 
     Invariant: `rg.engine` is always current for (graph, epoch) — every
     effective update refreshes or rebuilds it before the epoch bumps.
@@ -239,11 +257,18 @@ class GraphRegistry:
                  update_mode: str = "incremental", weight_dtype=None,
                  ingest_chunk_edges: int | None = None,
                  tune_cache=None, tune_budget_s: float = 2.0,
-                 tune_require_cached: bool = False):
+                 tune_require_cached: bool = False, mesh=None,
+                 grid: tuple[int, int] | None = None,
+                 partition_lane: int = 128):
         if update_mode not in UPDATE_MODES:
             raise ValueError(f"update_mode {update_mode!r} not in "
                              f"{UPDATE_MODES}")
         self.device = resolve_device(device)
+        # sharded-engine knobs: the mesh the solves run on, the (R, C) grid
+        # of sharded-2d and the partition lane
+        self.mesh = mesh
+        self.grid = grid
+        self.partition_lane = partition_lane
         self.update_mode = update_mode
         self.dtype = as_torch_dtype(dtype)
         self.engine_mode = engine
@@ -281,12 +306,17 @@ class GraphRegistry:
             self._obs.set_graph_gauges(rg)
 
     def _build(self, g: Graph, name: str = "graph", rg=None):
-        """(DeviceGraph, engine, EdgeSlots, tuned_mode, tune_us_per_iter)
-        for one epoch of a graph. The COO engine reuses the padded device
-        graph; block-ELL engines pad their slot count to a power of two.
-        The EdgeSlots mirror is what later updates patch through (None, and
-        a plain `device_graph`, for a graph that breaks the
-        symmetrized-edge contract: those always rebuild).
+        """(DeviceGraph or None, engine, EdgeSlots, tuned_mode,
+        tune_us_per_iter) for one epoch of a graph. The COO engine reuses
+        the padded device graph; block-ELL engines pad their slot count to
+        a power of two. The EdgeSlots mirror is what later updates patch
+        through (None, and a plain `device_graph`, for a graph that breaks
+        the symmetrized-edge contract: those always rebuild).
+
+        A sharded engine reads no whole-graph DeviceGraph: each rank holds
+        its own shard, so none is uploaded (dg is None) when the mode is
+        known to shard beforehand, and a tuned measurement's is dropped
+        when a sharded engine wins. Only the host mirror tracks updates.
 
         In tuned mode the selection is measured once per (graph, shape
         class): a rebuild whose edge count stays inside the previous log2
@@ -296,31 +326,44 @@ class GraphRegistry:
             slots = EdgeSlots.from_graph(g, cap=_edge_bucket(g.m))
         except ValueError:
             slots = None
-        if slots is not None:
-            dg = slots.to_device(self.dtype, weight_dtype=self.weight_dtype,
-                                 device=self.device,
-                                 chunk_edges=self.ingest_chunk_edges)
-        else:
-            dg = device_graph(g, self.dtype, pad_edges_to=_edge_bucket(g.m),
-                              weight_dtype=self.weight_dtype,
-                              device=self.device,
-                              chunk_edges=self.ingest_chunk_edges)
+        sticky = self.tuner is not None and rg is not None and \
+            rg.tuned_mode is not None and log2_bucket(g.m) == rg.m_bucket
+        mode = rg.tuned_mode if sticky else self.engine_mode.replace("-", "_")
+        if mode == "auto":
+            mode = auto_shard_mode(g, mesh=self.mesh) or mode
+        dg = None
+        if mode not in SHARDED_MODES:
+            dg = self._upload(g, slots)
         build_kw = dict(batch=self.batch_hint, dg=dg, dtype=self.dtype,
                         stable_shapes=True, weight_dtype=self.weight_dtype,
-                        device=self.device)
+                        device=self.device, mesh=self.mesh, grid=self.grid,
+                        lane=self.partition_lane)
         if self.tuner is None:
-            eng = select_engine(g, mode=self.engine_mode,
-                                probe_cache=self._probe_cache, **build_kw)
+            eng = select_engine(g, mode=mode, probe_cache=self._probe_cache,
+                                **build_kw)
             return dg, eng, slots, None, None
-        if rg is not None and rg.tuned_mode is not None and \
-                log2_bucket(g.m) == rg.m_bucket:
-            self.tuner.record("sticky", name, rg.tuned_mode)
-            eng = select_engine(g, mode=rg.tuned_mode, **build_kw)
-            return dg, eng, slots, rg.tuned_mode, rg.tune_us_per_iter
+        if sticky:
+            self.tuner.record("sticky", name, mode)
+            eng = select_engine(g, mode=mode, **build_kw)
+            return dg, eng, slots, mode, rg.tune_us_per_iter
         dec = self.tuner.tune(g, graph_name=name, **build_kw)
         eng = dec.engine if dec.engine is not None else \
             select_engine(g, mode=dec.mode, **build_kw)
+        if isinstance(eng, ShardedEngine):
+            dg = None
         return dg, eng, slots, dec.mode, dec.us_per_iter
+
+    def _upload(self, g: Graph, slots: EdgeSlots | None) -> DeviceGraph:
+        """The padded whole-graph DeviceGraph (from the slot mirror when
+        there is one)."""
+        if slots is not None:
+            return slots.to_device(self.dtype, weight_dtype=self.weight_dtype,
+                                   device=self.device,
+                                   chunk_edges=self.ingest_chunk_edges)
+        return device_graph(g, self.dtype, pad_edges_to=_edge_bucket(g.m),
+                            weight_dtype=self.weight_dtype,
+                            device=self.device,
+                            chunk_edges=self.ingest_chunk_edges)
 
     # ---- graphs -----------------------------------------------------------
     def register(self, name: str, g: Graph) -> RegisteredGraph:
@@ -400,7 +443,8 @@ class GraphRegistry:
         if self.update_mode == "incremental" and rg.slots is not None:
             patch = rg.slots.apply_delta(delta)
         if patch is not None:
-            patch_device_graph(rg.dg, patch)
+            if rg.dg is not None:   # None under a sharded engine
+                patch_device_graph(rg.dg, patch)
             rg._host_stale = True   # materialized on next read, not per batch
             if isinstance(rg.engine, CooEngine):
                 # the COO engine shares rg.dg, already patched in place:
@@ -408,7 +452,8 @@ class GraphRegistry:
                 rg.engine = rg.engine.refresh(None, delta, dg=rg.dg)
             else:
                 rg.engine = rg.engine.refresh(rg.host, delta, dg=rg.dg,
-                                              stable_shapes=True)
+                                              stable_shapes=True,
+                                              lane=self.partition_lane)
             # the mirror keeps the sorted key set; alias it (apply_delta
             # replaces, never mutates, its key array)
             rg.keys = rg.slots.ekeys

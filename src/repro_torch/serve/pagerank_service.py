@@ -53,6 +53,19 @@ residuals ride the same pinned copy as the answers, and the
 events recorded around the solve on its stream, read after that fence.
 On the CPU, where the solve ran at dispatch, the span is the host clock
 around the fence point, as in the reference.
+
+Lockstep at world size > 1 (the sharded engines, one process per rank):
+rank 0 owns the service — admission, the scheduler (FIFO or deadline,
+sync or async), the cache and every decision. Before each collective step
+it broadcasts that step's small plan: a solve's graph, epoch, c, tol,
+bucket and the columns' seeds; a refresh's cached entry; an update batch.
+The plans ride the host-only channel (`core.distributed.host_group`), so
+on cuda sending one never waits on the batch in flight and async dispatch
+keeps its overlap. Every other rank runs `follow()`, which rebuilds the
+same personalization from the plan and runs the same solve (or refresh,
+or update), so every rank reaches every collective in the same order; it
+returns when rank 0 calls `close()`. At world size 1 nothing is
+broadcast.
 """
 from __future__ import annotations
 
@@ -65,6 +78,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.distributed import broadcast_object, rank, world_size
 from repro_torch.core.pagerank import cpaa_adaptive_fixed, cpaa_fixed, \
     power_refine
 from repro_torch.obs import export as obs_export
@@ -288,6 +302,19 @@ def _solve_topk_adaptive(engine, p: torch.Tensor, c, tol, max_rounds: int,
     return idx, scores, rounds_used, col_rounds, resid
 
 
+def _refresh_inputs(n: int, idx: np.ndarray, scores: np.ndarray, seeds,
+                    dev: torch.device):
+    """Warm start and personalization of one cache refresh: the cached
+    top-k mass in place, the unseen remainder spread uniformly
+    (power_refine normalizes); unit mass on each seed."""
+    gap = max(0.0, 1.0 - float(scores.sum()))
+    x0 = np.full(n, gap / n, np.float32)
+    x0[idx] += scores
+    p = np.zeros(n, np.float32)
+    p[list(seeds)] = 1.0
+    return torch.from_numpy(x0).to(dev), torch.from_numpy(p).to(dev), gap
+
+
 def _start_copy_to_host(t: torch.Tensor) -> torch.Tensor:
     """Enqueue t's copy to the host: into pinned memory without waiting on
     CUDA (the harvest's event fence covers it), as-is on the CPU."""
@@ -440,6 +467,9 @@ class PageRankService:
             self._seed_estimator(gname)
         self._submitted = 0     # total accepted queries (qid autogeneration)
         self._tick_no = 0
+        # lockstep (module note): rank 0 leads, the other ranks follow()
+        self._world = world_size()
+        self._closed = False
 
     def _seed_estimator(self, name: str) -> None:
         """Prime the solve-time estimator from the tuner's per-round time
@@ -589,6 +619,8 @@ class PageRankService:
         m = self.metrics
         t0 = self._clock()
         prev_engine = type(self.registry.get(name).engine)
+        insert, delete = list(insert), list(delete)
+        self._lead("update", name, insert, delete)
         rg = self.registry.apply_updates(name, insert=insert, delete=delete)
         if type(rg.engine) is not prev_engine:
             # a rebuild picked another engine: the old EWMAs time a layout
@@ -689,18 +721,11 @@ class PageRankService:
                 continue      # evicted before we got to it
             t0 = self._clock()
             idx, scores = hit
-            n = rg.n
-            k = min(self.max_top_k, n)
-            # warm start: cached top-k mass in place, the unseen remainder
-            # spread uniformly (power_refine normalizes)
-            gap = max(0.0, 1.0 - float(scores.sum()))
-            x0 = np.full(n, gap / n, np.float32)
-            x0[idx] += scores
-            p = np.zeros(n, np.float32)
-            p[list(seeds)] = 1.0
+            k = min(self.max_top_k, rg.n)
+            self._lead("refresh", graph, epoch, idx, scores, seeds, c, tol)
+            x0, p, gap = _refresh_inputs(rg.n, idx, scores, seeds, dev)
             new_idx, new_scores = _refine_topk(
-                rg.engine, torch.from_numpy(x0).to(dev),
-                torch.from_numpy(p).to(dev), c,
+                rg.engine, x0, p, c,
                 rounds=self._refresh_round_count(gap, c, tol), k=k)
             self.cache.put(key, (new_idx.cpu().numpy(),
                                  new_scores.cpu().numpy()))
@@ -823,19 +848,18 @@ class PageRankService:
                 reps.append(e.q)
             col_of.append(j)
 
-        sched, coeffs = self.registry.schedule(live[0].q.c, live[0].q.tol)
+        sched, _ = self.registry.schedule(live[0].q.c, live[0].q.tol)
         n = rg.n
         dev = self.registry.device
         b_pad = self._bucket(len(reps))
         m.padded.inc(b_pad - len(reps))
-        # the personalization matrix is built on the device: only the seed
-        # coordinates cross from the host
         rows = np.concatenate([np.asarray(q.seeds, np.int64) for q in reps])
         cidx = np.repeat(np.arange(len(reps), dtype=np.int64),
                          [len(q.seeds) for q in reps])
-        p = torch.zeros((n, b_pad), dtype=self.registry.dtype, device=dev)
-        p[_to_device_async(rows, dev), _to_device_async(cidx, dev)] = 1.0
-        p[:, len(reps):] = 1.0  # pad columns: uniform mass, discarded
+        c_q, tol_q = float(live[0].q.c), float(live[0].q.tol)
+        self._lead("solve", graph, epoch, c_q, tol_q, b_pad, len(reps), rows,
+                   cidx)
+        p = self._personalization(n, b_pad, len(reps), rows, cidx)
         for e in live:
             e.tr.end("batch_form")
         m.stage.labels(stage="batch_form").observe(self._clock() - t_stage)
@@ -861,20 +885,10 @@ class PageRankService:
             solve_events = (torch.cuda.Event(enable_timing=True),
                             torch.cuda.Event(enable_timing=True))
             solve_events[0].record()
-        resid = None
-        tol_eff, c_eff = float(live[0].q.tol), float(live[0].q.c)
-        if self.adaptive:
-            plan = self.registry.adaptive_schedule(live[0].q.c, live[0].q.tol,
-                                                   chunk=self.adaptive_chunk)
-            idx, scores, used, _, resid = _solve_topk_adaptive(
-                rg.engine, p, plan.c, plan.tol, max_rounds=plan.max_rounds,
-                chunk=plan.chunk, k=k)
-            tol_eff, c_eff = plan.tol, plan.c
+        idx, scores, used, resid, tol_eff, c_eff = self._solve(
+            rg, p, c_q, tol_q, k)
+        if resid is not None:
             resid = _start_copy_to_host(resid)
-        else:
-            idx, scores = _solve_topk(rg.engine, coeffs, p,
-                                      rounds=sched.rounds, k=k)
-            used = sched.rounds
         if solve_events is not None:
             solve_events[1].record()
         idx, scores = _start_copy_to_host(idx), _start_copy_to_host(scores)
@@ -893,6 +907,97 @@ class PageRankService:
                               c=c_eff, idx=idx, scores=scores, resid=resid,
                               event=event, solve_events=solve_events,
                               t_dispatch0=t_stage)
+
+    def _personalization(self, n: int, b_pad: int, n_reps: int,
+                         rows: np.ndarray, cidx: np.ndarray) -> torch.Tensor:
+        """The [n, b_pad] personalization matrix, built on the device: only
+        the seed coordinates cross from the host. Pad columns carry uniform
+        mass and are discarded."""
+        dev = self.registry.device
+        p = torch.zeros((n, b_pad), dtype=self.registry.dtype, device=dev)
+        p[_to_device_async(rows, dev), _to_device_async(cidx, dev)] = 1.0
+        p[:, n_reps:] = 1.0
+        return p
+
+    def _solve(self, rg, p: torch.Tensor, c: float, tol: float, k: int):
+        """One batch solve + top-k on the graph's engine: (idx, scores,
+        rounds used, adaptive residuals or None, tol, c) — the adaptive
+        path's tol and c are its schedule's."""
+        if self.adaptive:
+            plan = self.registry.adaptive_schedule(c, tol,
+                                                   chunk=self.adaptive_chunk)
+            idx, scores, used, _, resid = _solve_topk_adaptive(
+                rg.engine, p, plan.c, plan.tol, max_rounds=plan.max_rounds,
+                chunk=plan.chunk, k=k)
+            return idx, scores, used, resid, plan.tol, plan.c
+        sched, coeffs = self.registry.schedule(c, tol)
+        idx, scores = _solve_topk(rg.engine, coeffs, p, rounds=sched.rounds,
+                                  k=k)
+        return idx, scores, sched.rounds, None, tol, c
+
+    # ---- lockstep across ranks --------------------------------------------
+    def _lead(self, op: str, *args) -> None:
+        """Rank 0: broadcast one collective step's plan to the followers
+        before running it (nothing at world size 1)."""
+        if self._world > 1:
+            if self._closed:
+                raise RuntimeError("service closed: the followers are gone")
+            broadcast_object((op,) + args)
+
+    def close(self) -> None:
+        """Rank 0: end the followers' `follow()` loops (idempotent; nothing
+        at world size 1). The service takes no collective step after it."""
+        if self._world > 1 and rank() == 0 and not self._closed:
+            broadcast_object(("close",))
+        self._closed = True
+
+    def follow(self) -> int:
+        """Ranks > 0: run rank 0's plans — each solve, refresh and update
+        batch, in rank 0's order — until rank 0 calls `close()`. The
+        results are rank 0's to deliver; a follower keeps none. Returns
+        the number of plans run.
+
+        Raises:
+            RuntimeError: called on rank 0, or a plan names an epoch this
+                rank's registry is not at (the ranks lost lockstep).
+        """
+        if rank() == 0:
+            raise RuntimeError("rank 0 leads the service; follow() is for "
+                               "the other ranks")
+        steps = 0
+        dev = self.registry.device
+        while True:
+            msg = broadcast_object(None)
+            op, args = msg[0], msg[1:]
+            if op == "close":
+                self._closed = True
+                return steps
+            if op == "update":
+                name, insert, delete = args
+                self.registry.apply_updates(name, insert=insert,
+                                            delete=delete)
+            else:
+                rg = self.registry.get(args[0])
+                if rg.epoch != args[1]:
+                    raise RuntimeError(
+                        f"lockstep lost: {op} of {args[0]!r} at epoch "
+                        f"{args[1]}, this rank holds epoch {rg.epoch}")
+                if op == "solve":
+                    c, tol, b_pad, n_reps, rows, cidx = args[2:]
+                    p = self._personalization(rg.n, b_pad, n_reps, rows,
+                                              cidx)
+                    self._solve(rg, p, c, tol, min(self.max_top_k, rg.n))
+                elif op == "refresh":
+                    idx, scores, seeds, c, tol = args[2:]
+                    x0, p, gap = _refresh_inputs(rg.n, idx, scores, seeds,
+                                                 dev)
+                    _refine_topk(rg.engine, x0, p, c,
+                                 rounds=self._refresh_round_count(gap, c,
+                                                                  tol),
+                                 k=min(self.max_top_k, rg.n))
+                else:
+                    raise RuntimeError(f"unknown lockstep plan {op!r}")
+            steps += 1
 
     def _harvest(self, rec: _InFlight) -> list[PPRResult]:
         """Fence one dispatched batch and materialize its results: wait on

@@ -93,6 +93,21 @@ class TestParityWithReference:
         assert rt._shortlist(gt, heur, 128, device="cpu") == \
             rj._shortlist(gj, kj, heur, n_dev=1, block=128)
 
+    @pytest.mark.parametrize("n_dev", [2, 4, 8])
+    @pytest.mark.parametrize("name", sorted(GRAPHS))
+    def test_sharded_shortlist_equal(self, name, n_dev):
+        """At >= 2 ranks the sharded modes join as in the reference."""
+        gj, gt = _pair(name)
+        heur = jeng.heuristic_mode(gj, 8)
+        rj = jtune.Autotuner.__new__(jtune.Autotuner)
+        rj.store = jtune.FillProbeCache()
+        kj = jtune.WorkloadKey.from_graph(gj, 8, backend="cpu",
+                                          device_count=n_dev)
+        rt = Autotuner.__new__(Autotuner)
+        rt.store = FillProbeCache()
+        assert rt._shortlist(gt, heur, 128, device="cpu", n_dev=n_dev) == \
+            rj._shortlist(gj, kj, heur, n_dev=n_dev, block=128)
+
     @pytest.mark.parametrize("measured,heuristic,jitter", [
         ({"coo": 2.0, "hub_tail": 1.0}, "coo", 0.10),
         ({"coo": 1.05, "hub_tail": 1.0}, "coo", 0.10),

@@ -258,9 +258,17 @@ class TestSelection:
 
     @pytest.mark.parametrize("mode", ["sharded_1d", "sharded-2d"])
     def test_unported_modes_raise(self, mode):
-        _, gt = _pair("mesh")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.select_engine(gt, mode=mode, device="cpu")
+        # the sharded modes are ported: on one rank (a single-rank gloo
+        # group) they build and answer as the reference's COO solve does
+        from repro.core.pagerank import cpaa as jcpaa
+        from repro_torch.core.pagerank import cpaa as tcpaa
+        gj, gt = _pair("mesh")
+        eng = teng.select_engine(gt, mode=mode, device="cpu", lane=4)
+        assert eng.name == mode.replace("-", "_")
+        assert eng.n == gt.n and eng.device.type == "cpu"
+        pi = tcpaa(eng, 0.85, 1e-8).pi.numpy()
+        ref = np.asarray(jcpaa(jops.device_graph(gj), 0.85, 1e-8).pi)
+        assert _l1(pi, ref) <= 1e-5
 
     def test_auto_hub_tail_pick_raises(self):
         # auto's hub/tail pick now builds the engine: the same split as the

@@ -402,3 +402,50 @@ class TestSlice5OnCard:
         rp = power(eng.with_kernels(False), tol=1e-5)
         assert rk.iterations == rp.iterations
         assert float((rk.pi - rp.pi).abs().sum()) <= 1e-5
+
+
+@pytest.mark.gpu
+class TestShardedOnCard:
+    """The sharded engines at NCCL world size 1 (a single-rank group on an
+    in-process store) against COO on the card; no gloo on cuda."""
+
+    @pytest.mark.parametrize("mode", ["sharded_1d", "sharded_2d"])
+    @pytest.mark.parametrize("b", [None, 16])
+    def test_sharded_matches_coo_on_card(self, cuda, mode, b):
+        import torch.distributed as dist
+        from repro_torch.core.engine import (collective_counts,
+                                             reset_collective_counts,
+                                             select_engine)
+        from repro_torch.core.pagerank import cpaa, cpaa_adaptive
+        g = generators.tri_mesh(60, 70)
+        eng = select_engine(g, mode=mode, device=cuda)
+        assert "nccl" in str(dist.get_backend())
+        assert eng.device.type == "cuda"
+        coo = select_engine(g, mode="coo", device=cuda)
+        p = None if b is None else torch.from_numpy(
+            np.random.default_rng(b).random((g.n, b)).astype(np.float32)
+        ).to(cuda)
+        reset_collective_counts()
+        pi = cpaa(eng, 0.85, 1e-8, p=p).pi
+        assert any(k.startswith(mode + "/apply/") for k in
+                   collective_counts())
+        ref = cpaa(coo, 0.85, 1e-8, p=p).pi
+        assert float((pi - ref).abs().sum(dim=0).max()) <= 1e-5
+        ra = cpaa_adaptive(eng, 0.85, 1e-6, p=p)
+        rc = cpaa_adaptive(coo, 0.85, 1e-6, p=p)
+        assert ra.iterations == rc.iterations
+        assert float((ra.pi - rc.pi).abs().sum(dim=0).max()) <= 1e-5
+
+    def test_bf16_wire_on_card(self, cuda):
+        from repro_torch.core.engine import Sharded2DEngine, select_engine
+        from repro_torch.core.pagerank import cpaa
+        g = generators.tri_mesh(60, 70)
+        eng = Sharded2DEngine.from_graph(g, grid=(1, 1), device=cuda,
+                                         comm_dtype=torch.bfloat16)
+        pi = cpaa(eng, 0.85, 1e-6).pi.double().cpu().numpy()
+        ref = cpaa(select_engine(g, mode="coo", device=cuda), 0.85,
+                   1e-6).pi.double().cpu().numpy()
+        assert np.max(np.abs(pi - ref) / ref) < 2e-2
+        top = set(np.argsort(-ref)[: g.n // 10].tolist())
+        assert len(top & set(np.argsort(-pi)[: g.n // 10].tolist())) \
+            >= 0.95 * len(top)

@@ -58,6 +58,8 @@ def test_fresh_import_leaves_jax_and_reference_out():
             "repro_torch.obs.metrics, repro_torch.obs.trace, "
             "repro_torch.obs.convergence, repro_torch.obs.export, "
             "repro_torch.core.autotune, repro_torch.core.orthopoly, "
+            "repro_torch.core.distributed, repro_torch.graph.partition, "
+            "repro_torch.configs.pagerank_cpaa, "
             "repro_torch.core, repro_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
@@ -160,6 +162,32 @@ class TestDefaultDeviceIsCuda:
         for fn in (power, forward_push):
             with pytest.raises(RuntimeError, match="CUDA"):
                 fn(g)
+
+    def test_sharded_entry_points(self, no_gpu):
+        import numpy as np
+        from repro_torch import interop
+        from repro_torch.configs import pagerank_cpaa
+        from repro_torch.core import distributed
+        from repro_torch.core.engine import (Sharded1DEngine,
+                                             Sharded2DEngine, select_engine)
+        from repro_torch.graph.generators import tri_mesh
+        g = tri_mesh(9, 11)
+        for fn in (lambda: distributed.init_mesh((1,), ("dev",)),
+                   lambda: distributed.init_process_group(),
+                   lambda: Sharded1DEngine.from_graph(g),
+                   lambda: Sharded2DEngine.from_graph(g),
+                   lambda: select_engine(g, mode="sharded_1d"),
+                   lambda: select_engine(g, mode="sharded-2d"),
+                   lambda: pagerank_cpaa.smoke_run()):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn()
+        z = np.zeros((1, 4), np.int32)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interop.sharded_1d_engine(z, z, z.astype(np.float32), 4, 4, 4)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            interop.sharded_2d_engine(z[None], z[None],
+                                      z[None].astype(np.float32), None, 4,
+                                      4, 4)
 
     def test_launcher(self, no_gpu):
         from repro_torch.launch import serve

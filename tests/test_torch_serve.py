@@ -166,12 +166,20 @@ class TestServiceSurface:
         assert set(self._svc().stats) == set(js.stats)
 
     def test_unported_knobs_raise(self):
-        # updates, the refresh tick, the deadline scheduler, async dispatch,
-        # hub/tail and measured selection are ported; the sharded engines
-        # still raise when the registry builds a graph
+        # every knob is ported: the sharded engines build on one rank (a
+        # single-rank gloo group) and answer as the COO engine does, and
+        # updates, the refresh tick, the deadline scheduler, async dispatch
+        # and hub/tail run
+        ref = self._svc(engine="coo").query("mesh", (3, 40), top_k=8)
         for engine in ("sharded-1d", "sharded-2d"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                self._svc(engine=engine)
+            svc = self._svc(engine=engine)
+            assert svc.registry.get("mesh").engine.name == \
+                engine.replace("-", "_")
+            res = svc.query("mesh", (3, 40), top_k=8)
+            np.testing.assert_allclose(res.scores, ref.scores, rtol=0,
+                                       atol=1e-5)
+            assert set(res.indices.tolist()) == set(ref.indices.tolist())
+            svc.close()
         svc = self._svc(scheduler="deadline", async_dispatch=True,
                         engine="hub-tail")
         assert svc.registry.get("mesh").engine.name == "hub_tail"

@@ -69,6 +69,17 @@ class TestPower:
         assert rt.iterations == rj.iterations
         assert _l1(rt.pi.numpy(), rj.pi) <= 1e-5
 
+    @pytest.mark.parametrize("name", sorted(GRAPHS))
+    def test_stop_round_at_tol_1e6_within_one_round(self, name):
+        """At tol 1e-6 the f32 residual's ~1e-7 steps let the summation
+        order move the stop by a round: held to |delta rounds| <= 1 and
+        the result to L1 <= 1e-5."""
+        _, djg, _, dtg = _pair(name)
+        rj = jpr.power(djg, c=0.85, tol=1e-6)
+        rt = tpr.power(dtg, c=0.85, tol=1e-6)
+        assert abs(rt.iterations - rj.iterations) <= 1
+        assert _l1(rt.pi.numpy(), rj.pi) <= 1e-5
+
     @pytest.mark.parametrize("name", ["mesh", "powerlaw"])
     def test_batched_seeded_personalization(self, name):
         gj, djg, gt, dtg = _pair(name)
