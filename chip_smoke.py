@@ -111,6 +111,21 @@ package. Phases, each of which must pass:
      `configs/pagerank_cpaa.smoke_run` on the card. At world size 1 NCCL
      moves no bytes between cards: this shows the engines and the cost
      of their collective calls on the card, not multi-card scaling.
+  9. slice G, the GNN zoo training on the card (no kernel of its own:
+     the reference passes messages with XLA gathers and segment ops):
+     MeshGraphNet, PNA, DimeNet and GraphCast at their full_config()
+     widths on minibatch_lg, full_graph_sm and molecule, G_STEPS AdamW
+     steps each from generator seed 0 (finite, the loss falls), one step
+     in float64 on the card against f32 (loss rel <= 1e-4, grad norm rel
+     <= 1e-3; at minibatch_lg where twice the f32 peak fits the card, else
+     at full_graph_sm), TF32 off; at minibatch_lg ms per step (CUDA
+     events, after a warm-up step), peak memory and a profile of one step
+     by kernel and by operator; then the train_gnn flow on chunglu-1m:
+     CPAA PageRank through auto's engine, PNA full_config() widths on
+     GraphBatchPipeline batches of 1,024 seeds with fanouts (15, 10) and
+     the PPR weights, host ms per batch and device ms per step, an async
+     checkpoint, and the replay of the next step bit for bit with
+     deterministic algorithms on (the gap with atomics printed).
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -121,6 +136,7 @@ non-zero without that line.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -2181,11 +2197,284 @@ def phase_slice_f(graphs: dict) -> dict:
             "smoke": smoke, "seconds": secs}
 
 
-def profile_device(fn, label: str) -> dict:
+# ---------------------------------------------------------------- slice G --
+G_DIR = ROOT / "build" / "chip_smoke_g"     # gitignored scratch of slice G
+G_DEVICE = "cuda"      # a CPU rehearsal at smoke widths patches this
+G_ARCHS = ("meshgraphnet", "pna", "dimenet", "graphcast")
+G_SHAPES = ("minibatch_lg", "full_graph_sm", "molecule")
+G_STEPS = 5            # AdamW steps on one batch; the loss must fall
+G_LR = 1e-4            # small enough that 5 steps descend at every width
+G_FLOW_STEPS = 6       # train_gnn flow: checkpoint after step 3, replay 4
+LOSS_GAP_F64 = 1e-4    # f32 vs float64 on the card, relative
+GNORM_GAP_F64 = 1e-3
+
+
+def gnn_case(arch: str, shape: str, dev):
+    """(config module, model module, full_config, params, batch) for
+    `arch` at `shape`, from torch.Generator seed 0 (params) and the
+    config's make_batch seed 0, on `dev`."""
+    import importlib
+    import torch
+    from repro_torch.configs import gnn_common as gc
+    cfg_mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    model = importlib.import_module(f"repro_torch.models.gnn.{arch}")
+    dims = gc.GNN_SHAPES[shape]
+    cfg = cfg_mod.full_config(d_in=dims["d_feat"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = cfg_mod._init(gen, cfg, dims["d_feat"]) if arch == "graphcast" \
+        else model.init_params(gen, cfg)
+    batch = cfg_mod.make_batch(cfg, dims, seed=0, device=dev)
+    return cfg_mod, model, cfg, params, batch
+
+
+def f64_gap(loss_fn, params, batch, m32) -> dict:
+    """The same step's loss and grad norm in float64 on the card (the same
+    parameters and batch, widened), each as a relative gap to f32's."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    p64 = pytree.tree_map(lambda t: t.detach().double(), params)
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    cfg = AdamWConfig(lr=G_LR)
+    _, _, m64 = make_train_step(loss_fn, cfg, donate=False)(
+        p64, adamw_init(p64, cfg), b64)
+    out = {}
+    for k in ("loss", "grad_norm"):
+        a, b = float(m32[k]), float(m64[k])
+        out[k] = abs(a - b) / abs(b)
+        out[k + "_f64"] = b
+    del p64, b64
+    torch.cuda.empty_cache()
+    return out
+
+
+def gnn_steps(arch: str, shape: str, f64: str) -> dict:
+    """G_STEPS AdamW steps (lr G_LR, donated) of `arch` at full width on
+    `shape` on one batch: a warm-up step that leaves the state as it was
+    gives f32's loss and grad norm; then the timed steps (CUDA events),
+    peak memory, and at minibatch_lg a torch.profiler breakdown of one
+    step. f64: "here" runs the float64 check on this shape, "if_fits"
+    runs it when twice the f32 peak fits the card (else the caller runs it
+    on another shape), "no" skips it."""
+    import torch
+    from functools import partial
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.gnn_common import GNN_SHAPES
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    dev = torch.device(G_DEVICE)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg_mod, model, cfg, params, batch = gnn_case(arch, shape, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    loss_fn = partial(model.loss_fn, cfg=cfg)
+    opt_cfg = AdamWConfig(lr=G_LR)
+    opt = adamw_init(params, opt_cfg)
+    n_params = sum(t.numel() for t in pytree.tree_leaves(params))
+    _, _, m32 = make_train_step(loss_fn, opt_cfg, donate=False)(
+        params, opt, batch)
+    loss32, gn32 = float(m32["loss"]), float(m32["grad_norm"])
+    check(np.isfinite(loss32) and np.isfinite(gn32),
+          f"{arch} at {shape}: loss {loss32} grad norm {gn32}")
+    p0 = pytree.tree_map(lambda t: t.detach().clone(), params)
+    step = make_train_step(loss_fn, opt_cfg, donate=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(G_STEPS + 1)]
+    losses, gnorms = [], []
+    ev[0].record()
+    for i in range(G_STEPS):
+        params, opt, m = step(params, opt, batch)
+        ev[i + 1].record()
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(G_STEPS)]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    gnorms = [float(x) for x in gnorms]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{arch} at {shape}: non-finite loss or grad norm {losses} "
+          f"{gnorms}")
+    check(losses[-1] < losses[0],
+          f"{arch} at {shape}: the loss did not fall over {G_STEPS} steps "
+          f"({losses})")
+    dims = GNN_SHAPES[shape]
+    flops = 3.0 * cfg_mod.model_flops(cfg, dims)
+    ms = float(np.mean(step_ms))
+    log(f"G {arch} at {shape} (n={dims['n']:,}, e={dims['e']:,}, "
+        f"{n_params:,} params): set-up {setup_s:.2f} s, step {ms:.3f} ms "
+        f"(CUDA events, mean of {G_STEPS}: "
+        f"{', '.join(f'{t:.3f}' for t in step_ms)}), "
+        f"{flops / ms / 1e9:.2f} TFLOP/s of 3x model_flops, peak "
+        f"{peak:,} bytes; loss {', '.join(f'{x:.6g}' for x in losses)}")
+    out = {"arch": arch, "shape": shape, "ms": ms, "step_ms": step_ms,
+           "peak": peak, "losses": losses, "grad_norms": gnorms,
+           "params": n_params, "loss32": loss32, "gn32": gn32,
+           "tflops": flops / ms / 1e9}
+    if shape == "minibatch_lg":
+        prof = profile_device(lambda: step(params, opt, batch),
+                              f"one {arch} train step at {shape}",
+                              by_op=True)
+        out["profile"] = prof
+    del params, opt, m, step
+    total = torch.cuda.get_device_properties(0).total_memory
+    if f64 == "here" or (f64 == "if_fits" and 2.1 * peak < 0.9 * total):
+        gap = f64_gap(loss_fn, p0, batch, m32)
+        log(f"G {arch} at {shape}: f32 vs float64 on the card: loss "
+            f"{loss32:.9g} vs {gap['loss_f64']:.9g} (rel {gap['loss']:.3e}"
+            f", limit {LOSS_GAP_F64:g}), grad norm {gn32:.9g} vs "
+            f"{gap['grad_norm_f64']:.9g} (rel {gap['grad_norm']:.3e}, limit "
+            f"{GNORM_GAP_F64:g})")
+        check(gap["loss"] <= LOSS_GAP_F64 and gap["grad_norm"] <= GNORM_GAP_F64,
+              f"{arch} at {shape}: f32 vs float64 gaps {gap}")
+        out["f64"] = gap
+    del p0, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_g_steps() -> dict:
+    """G1-G3: each GNN of the zoo at its full_config() widths on
+    minibatch_lg, full_graph_sm and molecule: AdamW steps on the card
+    (finite, loss falling), f32 vs float64 of one step (at minibatch_lg
+    where twice the f32 peak fits the card, else at full_graph_sm), and at
+    minibatch_lg ms per step, peak memory and a profile of one step."""
+    import torch
+    log("slice G: TF32 off (torch.backends.cuda.matmul.allow_tf32 = "
+        f"{torch.backends.cuda.matmul.allow_tf32}, float32 matmul precision "
+        f"{torch.get_float32_matmul_precision()!r}); cuBLAS workspace "
+        f"{os.environ.get('CUBLAS_WORKSPACE_CONFIG')}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    t0 = time.perf_counter()
+    rows = []
+    for arch in G_ARCHS:
+        need_f64 = True
+        for shape in G_SHAPES:
+            mode = "if_fits" if shape == "minibatch_lg" else \
+                ("here" if need_f64 else "no")
+            r = gnn_steps(arch, shape, mode)
+            need_f64 = need_f64 and "f64" not in r
+            rows.append(r)
+        check(not need_f64, f"{arch}: no float64 check ran")
+    secs = time.perf_counter() - t0
+    log(f"slice G steps: {secs:.1f} s")
+    return {"rows": rows, "seconds": secs}
+
+
+def phase_slice_g_flow(g) -> dict:
+    """G4: the train_gnn flow at a size users would call real: CPAA
+    PageRank on `g` (chunglu-1m) on the card through auto's engine, PNA
+    full_config() widths on GraphBatchPipeline batches of 1,024 seeds with
+    fanouts (15, 10) and the PPR weights, G_FLOW_STEPS steps with an async
+    checkpoint after step 3, then the replay of step 4 from the restored
+    state: bit for bit with deterministic algorithms on, and the gap with
+    atomics on (index_add_) printed."""
+    import dataclasses
+    import shutil as _shutil
+    import torch
+    from functools import partial
+    from repro_torch.configs import pna as pna_cfg
+    from repro_torch.launch import train_gnn
+    from repro_torch.models.gnn import pna
+    from repro_torch.train.data import GraphBatchPipeline
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    dev = torch.device(G_DEVICE)
+    t0 = time.perf_counter()
+    reset_counts()
+    pr, feats, targets, delta = train_gnn.pagerank_task(g, dev)
+    launches = read_counts()
+    ppr_s = time.perf_counter() - t0
+    check(np.isfinite(pr).all() and abs(pr.sum() - 1.0) < 1e-3,
+          f"PageRank sums to {pr.sum()}")
+    log(f"G4 chunglu-1m (n={g.n:,}, m={g.m:,}): CPAA PageRank + features "
+        f"{ppr_s:.2f} s, engine applies {launches['applies']}, kernels "
+        f"bsr_spmm {launches['bsr_spmm']} cheb_step "
+        f"{launches['cheb_step']}")
+    cfg = dataclasses.replace(pna_cfg.full_config(d_in=feats.shape[1]),
+                              d_out=targets.shape[1], delta=delta)
+    params = pna.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt_cfg = AdamWConfig(lr=2e-3, weight_decay=0.01)
+    step = make_train_step(partial(pna.loss_fn, cfg=cfg), opt_cfg,
+                           donate=False)
+    t0 = time.perf_counter()
+    pipe = GraphBatchPipeline(g, feats, targets, 1024, (15, 10), seed=1,
+                              ppr_weights=pr, device=dev)
+    csr_s = time.perf_counter() - t0
+    ckpt_dir = G_DIR / "checkpoints"
+    _shutil.rmtree(ckpt_dir, ignore_errors=True)
+    out = deterministic(lambda: train_gnn.fit(
+        step, params, adamw_init(params, opt_cfg), pipe, G_FLOW_STEPS,
+        ckpt_dir, async_save=True))
+    like = {"params": out["params"], "opt": out["opt"]}
+    rp, rm, data_step = deterministic(
+        lambda: train_gnn.replay(step, ckpt_dir, like, pipe))
+    ref_params, ref_m = out["reference"]
+    gap = train_gnn.tree_max_gap(ref_params, rp)
+    same_loss = bool(torch.equal(ref_m["loss"], rm["loss"]))
+    ap, am, _ = train_gnn.replay(step, ckpt_dir, like, pipe)
+    gap_atomic = train_gnn.tree_max_gap(ref_params, ap)
+    loss_gap_atomic = abs(float(ref_m["loss"]) - float(am["loss"]))
+    host = out["host_ms"]
+    dev_ms = out["device_ms"][1:]
+    # the training path (atomics on), on batches already on the card
+    batches = [pipe.batch(i) for i in range(3)]
+    p, o = out["params"], out["opt"]
+    atomic_ms = []
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        p, o, _ = step(p, o, b)
+        ev[1].record()
+        torch.cuda.synchronize()
+        atomic_ms.append(ev[0].elapsed_time(ev[1]))
+    prof = profile_device(lambda: step(p, o, batches[0]),
+                          "one train_gnn PNA step (atomics on)", by_op=True)
+    host_share = float(np.mean(host)) / (float(np.mean(host))
+                                         + float(np.mean(atomic_ms)))
+    log(f"G4 device ms per step with atomics (the training path) "
+        f"{', '.join(f'{x:.3f}' for x in atomic_ms)}; the host's sampler + "
+        f"remap would take {host_share:.1%} of a serial batch + step")
+    log(f"G4 PNA (d={cfg.d_hidden}, {cfg.n_layers} layers, d_in "
+        f"{cfg.d_in}, d_out {cfg.d_out}, delta {delta:.4f}) on batches of "
+        f"n_pad {pipe.n_pad:,}, e_pad {pipe.e_pad:,}: CSR once "
+        f"{csr_s:.2f} s; host ms per batch (sampler + remap) "
+        f"{', '.join(f'{x:.1f}' for x in host)}; device ms per step "
+        f"(CUDA events, deterministic algorithms on, after the first) "
+        f"{', '.join(f'{x:.3f}' for x in dev_ms)}; losses "
+        f"{', '.join(f'{x:.5g}' for x in out['losses'])}")
+    log(f"G4 checkpoint (async) after step {out['ckpt_step'] - 1}, replay of "
+        f"step {data_step}: deterministic max param gap {gap:.3e}, loss "
+        f"equal {same_loss}; with atomics: max param gap {gap_atomic:.3e}, "
+        f"loss gap {loss_gap_atomic:.3e}")
+    check(all(np.isfinite(out["losses"])), "G4: non-finite loss")
+    check(gap == 0.0 and same_loss,
+          f"G4: replay differs from the original step (gap {gap})")
+    _shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"launches": launches, "host_ms": host, "device_ms": dev_ms,
+            "atomic_ms": atomic_ms, "ppr_s": ppr_s, "replay_gap": gap,
+            "atomic_gap": gap_atomic, "profile": prof}
+
+
+def phase_slice_g(chunglu) -> dict:
+    t0 = time.perf_counter()
+    steps = phase_slice_g_steps()
+    flow = phase_slice_g_flow(chunglu)
+    log(f"slice G: {time.perf_counter() - t0:.1f} s")
+    return {"steps": steps, "flow": flow, "launches": flow["launches"]}
+
+
+def profile_device(fn, label: str, by_op: bool = False) -> dict:
     """Device-time breakdown of one call of `fn` (torch.profiler, after one
     warm call): the kernels by device time and the device's idle share of
-    the wall time (one stream, so kernel times add up). Informational;
-    prints "no device time" if the profiler sees no kernels."""
+    the wall time (one stream, so kernel times add up); with `by_op`, also
+    the operators that launched them (aten ops by self device time, each
+    as a share of the busy time). Informational; prints "no device time"
+    if the profiler sees no kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2197,16 +2486,19 @@ def profile_device(fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
+    rows, ops = [], []
     for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue        # operator rows repeat their kernels' time
         dev = getattr(e, "self_device_time_total", None)
         if dev is None:
             dev = getattr(e, "self_cuda_time_total", 0)
-        if dev > 0:
+        if dev <= 0:
+            continue
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
             rows.append((dev, e.count, e.key))
+        else:       # operator rows repeat their kernels' time
+            ops.append((dev, e.count, e.key))
     rows.sort(reverse=True)
+    ops.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     if not rows:
         log(f"profile of {label}: no device time in key_averages")
@@ -2216,7 +2508,13 @@ def profile_device(fn, label: str) -> dict:
         f"{max(0.0, 1 - busy_us / wall_us):.3f}")
     for dev, count, key in rows[:12]:
         log(f"  {dev / 1e3:9.3f} ms {count:5d}x  {key[:90]}")
-    return {"wall_us": wall_us, "busy_us": busy_us}
+    if by_op:
+        log(f"  by operator (self device time, share of busy):")
+        for dev, count, key in ops[:12]:
+            log(f"  {dev / 1e3:9.3f} ms {dev / busy_us:6.1%} {count:5d}x  "
+                f"{key[:70]}")
+    return {"wall_us": wall_us, "busy_us": busy_us, "top": rows[:12],
+            "ops": ops[:12]}
 
 
 def profile_tick(eng, p, plan, k: int) -> dict:
@@ -2235,6 +2533,9 @@ def bound(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
 
 
 def main() -> int:
+    # cuBLAS is deterministic only with a fixed workspace, which torch
+    # checks when deterministic algorithms are on (slice G's replay)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -2275,6 +2576,8 @@ def main() -> int:
     log(f"slice E launches: tuned {e_tuned['launches']}; obs "
         f"{e_obs['launches']}; paper {e_paper['launches']}")
     phase_slice_f(e_graphs)
+    torch.cuda.empty_cache()
+    g = phase_slice_g(e_graphs["chunglu"])["launches"]
     del e_graphs
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
@@ -2285,16 +2588,18 @@ def main() -> int:
          "source": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
          "replaces": "src/repro/kernels/bsr_spmm/bsr_spmm.py:42",
          "launches": a["launches"]["bsr_spmm"] + b["launches"]["bsr_spmm"]
-         + d["bsr_spmm"] + e["bsr_spmm"],
+         + d["bsr_spmm"] + e["bsr_spmm"] + g["bsr_spmm"],
          "launches_by_path": {"slice_a": a["launches"]["bsr_spmm"],
                               "slice_b": b["launches"]["bsr_spmm"],
                               "slice_d": d["bsr_spmm"],
-                              "slice_e": e["bsr_spmm"]},
+                              "slice_e": e["bsr_spmm"],
+                              "slice_g": g["bsr_spmm"]},
          "launches_by_variant": {
              k: a["launches"]["bsr_spmm_variants"][k]
              + b["launches"]["bsr_spmm_variants"][k]
              + d["bsr_spmm_variants"].get(k, 0)
              + e["bsr_spmm_variants"].get(k, 0)
+             + g["bsr_spmm_variants"].get(k, 0)
              for k in a["launches"]["bsr_spmm_variants"]},
          "slice_e_by_variant": e["bsr_spmm_variants"],
          "max_abs_err": max(kerr["bsr_spmm"], b["bsr"]["err"]),
@@ -2305,11 +2610,12 @@ def main() -> int:
          "source": "src/repro_torch/kernels/cheb_step/csrc/cheb_step.cu",
          "replaces": "src/repro/kernels/cheb_step/cheb_step.py:40",
          "launches": a["launches"]["cheb_step"] + b["launches"]["cheb_step"]
-         + d["cheb_step"] + e["cheb_step"],
+         + d["cheb_step"] + e["cheb_step"] + g["cheb_step"],
          "launches_by_path": {"slice_a": a["launches"]["cheb_step"],
                               "slice_b": b["launches"]["cheb_step"],
                               "slice_d": d["cheb_step"],
-                              "slice_e": e["cheb_step"]},
+                              "slice_e": e["cheb_step"],
+                              "slice_g": g["cheb_step"]},
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},
@@ -2317,8 +2623,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                    "embedding_bag.cu",
          "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:40",
-         "launches": c["launches"]["embedding_bag"],
-         "launches_by_path": {"slice_c": c["launches"]["embedding_bag"]},
+         "launches": c["launches"]["embedding_bag"] + g["embedding_bag"],
+         "launches_by_path": {"slice_c": c["launches"]["embedding_bag"],
+                              "slice_g": g["embedding_bag"]},
          "max_abs_err": c["err"],
          "ms": c["eb"]["ms"], "plain_ms": c["eb"]["plain_ms"],
          "bound_ms": eb_b, "bound_by": eb_by,

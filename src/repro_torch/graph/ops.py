@@ -11,8 +11,11 @@ DeviceGraph's slots: `apply_delta` turns an `EdgeDelta` into a
 tensors in place, so every engine holding them sees the update.
 `chunk_edges` bounds the host memory of a registration: the edge arrays
 go to the device in chunks, each converted on the host and copied into
-its slice of one preallocated device tensor. The GNN aggregations come
-with a later slice.
+its slice of one preallocated device tensor. The GNN aggregations
+(`aggregate`, `edge_softmax`, `degree_normalize`) sit on the segment
+reductions `segment_sum` / `segment_max` / `segment_min`, the port's
+counterparts of `jax.ops.segment_*`: empty segments hold 0, -inf and +inf,
+and ties split the gradient evenly, as in JAX.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from repro_torch.graph.structure import Graph
 __all__ = ["DeviceGraph", "device_graph", "check_int32_range",
            "CapacityError", "edge_matmul", "spmv",
            "spmm", "as_torch_dtype", "upload", "SlotPatch", "EdgeSlots",
-           "patch_device_graph"]
+           "patch_device_graph", "segment_sum", "segment_max",
+           "segment_min", "aggregate", "edge_softmax", "degree_normalize"]
 
 
 class DeviceGraph:
@@ -492,3 +496,62 @@ def spmv(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
 def spmm(dg: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
     """Batched transition: x [n, B] -> P x [n, B] (multi-source PageRank)."""
     return _transition_matmul(dg, x)
+
+
+def segment_sum(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """out[s] = sum of x[e] over seg[e] == s, for s < n (0 where empty).
+    x: [E] or [E, ...]. On CUDA the adds are atomics in no fixed order."""
+    out = x.new_zeros((n,) + tuple(x.shape[1:]))
+    return out.index_add_(0, seg, x)
+
+
+def _segment_extreme(x: torch.Tensor, seg: torch.Tensor, n: int,
+                     reduce: str, fill: float) -> torch.Tensor:
+    idx = seg.long().reshape((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
+    out = x.new_full((n,) + tuple(x.shape[1:]), fill)
+    return out.scatter_reduce(0, idx, x, reduce, include_self=False)
+
+
+def segment_max(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-segment max (-inf where a segment is empty, JAX's identity)."""
+    return _segment_extreme(x, seg, n, "amax", float("-inf"))
+
+
+def segment_min(x: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Per-segment min (+inf where a segment is empty)."""
+    return _segment_extreme(x, seg, n, "amin", float("inf"))
+
+
+def aggregate(dg: DeviceGraph, x: torch.Tensor, kind: str = "sum",
+              edge_vals: torch.Tensor | None = None) -> torch.Tensor:
+    """Generic neighbour aggregation for GNN layers. x: [n, d]."""
+    msgs = x.index_select(0, dg.src)
+    if edge_vals is not None:
+        msgs = msgs * edge_vals[:, None]
+    if kind == "sum":
+        return segment_sum(msgs, dg.dst, dg.n)
+    if kind == "mean":
+        s = segment_sum(msgs, dg.dst, dg.n)
+        cnt = segment_sum(msgs.new_ones(dg.dst.shape), dg.dst, dg.n)
+        return s / torch.clamp(cnt, min=1.0)[:, None]
+    if kind == "max":
+        return segment_max(msgs, dg.dst, dg.n)
+    if kind == "min":
+        return segment_min(msgs, dg.dst, dg.n)
+    raise ValueError(kind)
+
+
+def edge_softmax(dg: DeviceGraph, scores: torch.Tensor) -> torch.Tensor:
+    """Softmax over incoming edges per destination vertex. scores: [m]."""
+    mx = segment_max(scores, dg.dst, dg.n)
+    ex = torch.exp(scores - mx.index_select(0, dg.dst))
+    z = segment_sum(ex, dg.dst, dg.n)
+    return ex / z.index_select(0, dg.dst)
+
+
+def degree_normalize(dg: DeviceGraph, x: torch.Tensor,
+                     power: float = -0.5) -> torch.Tensor:
+    """D^power x (GCN-style normalization helper); deg = 1 / inv_deg.
+    x: [n] or [n, d], like spmv/spmm."""
+    scale = dg.inv_deg ** (-power)
+    return x * (scale if x.ndim == 1 else scale[:, None])

@@ -14,7 +14,9 @@ edge weights and coefficients run through both packages.
     `src_local`), `dst_local` and `weight` arrays (and for 2D the
     `col_layout_perm`), of which each rank takes its own slice;
   * a `ChebSchedule`'s coefficient vector;
-  * DLRM parameters ({"table", "bot": [{"w", "b"}], "top": [...]}).
+  * DLRM parameters ({"table", "bot": [{"w", "b"}], "top": [...]});
+  * GNN parameters (any tree of dicts and lists of arrays, the layer
+    stacks `layers` / `blocks` included).
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ from repro_torch.graph.ops import DeviceGraph, as_torch_dtype
 
 __all__ = ["block_ell_engine", "coo_engine", "hub_tail_engine",
            "sharded_1d_engine", "sharded_2d_engine",
-           "device_graph_from_arrays", "coeffs_tensor", "dlrm_params"]
+           "device_graph_from_arrays", "coeffs_tensor", "dlrm_params",
+           "gnn_params"]
 
 
 def _tensor(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -158,3 +161,19 @@ def dlrm_params(params, device=None) -> dict:
                 for layer in layers]
     return {"table": _tensor(params["table"], torch.float32, dev),
             "bot": mlp(params["bot"]), "top": mlp(params["top"])}
+
+
+def gnn_params(params, device=None):
+    """A reference GNN parameter tree (dicts and lists with numpy leaves,
+    layer stacks on a leading axis) as the port's: the same structure with
+    float32 tensors on `device` (None = cuda), each with requires_grad.
+    The layouts are the same, so nothing is transposed."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return _tensor(node, torch.float32, dev).requires_grad_(True)
+    return conv(params)

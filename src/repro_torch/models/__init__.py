@@ -1,2 +1,3 @@
-"""Models of the port (counterparts of `repro.models`): so far the DLRM-RM2
-recommender (`models/recsys/dlrm.py`) and the MLP helpers it uses."""
+"""Models of the port (counterparts of `repro.models`): the DLRM-RM2
+recommender (`models/recsys/dlrm.py`), the GNN zoo (`models/gnn/`) and the
+layers they share (`models/layers.py`)."""

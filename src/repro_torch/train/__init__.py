@@ -1,2 +1,3 @@
-"""Training substrate of the port (counterpart of `repro.train`): so far
-only the recsys data pipeline (`train/data.py`)."""
+"""Training substrate of the port (counterpart of `repro.train`): the data
+pipelines (`train/data.py`), AdamW (`train/optimizer.py`), the train step
+(`train/train_loop.py`) and checkpoints (`train/checkpoint.py`)."""

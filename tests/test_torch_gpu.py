@@ -449,3 +449,80 @@ class TestShardedOnCard:
         top = set(np.argsort(-ref)[: g.n // 10].tolist())
         assert len(top & set(np.argsort(-pi)[: g.n // 10].tolist())) \
             >= 0.95 * len(top)
+
+
+@pytest.mark.gpu
+class TestGnnOnCard:
+    """The GNN zoo's train step on the card against the same step on the
+    CPU (rtol 1e-4 on the loss and grad norm: f32 on both, TF32 off, the
+    card's index_add_ adds in no fixed order), and the checkpoint replay
+    bit for bit with deterministic algorithms on."""
+
+    @pytest.mark.parametrize("arch", ["meshgraphnet", "pna", "dimenet",
+                                      "graphcast"])
+    def test_smoke_step_card_vs_cpu(self, cuda, arch):
+        import importlib
+        from functools import partial
+
+        from torch.utils import _pytree as pytree
+
+        from repro_torch.configs import gnn_common as gc
+        from repro_torch.train.optimizer import AdamWConfig, adamw_init
+        from repro_torch.train.train_loop import make_train_step
+        cfg_mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        model = importlib.import_module(f"repro_torch.models.gnn.{arch}")
+        cfg = cfg_mod.smoke_config()
+        gen = torch.Generator().manual_seed(0)
+        if arch == "graphcast":
+            params = cfg_mod._init(gen, cfg, 12)
+            batch = cfg_mod.make_batch(cfg, gc.gnn_smoke_dims(), d_in=12,
+                                       device="cpu")
+        else:
+            params = model.init_params(gen, cfg)
+            batch = cfg_mod.make_batch(cfg, gc.gnn_smoke_dims(),
+                                       device="cpu")
+        opt_cfg = AdamWConfig(lr=1e-3)
+        step = make_train_step(partial(model.loss_fn, cfg=cfg), opt_cfg,
+                               donate=False)
+        out = {}
+        for dev in ("cpu", cuda):
+            p = pytree.tree_map(lambda t: t.detach().to(dev), params)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            _, _, m = step(p, adamw_init(p, opt_cfg), b)
+            out[str(dev)] = {k: float(v) for k, v in m.items()}
+        for k in ("loss", "grad_norm"):
+            assert out["cuda"][k] == pytest.approx(out["cpu"][k], rel=1e-4)
+
+    def test_checkpoint_replay_bit_exact(self, cuda, tmp_path):
+        from functools import partial
+
+        from repro_torch.graph import generators
+        from repro_torch.launch import train_gnn
+        from repro_torch.models.gnn import pna
+        from repro_torch.train.data import GraphBatchPipeline
+        from repro_torch.train.optimizer import AdamWConfig, adamw_init
+        from repro_torch.train.train_loop import make_train_step
+        g = generators.powerlaw_ba(2_000, 4, seed=0)
+        pr, feats, targets, delta = train_gnn.pagerank_task(g, cuda)
+        cfg = pna.PNAConfig(name="t", n_layers=3, d_hidden=32,
+                            d_in=feats.shape[1], d_out=targets.shape[1],
+                            delta=delta)
+        params = pna.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                 cfg)
+        opt_cfg = AdamWConfig(lr=2e-3, weight_decay=0.01)
+        step = make_train_step(partial(pna.loss_fn, cfg=cfg), opt_cfg,
+                               donate=False)
+        pipe = GraphBatchPipeline(g, feats, targets, 64, (8, 5), seed=1,
+                                  ppr_weights=pr, device=cuda)
+        torch.use_deterministic_algorithms(True)
+        try:
+            out = train_gnn.fit(step, params, adamw_init(params, opt_cfg),
+                                pipe, 6, tmp_path, async_save=True)
+            rp, rm, _ = train_gnn.replay(
+                step, tmp_path, {"params": out["params"],
+                                 "opt": out["opt"]}, pipe)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert np.isfinite(out["losses"]).all()
+        assert train_gnn.tree_max_gap(out["reference"][0], rp) == 0.0
+        assert torch.equal(out["reference"][1]["loss"], rm["loss"])

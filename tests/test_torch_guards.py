@@ -60,7 +60,16 @@ def test_fresh_import_leaves_jax_and_reference_out():
             "repro_torch.core.autotune, repro_torch.core.orthopoly, "
             "repro_torch.core.distributed, repro_torch.graph.partition, "
             "repro_torch.configs.pagerank_cpaa, "
-            "repro_torch.core, repro_torch.serve\n"
+            "repro_torch.core, repro_torch.serve, "
+            "repro_torch.models.layers, repro_torch.models.gnn.common, "
+            "repro_torch.models.gnn.meshgraphnet, "
+            "repro_torch.models.gnn.pna, repro_torch.models.gnn.dimenet, "
+            "repro_torch.models.gnn.graphcast, repro_torch.graph.sampler, "
+            "repro_torch.train.optimizer, repro_torch.train.train_loop, "
+            "repro_torch.train.checkpoint, repro_torch.configs.gnn_common, "
+            "repro_torch.configs.meshgraphnet, repro_torch.configs.pna, "
+            "repro_torch.configs.dimenet, repro_torch.configs.graphcast, "
+            "repro_torch.launch.train_gnn\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
@@ -194,6 +203,33 @@ class TestDefaultDeviceIsCuda:
         with pytest.raises(RuntimeError, match="CUDA"):
             serve.main(["--arch", "pagerank-serve", "--smoke",
                         "--requests", "2"])
+
+    @pytest.mark.parametrize("arch", ["meshgraphnet", "pna", "dimenet",
+                                      "graphcast"])
+    def test_gnn_smoke_run(self, no_gpu, arch):
+        import importlib
+        cfg_mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cfg_mod.smoke_run(seed=0)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cfg_mod.make_batch(cfg_mod.smoke_config(),
+                               dict(n=8, e=16, d_feat=12))
+
+    def test_gnn_training_entry_points(self, no_gpu):
+        import numpy as np
+        from repro_torch import interop
+        from repro_torch.graph.generators import caveman
+        from repro_torch.launch import train_gnn
+        from repro_torch.train.data import GraphBatchPipeline
+        g = caveman(5, 4)
+        z = np.zeros((g.n, 2), np.float32)
+        for fn in (lambda: train_gnn.run(steps=2, batch_nodes=4),
+                   lambda: train_gnn.main(["--steps", "2"]),
+                   lambda: train_gnn.pagerank_task(g),
+                   lambda: GraphBatchPipeline(g, z, z, 4, (2,)),
+                   lambda: interop.gnn_params({"w": np.ones(2)})):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn()
 
     def test_explicit_cpu_still_runs(self, no_gpu):
         from repro_torch.core.pagerank import cpaa
