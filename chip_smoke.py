@@ -126,6 +126,29 @@ package. Phases, each of which must pass:
      the PPR weights, host ms per batch and device ms per step, an async
      checkpoint, and the replay of the next step bit for bit with
      deterministic algorithms on (the gap with atomics printed).
+ 10. slice H, the LM serve path (no kernel of its own: the reference's
+     attention and MoE dispatch are XLA ops), bf16 compute, TF32 off,
+     cuBLAS bf16 reductions in f32, random weights from generator seed 0:
+     - gate 1: h2o-danube-1.8b at full width in float32, one request's
+       engine tokens equal to naive greedy decoding by full forwards
+       (each step's logit gap printed);
+     - H1: danube through a ServeEngine of 32 slots x 8,192 positions
+       (KV ~16.1 GB): 4 requests with 6,000-token prompts (past the 4,096
+       window) and 64 with serve_lm's 3-15 token prompts, 16 new tokens
+       each; ms per tick (CUDA events, median over the ticks with all 32
+       slots busy) against the bytes bound (bf16 weights but the embedding
+       + both whole caches, over 3.35 TB/s), prefill ms per request, tok/s,
+       padding ids emitted; the same engine eagerly (no CUDA graph) with a
+       profile by operator; gate 2: the first decode step of a short and a
+       long prompt against a float64 forward within LOGIT_GAP_BF16 of max
+       |logit|; batched vs solo (printed); a 3-tick profile; peak memory;
+     - H3: one transformer.prefill of 32,768 tokens on danube: ms, peak;
+     - H2: granite-moe-3b-a800m at 32 x 4,096 (KV ~8.6 GB), the short
+       requests: the same numbers, MoE assignments dropped per tick, its
+       prefill and first decode step against float64 (printed);
+     - H4: the launcher, `--arch h2o-danube-1.8b` at full width;
+     gate 3 throughout: every request ends with its budget (or at
+     max_len) and every logit is finite.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -2468,6 +2491,432 @@ def phase_slice_g(chunglu) -> dict:
     return {"steps": steps, "flow": flow, "launches": flow["launches"]}
 
 
+# ---------------------------------------------------------------- slice H --
+H_DEVICE = "cuda"      # a CPU rehearsal at smoke widths patches this
+H_BATCH = 32           # engine slots for H1 and H2
+H1_LEN = 8_192         # danube's positions per slot (KV ~16.1 GB)
+H2_LEN = 4_096         # granite's (KV ~8.6 GB)
+H_SHORT = 64           # requests with serve_lm's 3-15 token prompts
+H1_LONG = 4            # danube requests whose prompts pass the 4,096 window
+H1_LONG_LEN = 6_000
+H_NEW = 16             # max_new_tokens per request
+H3_SEQ = 32_768        # prefill_32k's sequence length
+BF16_U = 2.0 ** -8     # bf16's unit roundoff (8-bit significand)
+# bf16 engine logits vs a float64 forward, as a share of max |logit|
+# (PERF.md §6, PR 18: sqrt(N_r) * u * rms/max, times a margin, capped at
+# 5e-2)
+LOGIT_GAP_BF16 = 5e-2
+
+
+def lm_requests(vocab: int, count: int, seed: int, max_new: int,
+                first_rid: int = 0, length: int | None = None) -> list:
+    """serve_lm's requests: prompts of 3-15 tokens (or `length` tokens)
+    drawn from np.random.default_rng(seed)."""
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        s = length or int(rng.integers(3, 16))
+        out.append(Request(rid=first_rid + i,
+                           prompt=rng.integers(0, vocab, s).astype(np.int32),
+                           max_new_tokens=max_new))
+    return out
+
+
+def lm_drain(eng, reqs) -> dict:
+    """run_until_drained's loop with timing: host ms per submit (prefill
+    to the first token, which the host reads), CUDA-event ms per tick and
+    whether every slot was busy, the drain's wall time, and whether every
+    logit was finite (accumulated on the device, read once)."""
+    import torch
+    pending = list(reqs)
+    prefill_ms, tick_ms, full = {}, [], []
+    finite = torch.ones((), dtype=torch.bool, device=eng.device)
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    while pending or eng.active():
+        while pending:
+            s0 = time.perf_counter()
+            if not eng.submit(pending[0]):
+                break
+            prefill_ms[pending.pop(0).rid] = (time.perf_counter() - s0) * 1e3
+            finite &= torch.isfinite(eng.last_prefill_logits).all()
+        full.append(eng.active() == eng.max_batch)
+        ev0.record()
+        eng.tick()
+        ev1.record()
+        ev1.synchronize()
+        tick_ms.append(ev0.elapsed_time(ev1))
+        finite &= torch.isfinite(eng.last_logits).all()
+    wall = time.perf_counter() - t0
+    return {"prefill_ms": prefill_ms, "tick_ms": tick_ms, "full": full,
+            "wall_s": wall, "finite": bool(finite)}
+
+
+def check_finished(reqs, max_len: int, label: str) -> None:
+    for r in reqs:
+        check(r.done and (len(r.out_tokens) >= r.max_new_tokens
+                          or len(r.prompt) + len(r.out_tokens) >= max_len),
+              f"{label}: request {r.rid} ended with {len(r.out_tokens)} "
+              f"tokens (prompt {len(r.prompt)}, max_new_tokens "
+              f"{r.max_new_tokens}, done {r.done})")
+
+
+def tick_bound(eng) -> dict:
+    """A decode tick's least bytes: every compute-dtype weight but the
+    embedding table (its B rows are gathered) read once, and both whole
+    [L, B, max_len] caches, which decode_attention reads in full whatever
+    the lengths; over the HBM rate."""
+    from torch.utils import _pytree as pytree
+    w = sum(t.numel() * t.element_size()
+            for k, t in pytree.tree_flatten_with_path(eng.params)[0]
+            if "embed" not in str(k[0]))
+    kv = sum(t.numel() * t.element_size() for t in eng.kv)
+    return {"weight_bytes": w, "kv_bytes": kv,
+            "ms": (w + kv) / HBM_BYTES_PER_S * 1e3}
+
+
+def lm_report(label: str, cfg, eng, reqs, run: dict, bound: dict) -> dict:
+    """Log and return the drain's numbers: ms per tick (median over the
+    ticks with every slot busy) against the bytes bound, prefill ms by
+    prompt length, tok/s, padding ids emitted."""
+    full_ms = [t for t, f in zip(run["tick_ms"], run["full"]) if f]
+    check(full_ms, f"{label}: no tick ran with all {eng.max_batch} slots "
+          "busy")
+    tick = float(np.median(full_ms))
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    short = [ms for r in reqs if len(r.prompt) < 16
+             for ms in [run["prefill_ms"][r.rid]]]
+    long_ = [run["prefill_ms"][r.rid] for r in reqs if len(r.prompt) >= 16]
+    pad = sum(t >= cfg.vocab for r in reqs for t in r.out_tokens)
+    log(f"{label}: {len(reqs)} requests, {tokens} tokens in "
+        f"{run['wall_s']:.3f} s ({tokens / run['wall_s']:.1f} tok/s), "
+        f"{len(run['tick_ms'])} ticks ({len(full_ms)} with all "
+        f"{eng.max_batch} slots busy: median {tick:.3f} ms, range "
+        f"{min(full_ms):.3f}-{max(full_ms):.3f} ms; CUDA events); bytes "
+        f"bound {bound['ms']:.3f} ms ({bound['weight_bytes']:,} B of "
+        f"weights + {bound['kv_bytes']:,} B of KV at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s): tick at "
+        f"{bound['ms'] / tick:.1%} of the bound")
+    log(f"{label}: prefill ms (host clock, submit to first token): short "
+        f"prompts median {np.median(short):.3f} (range {min(short):.3f}-"
+        f"{max(short):.3f}, {len(short)} requests)"
+        + (f"; {H1_LONG_LEN}-token prompts "
+           f"{', '.join(f'{x:.3f}' for x in long_)}" if long_ else "")
+        + f"; padding ids emitted {pad} of {tokens} tokens")
+    return {"tick_ms": tick, "tick_range": [min(full_ms), max(full_ms)],
+            "ticks": len(run["tick_ms"]), "full_ticks": len(full_ms),
+            "bound_ms": bound["ms"], "tok_s": tokens / run["wall_s"],
+            "tokens": tokens, "prefill_short_ms": float(np.median(short)),
+            "prefill_long_ms": long_, "padding_ids": int(pad)}
+
+
+def f64_logit_gap(params32, cfg, tokens, logits) -> dict:
+    """Engine logits (bf16) against the last position of a float64 forward
+    over `tokens` with the same parameters: max abs gap and its share of
+    max |logit|."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    dev = torch.device(H_DEVICE)
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+    toks = torch.tensor(np.asarray(tokens)[None, :], device=dev)
+    ref = tf.forward(params32, toks.long(), cfg64)[0][0, -1]
+    gap = (logits.double() - ref).abs().max().item()
+    top = ref.abs().max().item()
+    return {"max_abs": gap, "max_rel": gap / top, "max_logit": top,
+            "argmax_equal": int(logits.argmax()) == int(ref.argmax())}
+
+
+def gate_f32_engine(params32, cfg) -> dict:
+    """Gate 1: with compute_dtype float32 (TF32 off) one request's engine
+    tokens equal a naive greedy decode by repeated full forwards, and each
+    step's engine logits beside the forward's last-position logits."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServeEngine
+    dev = torch.device(H_DEVICE)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    eng = ServeEngine(params32, cfg32, max_batch=2, max_len=64, device=dev)
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab, 7).astype(
+        np.int32)
+    req = Request(rid=0, prompt=prompt, max_new_tokens=6)
+    check(eng.submit(req), "gate 1: submit failed")
+    steps = [eng.last_prefill_logits[0].clone()]
+    while eng.active():
+        eng.tick()
+        steps.append(eng.last_logits[0].clone())
+    toks, gaps = list(prompt), []
+    for j, tok in enumerate(req.out_tokens):
+        ref = tf.forward(params32, torch.tensor([toks], device=dev), cfg32)[
+            0][0, -1]
+        ref_tok = int(ref.argmax())
+        gap = (steps[j] - ref).abs().max().item()
+        gaps.append((gap, gap / ref.abs().max().item()))
+        check(ref_tok == tok, f"gate 1: step {j} engine token {tok} != "
+              f"naive greedy {ref_tok} (logit gap {gap:.3e})")
+        toks.append(ref_tok)
+    log(f"H gate 1 (f32, TF32 off, max_batch 2, max_len 64): engine tokens "
+        f"{req.out_tokens} == naive greedy; per step max abs / rel logit "
+        f"gap: {', '.join(f'{a:.2e}/{r:.2e}' for a, r in gaps)}")
+    del eng
+    return {"tokens": req.out_tokens, "gaps": gaps}
+
+
+def profile_ticks(eng, cfg, label: str) -> dict:
+    """torch.profiler over 3 decode ticks with every slot busy (fresh
+    requests with room to decode)."""
+    for r in lm_requests(cfg.vocab, eng.max_batch, seed=99, max_new=8,
+                         first_rid=10_000):
+        check(eng.submit(r), f"{label}: profile submit failed")
+    return profile_device(lambda: [eng.tick() for _ in range(3)],
+                          f"3 {label} decode ticks", by_op=True)
+
+
+def eager_compare(eng, cfg, graph_reqs, label: str) -> dict:
+    """The same engine run eagerly (no CUDA graph) on the same weights
+    with its own cache: 32 of the short requests drained, the median full
+    tick against the graph's, their tokens against the graph run's
+    (printed: their batch mates differ), and a 3-tick profile by operator
+    (a graph replay hides which operator launched a kernel)."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    eager = ServeEngine(eng.params, cfg, eng.max_batch, eng.max_len,
+                        device=eng.device)
+    eager.cuda_graph = False
+    reqs = lm_requests(cfg.vocab, eng.max_batch, seed=0, max_new=H_NEW)
+    run = lm_drain(eager, reqs)
+    full = [t for t, f in zip(run["tick_ms"], run["full"]) if f]
+    same = sum(a.out_tokens == b.out_tokens for a, b in zip(reqs, graph_reqs))
+    log(f"{label} eager (no CUDA graph): median tick "
+        f"{np.median(full):.3f} ms over {len(full)} full ticks; {same} of "
+        f"{len(reqs)} requests' tokens equal to the graph run's (their batch "
+        "mates differ; printed)")
+    prof = profile_ticks(eager, cfg, f"{label} eager")
+    del eager
+    torch.cuda.empty_cache()
+    return {"tick_ms": float(np.median(full)), "same_tokens": same,
+            "profile": prof}
+
+
+def phase_slice_h1(cfg, params32) -> dict:
+    """H1: danube at full width through a ServeEngine of 32 slots x 8,192
+    positions: the short and long requests, then the bf16-vs-float64 gate
+    on a short and a long prompt, batched vs solo, a 3-tick profile."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine
+    dev = torch.device(H_DEVICE)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServeEngine(params32, cfg, H_BATCH, H1_LEN, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reqs = (lm_requests(cfg.vocab, H1_LONG, seed=1, max_new=H_NEW,
+                        first_rid=1_000, length=H1_LONG_LEN)
+            + lm_requests(cfg.vocab, H_SHORT, seed=0, max_new=H_NEW))
+    run = lm_drain(eng, reqs)
+    check(run["finite"], "H1: a logit is not finite")
+    check_finished(reqs, H1_LEN, "H1")
+    out = lm_report("H1 h2o-danube-1.8b", cfg, eng, reqs, run,
+                    tick_bound(eng))
+    out["build_s"] = build_s
+    out["eager"] = eager_compare(eng, cfg, reqs[H1_LONG:], "H1 danube")
+    # gate 2: the first decode step of a short and a long prompt
+    gates = {}
+    for name, r in (("short", lm_requests(cfg.vocab, 1, 5, 1, 2_000)[0]),
+                    ("long", lm_requests(cfg.vocab, 1, 6, 1, 2_001,
+                                         length=H1_LONG_LEN)[0])):
+        check(eng.submit(r), "gate 2: submit failed")
+        slot = eng.slot_req.index(r)
+        eng.tick()
+        logits = eng.last_logits[slot].clone()
+        gates[name] = f64_logit_gap(params32, cfg,
+                                    np.append(r.prompt, r.out_tokens[0]),
+                                    logits)
+        g = gates[name]
+        log(f"H gate 2, {name} prompt ({len(r.prompt)} tokens): bf16 engine "
+            f"vs float64 forward max abs {g['max_abs']:.4e}, max rel to max "
+            f"|logit| ({g['max_logit']:.4f}) {g['max_rel']:.4e} (limit "
+            f"{LOGIT_GAP_BF16:g}); argmax equal {g['argmax_equal']}")
+        check(g["max_rel"] <= LOGIT_GAP_BF16,
+              f"gate 2: {name} prompt bf16 vs float64 {g['max_rel']:.4e}")
+        torch.cuda.empty_cache()
+    out["f64"] = gates
+    # batched vs solo (bf16; printed, not gated)
+    solo = lm_requests(cfg.vocab, H_SHORT, seed=0, max_new=H_NEW)[:2]
+    ServeEngine(eng.params, cfg, 1, H1_LEN, device=dev).run_until_drained(
+        solo)
+    agree = [sum(a == b for a, b in zip(s.out_tokens, r.out_tokens))
+             for s, r in zip(solo, reqs[H1_LONG:])]
+    log(f"H1 batched vs solo (bf16, printed): tokens equal {agree} of "
+        f"{[len(s.out_tokens) for s in solo]}")
+    out["solo_agree"] = agree
+    out["profile"] = profile_ticks(eng, cfg, "H1 danube")
+    out["peak"] = torch.cuda.max_memory_allocated()
+    log(f"H1 engine build {build_s:.2f} s; peak {out['peak']:,} bytes")
+    return out, eng.params
+
+
+def phase_slice_h3(cfg, params_c) -> dict:
+    """H3: one transformer.prefill of H3_SEQ tokens (batch 1, no pad_to)
+    on the engine's compute-dtype weights: ms (CUDA events, after a
+    2,048-token warm-up) and peak memory."""
+    import torch
+    from repro_torch.models import transformer as tf
+    dev = torch.device(H_DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab, (1, H3_SEQ), generator=gen,
+                         device=dev)
+    tf.prefill(params_c, toks[:, :2048], cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    logits, (k, v) = tf.prefill(params_c, toks, cfg)
+    ev1.record()
+    torch.cuda.synchronize()
+    ms = ev0.elapsed_time(ev1)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(logits).all()), "H3: a logit is not finite")
+    check(tuple(k.shape) == (cfg.n_layers, 1, H3_SEQ, cfg.n_kv_heads,
+                             cfg.head_dim), f"H3: KV shape {tuple(k.shape)}")
+    from repro_torch.configs.lm_common import lm_attn_flops
+    flops = 2.0 * cfg.n_active_params() * H3_SEQ + lm_attn_flops(
+        cfg, 1, H3_SEQ)
+    log(f"H3 prefill of {H3_SEQ:,} tokens (danube, {cfg.compute_dtype}): "
+        f"{ms:.3f} ms (CUDA events), {flops / ms / 1e9:.2f} TFLOP/s of "
+        f"model flops, KV {2 * k.numel() * k.element_size():,} bytes, peak "
+        f"{peak:,} bytes")
+    del logits, k, v
+    torch.cuda.empty_cache()
+    return {"ms": ms, "peak": peak, "seq": H3_SEQ}
+
+
+def phase_slice_h2() -> dict:
+    """H2: granite-moe-3b-a800m at full width through a ServeEngine of 32
+    slots x 4,096 positions: the short requests, dropped assignments per
+    tick, a prompt's prefill and first decode step vs float64 (printed:
+    bf16 and float64 may route a token to different experts, and the
+    decode step's MoE routes all 32 slots' tokens where the forward
+    routes the prompt's, so their capacities differ), a 3-tick profile."""
+    import torch
+    from repro_torch.configs import granite_moe_3b
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine
+    dev = torch.device(H_DEVICE)
+    cfg = granite_moe_3b.full_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params32 = tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+    eng = ServeEngine(params32, cfg, H_BATCH, H2_LEN, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    reqs = lm_requests(cfg.vocab, H_SHORT, seed=0, max_new=H_NEW)
+    run = lm_drain(eng, reqs)
+    check(run["finite"], "H2: a logit is not finite")
+    check_finished(reqs, H2_LEN, "H2")
+    out = lm_report("H2 granite-moe-3b-a800m", cfg, eng, reqs, run,
+                    tick_bound(eng))
+    dropped = int(eng.stats["dropped"])
+    per_tick = dropped / eng.stats["ticks"]
+    assigned = cfg.n_layers * H_BATCH * cfg.moe.top_k
+    log(f"H2 MoE capacity drops: {dropped} assignments over "
+        f"{eng.stats['ticks']} ticks, {per_tick:.1f} per tick of {assigned} "
+        f"({cfg.n_layers} layers x {H_BATCH} tokens x top-{cfg.moe.top_k}; "
+        f"capacity {int(1.25 * H_BATCH * cfg.moe.top_k / cfg.moe.n_experts)}"
+        f" -> 8 per expert)")
+    out.update(build_s=build_s, dropped_per_tick=per_tick)
+    r = lm_requests(cfg.vocab, 1, 5, 1, 2_000)[0]
+    check(eng.submit(r), "H2: submit failed")
+    pre = eng.last_prefill_logits[0].clone()
+    slot = eng.slot_req.index(r)
+    eng.tick()
+    out["f64"] = {}
+    for name, toks, logits in (
+            ("prefill", r.prompt, pre),
+            ("first decode step", np.append(r.prompt, r.out_tokens[0]),
+             eng.last_logits[slot].clone())):
+        g = out["f64"][name] = f64_logit_gap(params32, cfg, toks, logits)
+        log(f"H2 {name} ({len(r.prompt)}-token prompt) vs float64 forward "
+            f"(printed, not gated): max abs {g['max_abs']:.4e}, rel to max "
+            f"|logit| {g['max_rel']:.4e}; argmax equal {g['argmax_equal']}")
+    del params32
+    torch.cuda.empty_cache()
+    out["profile"] = profile_ticks(eng, cfg, "H2 granite")
+    out["eager"] = eager_compare(eng, cfg, reqs, "H2 granite")
+    out["peak"] = torch.cuda.max_memory_allocated()
+    log(f"H2 engine build {build_s:.2f} s; peak {out['peak']:,} bytes")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_h4() -> dict:
+    """H4: the launcher, `--arch h2o-danube-1.8b` at full width."""
+    import torch
+    from repro_torch.launch import serve as launch_serve
+    argv = ["--arch", "h2o-danube-1.8b", "--requests", "8", "--max-batch",
+            "4", "--max-len", "64", "--max-new-tokens", "8"]
+    if H_DEVICE != "cuda":
+        argv += ["--device", H_DEVICE]
+    out = launch_serve.main(argv)
+    reqs = out.pop("requests_done")
+    eng = out.pop("engine")
+    check_finished(reqs, 64, "H4")
+    check(bool(torch.isfinite(eng.last_logits).all()),
+          "H4: a logit is not finite")
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_h() -> dict:
+    """Slice H, the LM serve path (no kernel of its own: the reference's
+    attention and MoE dispatch are XLA ops). Danube's gates and H1-H3 on
+    one set of f32 weights, then granite (H2) and the launcher (H4)."""
+    import torch
+    from repro_torch.configs import h2o_danube_1_8b
+    from repro_torch.models import transformer as tf
+    dev = torch.device(H_DEVICE)
+    t0 = time.perf_counter()
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    # f32 accumulation throughout, as the reference's dots accumulate
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    reset_counts()
+    try:
+        cfg = h2o_danube_1_8b.full_config()
+        params32 = tf.init_params(
+            torch.Generator(device=dev).manual_seed(0), cfg)
+        log(f"H danube: {cfg.n_params():,} params (f32 "
+            f"{4 * cfg.n_params():,} bytes), TF32 "
+            f"{torch.backends.cuda.matmul.allow_tf32}")
+        g1 = gate_f32_engine(params32, cfg)
+        h1, params_c = phase_slice_h1(cfg, params32)
+        del params32
+        h3 = phase_slice_h3(cfg, params_c)
+        del params_c
+        torch.cuda.empty_cache()
+        h2 = phase_slice_h2()
+        h4 = phase_slice_h4()
+    finally:
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = prev
+    launches = read_counts()
+    log(f"slice H kernel launches (no kernel on this path): bsr_spmm "
+        f"{launches['bsr_spmm']}, cheb_step {launches['cheb_step']}, "
+        f"embedding_bag {launches['embedding_bag']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"gate1": g1, "h1": h1, "h2": h2, "h3": h3, "h4": h4,
+            "launches": launches}
+
+
 def profile_device(fn, label: str, by_op: bool = False) -> dict:
     """Device-time breakdown of one call of `fn` (torch.profiler, after one
     warm call): the kernels by device time and the device's idle share of
@@ -2579,6 +3028,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     g = phase_slice_g(e_graphs["chunglu"])["launches"]
     del e_graphs
+    torch.cuda.empty_cache()
+    h = phase_slice_h()["launches"]
+    check(h["bsr_spmm"] == h["cheb_step"] == h["embedding_bag"] == 0,
+          f"slice H launched a kernel off its path: {h}")
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
@@ -2593,7 +3046,8 @@ def main() -> int:
                               "slice_b": b["launches"]["bsr_spmm"],
                               "slice_d": d["bsr_spmm"],
                               "slice_e": e["bsr_spmm"],
-                              "slice_g": g["bsr_spmm"]},
+                              "slice_g": g["bsr_spmm"],
+                              "slice_h": h["bsr_spmm"]},
          "launches_by_variant": {
              k: a["launches"]["bsr_spmm_variants"][k]
              + b["launches"]["bsr_spmm_variants"][k]
@@ -2615,7 +3069,8 @@ def main() -> int:
                               "slice_b": b["launches"]["cheb_step"],
                               "slice_d": d["cheb_step"],
                               "slice_e": e["cheb_step"],
-                              "slice_g": g["cheb_step"]},
+                              "slice_g": g["cheb_step"],
+                              "slice_h": h["cheb_step"]},
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},
@@ -2625,7 +3080,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:40",
          "launches": c["launches"]["embedding_bag"] + g["embedding_bag"],
          "launches_by_path": {"slice_c": c["launches"]["embedding_bag"],
-                              "slice_g": g["embedding_bag"]},
+                              "slice_g": g["embedding_bag"],
+                              "slice_h": h["embedding_bag"]},
          "max_abs_err": c["err"],
          "ms": c["eb"]["ms"], "plain_ms": c["eb"]["plain_ms"],
          "bound_ms": eb_b, "bound_by": eb_by,

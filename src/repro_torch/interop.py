@@ -16,7 +16,9 @@ edge weights and coefficients run through both packages.
   * a `ChebSchedule`'s coefficient vector;
   * DLRM parameters ({"table", "bot": [{"w", "b"}], "top": [...]});
   * GNN parameters (any tree of dicts and lists of arrays, the layer
-    stacks `layers` / `blocks` included).
+    stacks `layers` / `blocks` included);
+  * LM parameters (the transformer's tree, stacked on a leading [L] axis,
+    MoE experts included).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.graph.ops import DeviceGraph, as_torch_dtype
 __all__ = ["block_ell_engine", "coo_engine", "hub_tail_engine",
            "sharded_1d_engine", "sharded_2d_engine",
            "device_graph_from_arrays", "coeffs_tensor", "dlrm_params",
-           "gnn_params"]
+           "gnn_params", "lm_params"]
 
 
 def _tensor(a, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -176,4 +178,23 @@ def gnn_params(params, device=None):
         if isinstance(node, (list, tuple)):
             return [conv(v) for v in node]
         return _tensor(node, torch.float32, dev).requires_grad_(True)
+    return conv(params)
+
+
+def lm_params(params, device=None) -> dict:
+    """A reference transformer parameter tree (`init_params`: dicts with
+    numpy leaves stacked on a leading [L] axis, the MoE router and experts
+    included) as the port's: the same tree of tensors on `device` (None =
+    cuda), each in its own float width (float32 stays float32, bfloat16
+    leaves become torch.bfloat16). The layouts are the same."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        a = np.asarray(node)
+        if a.dtype.name == "bfloat16":
+            return _tensor(a.astype(np.float32), torch.float32,
+                           dev).to(torch.bfloat16)
+        return torch.tensor(np.ascontiguousarray(a), device=dev)
     return conv(params)

@@ -1,4 +1,9 @@
-"""Serving launcher for the port's online Personalized-PageRank service.
+"""Serving launcher of the port: batched greedy decoding for the LM
+archs, or the online Personalized-PageRank service.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \
+        --smoke --requests 8 [--max-batch N] [--max-len L] \
+        [--max-new-tokens T] [--device cuda|cpu]
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch pagerank-serve \
         --smoke --requests 64 --updates 2 [--max-batch N] [--engine MODE] \
@@ -10,11 +15,19 @@
     torchrun --nproc-per-node N -m repro_torch.launch.serve \
         --arch pagerank-serve --smoke --engine sharded-2d --mesh-grid RxC
 
-Builds the service from `configs/pagerank_serve.py`, submits seeded
-queries, drains them, applies `--updates` single-edge insert batches
-(alternating over the graphs), submits about 10% of the queries again and
-drains, then prints the per-graph engine, the rounds used against the
-Formula 8 bound, the service counters and the metrics summary. With
+An LM arch (h2o-danube-1.8b, granite-moe-3b-a800m, deepseek-7b,
+qwen2.5-32b, qwen3-moe-235b-a22b) builds random weights from generator
+seed 0 (`--smoke`: the arch's reduced config), a `ServeEngine` of
+`--max-batch` slots (default 4) of `--max-len` positions, and drains
+`--requests` requests with prompts of 3-15 seeded tokens, then prints
+the requests, tokens, seconds and tokens per second.
+
+For pagerank-serve it builds the service from
+`configs/pagerank_serve.py`, submits seeded queries, drains them, applies
+`--updates` single-edge insert batches (alternating over the graphs),
+submits about 10% of the queries again and drains, then prints the
+per-graph engine, the rounds used against the Formula 8 bound, the
+service counters and the metrics summary. With
 `--metrics-json` the final snapshot is written and validated (an invalid
 one exits non-zero); `--metrics-port` serves /metrics and /metrics.json
 while the workload runs; `--profile-dir` wraps the workload in the
@@ -38,10 +51,14 @@ from dataclasses import replace
 import numpy as np
 import torch.distributed as dist
 
-from repro_torch.configs import pagerank_serve
+from repro_torch.configs import (deepseek_7b, granite_moe_3b,
+                                 h2o_danube_1_8b, pagerank_serve,
+                                 qwen2_5_32b, qwen3_moe_235b)
 from repro_torch.core.distributed import init_process_group, rank
 
-ARCHS = {pagerank_serve.NAME: pagerank_serve}
+ARCHS = {m.NAME: m for m in (pagerank_serve, h2o_danube_1_8b,
+                             granite_moe_3b, deepseek_7b, qwen2_5_32b,
+                             qwen3_moe_235b)}
 
 
 def _parse_tenants(specs) -> tuple:
@@ -103,6 +120,39 @@ def _config(mod, args):
             raise SystemExit(f"--mesh-grid {args.mesh_grid!r}: expected RxC")
         cfg = replace(cfg, mesh_grid=(int(r), int(c)))
     return cfg
+
+
+def serve_lm(mod, args) -> dict:
+    """Seeded requests through a ServeEngine over random weights, drained;
+    returns {"requests", "tokens", "seconds", "tok_s", "engine",
+    "requests_done"}."""
+    import torch
+
+    from repro_torch.device import resolve_device
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    dev = resolve_device(args.device)
+    cfg = mod.smoke_config() if args.smoke else mod.full_config()
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    engine = ServeEngine(params, cfg, args.max_batch or 4, args.max_len,
+                         device=dev)
+    del params       # the engine holds its compute-dtype copy
+    rng = np.random.default_rng(0)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab,
+                                        int(rng.integers(3, 16))).astype(
+                                            np.int32),
+                    max_new_tokens=args.max_new_tokens)
+            for i in range(args.requests)]
+    t0 = time.perf_counter()
+    engine.run_until_drained(reqs)
+    dt = time.perf_counter() - t0
+    total = sum(len(r.out_tokens) for r in reqs)
+    print(f"served {len(reqs)} requests, {total} tokens in {dt:.2f}s "
+          f"({total / dt:.1f} tok/s) on {dev}")
+    return {"requests": len(reqs), "tokens": total, "seconds": dt,
+            "tok_s": total / dt, "engine": engine, "requests_done": reqs}
 
 
 def serve_pagerank(mod, args) -> dict:
@@ -214,7 +264,12 @@ def main(argv=None):
     ap.add_argument("--updates", type=int, default=0,
                     help="edge-update batches between the two drains")
     ap.add_argument("--max-batch", type=int, default=None,
-                    help="micro-batch width override (default from config)")
+                    help="LM: engine slots (default 4); pagerank: "
+                         "micro-batch width override (default from config)")
+    ap.add_argument("--max-len", type=int, default=64,
+                    help="LM: positions per engine slot")
+    ap.add_argument("--max-new-tokens", type=int, default=8,
+                    help="LM: tokens decoded per request")
     ap.add_argument("--engine", default=None,
                     choices=["auto", "tuned", "coo", "hub-tail", "block_ell",
                              "fused", "sharded-1d", "sharded-2d"],
@@ -286,15 +341,19 @@ def main(argv=None):
                     help="wrap the workload in torch.profiler and write a "
                          "Chrome trace to DIR")
     ap.add_argument("--device", default=None,
-                    help="torch device for graphs and solves (default cuda)")
+                    help="torch device for weights, graphs and solves "
+                         "(default cuda)")
     args = ap.parse_args(argv)
+    mod = ARCHS[args.arch]
+    if getattr(mod, "FAMILY", None) == "lm":
+        return serve_lm(mod, args)
     started = False
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
             not dist.is_initialized():
         init_process_group(args.device)   # torchrun: one process per rank
         started = True
     try:
-        return serve_pagerank(ARCHS[args.arch], args)
+        return serve_pagerank(mod, args)
     finally:
         if started:
             dist.destroy_process_group()

@@ -526,3 +526,51 @@ class TestGnnOnCard:
         assert np.isfinite(out["losses"]).all()
         assert train_gnn.tree_max_gap(out["reference"][0], rp) == 0.0
         assert torch.equal(out["reference"][1]["loss"], rm["loss"])
+
+
+@pytest.mark.gpu
+class TestLmOnCard:
+    """The LM serve path on the card at danube's smoke widths: the f32
+    engine (TF32 off) against naive greedy decoding by full forwards, and
+    the KV cache written in place."""
+
+    def _lm(self, cuda):
+        from repro_torch.configs import h2o_danube_1_8b
+        from repro_torch.models import transformer as tf
+        cfg = h2o_danube_1_8b.smoke_config()
+        params = tf.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                cfg)
+        return cfg, params
+
+    def test_engine_matches_naive_greedy_f32(self, cuda):
+        from repro_torch.models import transformer as tf
+        from repro_torch.serve.engine import Request, ServeEngine
+        cfg, params = self._lm(cuda)
+        prompt = np.array([3, 7, 1, 9, 4], np.int32)
+        req = Request(rid=0, prompt=prompt, max_new_tokens=6)
+        ServeEngine(params, cfg, max_batch=4, max_len=32,
+                    device=cuda).run_until_drained([req])
+        assert req.done and len(req.out_tokens) >= 6
+        toks, ref = list(prompt), []
+        for _ in range(len(req.out_tokens)):
+            logits, _ = tf.forward(params, torch.tensor([toks], device=cuda),
+                                   cfg)
+            ref.append(int(logits[0, -1].argmax()))
+            toks.append(ref[-1])
+        assert req.out_tokens == ref
+
+    def test_kv_cache_updated_in_place(self, cuda):
+        from repro_torch.serve.engine import Request, ServeEngine
+        cfg, params = self._lm(cuda)
+        eng = ServeEngine(params, cfg, max_batch=2, max_len=32, device=cuda)
+        ptrs = [t.data_ptr() for t in eng.kv]
+        reqs = [Request(rid=i, prompt=np.arange(3 + i, dtype=np.int32),
+                        max_new_tokens=5) for i in range(3)]
+        pending = list(reqs)
+        while pending or eng.active():
+            while pending and eng.submit(pending[0]):
+                pending.pop(0)
+            eng.tick()
+            assert [t.data_ptr() for t in eng.kv] == ptrs
+        assert all(r.done for r in reqs)
+        assert eng.stats["ticks"] > 0

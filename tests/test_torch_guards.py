@@ -69,7 +69,14 @@ def test_fresh_import_leaves_jax_and_reference_out():
             "repro_torch.train.checkpoint, repro_torch.configs.gnn_common, "
             "repro_torch.configs.meshgraphnet, repro_torch.configs.pna, "
             "repro_torch.configs.dimenet, repro_torch.configs.graphcast, "
-            "repro_torch.launch.train_gnn\n"
+            "repro_torch.launch.train_gnn, repro_torch.models.moe, "
+            "repro_torch.models.transformer, repro_torch.serve.engine, "
+            "repro_torch.configs.lm_common, "
+            "repro_torch.configs.h2o_danube_1_8b, "
+            "repro_torch.configs.granite_moe_3b, "
+            "repro_torch.configs.deepseek_7b, "
+            "repro_torch.configs.qwen2_5_32b, "
+            "repro_torch.configs.qwen3_moe_235b\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"
@@ -230,6 +237,43 @@ class TestDefaultDeviceIsCuda:
                    lambda: interop.gnn_params({"w": np.ones(2)})):
             with pytest.raises(RuntimeError, match="CUDA"):
                 fn()
+
+    def test_lm_entry_points(self, no_gpu):
+        import numpy as np
+        from repro_torch import interop
+        from repro_torch.configs import h2o_danube_1_8b
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as tf
+        from repro_torch.serve.engine import ServeEngine
+        cfg = h2o_danube_1_8b.smoke_config()
+        params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+        for fn in (lambda: ServeEngine(params, cfg, 2, 16),
+                   lambda: tf.make_kv_cache(cfg, 2, 16),
+                   lambda: interop.lm_params({"w": np.ones(2, np.float32)}),
+                   lambda: serve.main(["--arch", "h2o-danube-1.8b",
+                                       "--smoke", "--requests", "1"])):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                fn()
+
+    def test_explicit_cpu_lm_still_runs(self, no_gpu):
+        import numpy as np
+        from repro_torch import interop
+        from repro_torch.configs import granite_moe_3b
+        from repro_torch.launch import serve
+        from repro_torch.models import transformer as tf
+        from repro_torch.serve.engine import Request, ServeEngine
+        cfg = granite_moe_3b.smoke_config()
+        params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+        eng = ServeEngine(params, cfg, 2, 16, device="cpu")
+        req = Request(rid=0, prompt=np.arange(4, dtype=np.int32),
+                      max_new_tokens=2)
+        eng.run_until_drained([req])
+        assert req.done and eng.kv[0].device.type == "cpu"
+        w = interop.lm_params({"w": np.ones(2, np.float32)}, device="cpu")
+        assert w["w"].device.type == "cpu"
+        out = serve.main(["--arch", "granite-moe-3b-a800m", "--smoke",
+                          "--requests", "1", "--device", "cpu"])
+        assert out["requests"] == 1
 
     def test_explicit_cpu_still_runs(self, no_gpu):
         from repro_torch.core.pagerank import cpaa
