@@ -17,8 +17,13 @@ package. Phases, each of which must pass:
      (rtol/atol 1e-5; FFMA at BT = 1, 3xTF32 wgmma from 2 on), both
      variants on an x of magnitude 1e-6..1e2 with random signs, held to
      plain at 1e-5 and beside a float64 product, the host cost of one
-     bsr_spmm call, and cheb_step on [n] and [n, B] at ragged sizes
-     (rtol 1e-6);
+     bsr_spmm call, cheb_step on [n] and [n, B] at ragged sizes
+     (rtol 1e-6), and embedding_bag's backward kernel at DLRM-RM2
+     train_batch's shapes (recsys_batch ids at B = 65,536, the dense
+     [33.7M, 64] gradient) against a float64 and the plain f32
+     index_add_ (1e-4 of sum |terms| per element), untouched rows zero, a
+     second launch bitwise; its time beside its bound, index_add_ and the
+     dense zero fill;
   3. slice A: the PPR service at `full_config()` with engine "auto"
      (naca must land on the fused block-ELL engine, kmer on COO), 256
      seeded queries + 10% repeats, answers checked against a float64
@@ -149,6 +154,28 @@ package. Phases, each of which must pass:
      - H4: the launcher, `--arch h2o-danube-1.8b` at full width;
      gate 3 throughout: every request ends with its budget (or at
      max_len) and every logit is finite.
+ 11. slice I, training on the card (bf16 compute, TF32 off, random
+     weights from generator seed 0):
+     - I1: h2o-danube-1.8b at full width, make_train_step(loss_fn,
+       AdamWConfig(lr=I_LR), 8 microbatches, donated) on token_batch at
+       8 x 1 x 4,096 (the published global batch of 256 cut to 8): a
+       warm-up and 3 timed steps on 2 cycled batches (the loss falls),
+       TFLOP/s of lm_train_flops against the bf16 dense peak, peak
+       memory, a profile by operator of one step of one microbatch and
+       the device's idle share estimated from it; gate I-b: the state cloned, one step,
+       restored and replayed bitwise with deterministic algorithms on
+       (the gap with atomics printed); gate I-a: one sequence of 512 with
+       compute float32 against float64 (loss rel <= 1e-4, grad norm rel
+       <= 1e-3; the bf16 loss printed);
+     - I3: the launcher at full width (3 steps of 2 x 4,096), then
+       --smoke --ckpt-dir twice (saves, resumes);
+     - I2: granite-moe-3b-a800m at full width, 4 x 1 x 4,096, the same
+       numbers and dropped MoE assignments per step, gate I-a;
+     - I4: DLRM-RM2 full_config() at train_batch (B = 65,536): 5 AdamW
+       steps (the loss falls), the first against a float64 step on the
+       card (loss rel <= 1e-4, grad norm rel <= 1e-3), both embedding_bag
+       counters equal to the steps, ms per step beside its bytes bound,
+       AdamW's share, peak memory.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -173,6 +200,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOP_PER_S = 67e12        # H100 SXM FP32, non-tensor (data sheet)
 TF32_FLOP_PER_S = 495e12       # H100 SXM TF32 tensor core, dense (data sheet)
 BSR_BTS = (1, 4, 8, 16, 32, 64, 128)   # widths held against plain
+
+
+CARD = "?"     # nvidia-smi's "name, power.limit" of the card (phase 1)
 
 
 class SmokeFailure(RuntimeError):
@@ -223,6 +253,7 @@ def read_counts() -> dict:
     from repro_torch.kernels.embedding_bag import ops as eb_ops
     return {"bsr_spmm": bsr_ops.launches(), "cheb_step": cheb_ops.launches(),
             "embedding_bag": eb_ops.launches(),
+            "embedding_bag_backward": eb_ops.backward_launches(),
             "bsr_spmm_variants": bsr_ops.launches_by_variant(),
             "applies": engine.apply_counts()}
 
@@ -237,7 +268,9 @@ def phase_device():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log(CARD)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
@@ -989,11 +1022,12 @@ def count_delta(before: dict, after: dict) -> dict:
 
 def add_counts(*parts) -> dict:
     """Sum of `read_counts()` results of several main paths."""
-    out = {"bsr_spmm": 0, "cheb_step": 0, "bsr_spmm_variants": {},
-           "applies": {}}
+    flat = ("bsr_spmm", "cheb_step", "embedding_bag",
+            "embedding_bag_backward")
+    out = dict.fromkeys(flat, 0) | {"bsr_spmm_variants": {}, "applies": {}}
     for c in parts:
-        out["bsr_spmm"] += c["bsr_spmm"]
-        out["cheb_step"] += c["cheb_step"]
+        for key in flat:
+            out[key] += c.get(key, 0)
         for key in ("bsr_spmm_variants", "applies"):
             for k, v in c[key].items():
                 out[key][k] = out[key].get(k, 0) + v
@@ -2917,17 +2951,607 @@ def phase_slice_h() -> dict:
             "launches": launches}
 
 
-def profile_device(fn, label: str, by_op: bool = False) -> dict:
+# ---------------------------------------------------------------- slice I --
+I_DEVICE = "cuda"      # a CPU rehearsal at smoke widths patches this
+I_DIR = ROOT / "build" / "chip_smoke_i"     # gitignored scratch of slice I
+I1_SEQ = 4_096         # train_4k's sequence length
+I1_MICRO = 8           # danube: 8 microbatches of 1 sequence (global 8)
+I2_MICRO = 4           # granite: 4 microbatches of 1 sequence (global 4)
+I2_LAYERS = None       # granite's depth (None: all 32)
+I_TIMED = 3            # timed steps after one warm-up, on 2 cycled batches
+I_LR = 3e-6            # AdamW lr of I1 / I2 (see lm_train_cell)
+I_GATE_SEQ = 512       # the f32 vs float64 gate: one sequence of 512
+I_REPLAY_MICRO = 2     # the replay gate: 2 microbatches of 1 x I1_SEQ
+I3_STEPS = 3           # the launcher at full width: 3 steps of 2 x I1_SEQ
+I4_BATCH = 65_536      # DLRM-RM2 train_batch
+I4_STEPS = 5
+I4_LR = 1e-3
+EB_BWD_TOL = 1e-4      # backward kernel vs float64, share of sum |terms|
+BF16_DENSE_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor core, dense
+
+
+def phase_backward_kernel() -> dict:
+    """Phase 2 for embedding_bag's backward kernel at DLRM-RM2 train_batch's
+    shapes: recsys_batch's power-law ids at B = 65,536 (26 bags of one row
+    each, 1,703,936 entries; RM2's tables of 3-27 rows take ~20,000 adds
+    per row), a random output gradient, the dense [33.7M, 64] gradient.
+    Held on the touched rows to a float64 index_add_ and to the plain f32
+    version, each within EB_BWD_TOL of sum |terms| per element (f32 sums
+    of up to ~22,000 terms in no common order: a typical gap is
+    ~sqrt(n) u ~ 9e-6 of it); untouched rows zero; a second launch
+    bitwise equal. Timed (CUDA events): the kernel on a zeroed gradient
+    (sort + two passes), the plain version, index_add_ on the same rows
+    (the library call) and the dense zero fill."""
+    import torch
+    from repro_torch.configs.dlrm_rm2 import full_config
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag.ref import \
+        embedding_bag_backward_ref
+    from repro_torch.train.data import RecsysPipelineConfig, recsys_batch
+    cfg = full_config()
+    batch = recsys_batch(RecsysPipelineConfig(
+        cfg.vocab_sizes, cfg.n_dense, cfg.bag_size, I4_BATCH), 0, "cuda")
+    ids = batch["sparse_ids"].reshape(-1, cfg.bag_size).contiguous()
+    del batch
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    g = torch.randn((ids.shape[0], cfg.embed_dim), generator=gen,
+                    device="cuda")
+    v, d, n = cfg.padded_rows, cfg.embed_dim, ids.numel()
+    grad = eb_ops.embedding_bag_backward(ids, g, v)
+    torch.cuda.synchronize()
+    uniq, inv = torch.unique(ids.reshape(-1), return_inverse=True)
+    n_rows = uniq.numel()
+    ids_u = inv.reshape(ids.shape).to(torch.int32)
+    hot = int(torch.bincount(inv).max())
+    got = grad[uniq.long()]
+    want = embedding_bag_backward_ref(ids_u, g.double(), n_rows)
+    mag = embedding_bag_backward_ref(ids_u, g.double().abs(), n_rows)
+    share = float(((got.double() - want).abs()
+                   / mag.clamp(min=1e-300)).max())
+    plain = embedding_bag_backward_ref(ids_u, g, n_rows)
+    share_plain = float(((got - plain).abs().double()
+                         / mag.clamp(min=1e-300)).max())
+    err = float((got.double() - want).abs().max())
+    del want, plain
+    grad[uniq.long()] = 0.0
+    untouched_zero = not bool(grad.any())
+    eb_ops._launch_backward(ids, g, grad, None)
+    again = bool(torch.equal(grad[uniq.long()], got))
+    log(f"[{CARD}] embedding_bag backward at train_batch (B={I4_BATCH:,} "
+        f"x 26 bags of 1 = {n:,} entries, D={d}, {n_rows:,} touched rows, "
+        f"hottest row {hot:,} adds): max |kernel - float64| {err:.3e}, "
+        f"{share:.3e} of sum |terms| (limit {EB_BWD_TOL:g}); vs plain f32 "
+        f"{share_plain:.3e}; untouched rows zero {untouched_zero}; second "
+        f"launch bitwise {again}")
+    check(share <= EB_BWD_TOL and share_plain <= EB_BWD_TOL,
+          f"embedding_bag backward: {share:.3e} / {share_plain:.3e} of sum "
+          f"|terms| (limit {EB_BWD_TOL})")
+    check(untouched_zero and again, "embedding_bag backward: an untouched "
+          "row is not zero or a second launch differs")
+    idx = ids.reshape(-1).long()
+    ms = time_ms(lambda: eb_ops._launch_backward(ids, g, grad, None), 20)
+    zero_ms = time_ms(lambda: grad.zero_(), 5)
+    lib_ms = time_ms(lambda: grad.index_add_(0, idx, g), 20)
+    del grad
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(lambda: embedding_bag_backward_ref(ids, g, v), 3)
+    # each input read once, each output written once: grad_out, ids and
+    # the touched rows (the kernel only stores them, into the zero fill
+    # timed apart; its sort's permutation is its own, not the function's)
+    bytes_ms = (4 * n * d + 4 * n + 4 * n_rows * d) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * n * d / FP32_FLOP_PER_S * 1e3
+    bnd = max(bytes_ms, ops_ms)
+    log(f"[{CARD}] embedding_bag backward: kernel {ms:.3f} ms per launch "
+        f"(sort + 2 passes), bound {bnd:.3f} ms (bytes: grad_out + ids + "
+        f"one write of each touched row; {bnd / ms:.0%} of it); "
+        f"plain {plain_ms:.3f} ms (zeros + index_add_); index_add_ on the "
+        f"same rows {lib_ms:.3f} ms; the dense zero fill of "
+        f"{4 * v * d:,} bytes {zero_ms:.3f} ms")
+    return {"err": err, "share": share, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "zero_ms": zero_ms, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "touched_rows": n_rows, "hot": hot}
+
+
+def loss_and_grad_norm(loss_fn, params, batch) -> tuple[float, float]:
+    """loss_fn(params, batch) and the global norm of its gradient (leaf
+    sums of squares added in tree order, as `global_norm`), each leaf's
+    gradient dropped as soon as its square sum is taken."""
+    import torch
+    from torch.utils import _pytree as pytree
+    leaves, spec = pytree.tree_flatten(params)
+    xs = [p.detach().requires_grad_(True) for p in leaves]
+    sq = [torch.zeros((), dtype=p.dtype, device=p.device) for p in xs]
+
+    def hook(i):
+        def take(x):
+            sq[i] = x.grad.square().sum()
+            x.grad = None
+        return take
+    hooks = [x.register_post_accumulate_grad_hook(hook(i))
+             for i, x in enumerate(xs)]
+    try:
+        loss = loss_fn(pytree.tree_unflatten(xs, spec), batch)
+        torch.autograd.backward(loss, inputs=xs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(loss.detach()), float(torch.sqrt(sum(sq)))
+
+
+def lm_f64_gate(label: str, cfg, params, dev) -> dict:
+    """Gate I-a: one step's loss and grad norm at one sequence of
+    I_GATE_SEQ tokens with compute_dtype float32 against float64 (the
+    same parameters widened), loss rel <= LOSS_GAP_F64 and grad norm rel
+    <= GNORM_GAP_F64 (slice G's gates); the bf16 loss against float64
+    printed."""
+    import dataclasses
+    import torch
+    from functools import partial
+    from torch.utils import _pytree as pytree
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import TokenPipelineConfig, token_batch
+    batch = token_batch(TokenPipelineConfig(cfg.vocab, I_GATE_SEQ, 1), 11,
+                        dev)
+    l32, g32 = loss_and_grad_norm(partial(
+        tf.loss_fn, cfg=dataclasses.replace(cfg, compute_dtype="float32")),
+        params, batch)
+    with torch.no_grad():
+        lbf = float(tf.loss_fn(params, batch, cfg))
+    p64 = pytree.tree_map(lambda t: t.detach().double(), params)
+    l64, g64 = loss_and_grad_norm(partial(
+        tf.loss_fn, cfg=dataclasses.replace(cfg, compute_dtype="float64")),
+        p64, batch)
+    del p64
+    torch.cuda.empty_cache()
+    out = {"loss": abs(l32 - l64) / abs(l64),
+           "grad_norm": abs(g32 - g64) / abs(g64),
+           "bf16_loss": abs(lbf - l64) / abs(l64), "loss_f64": l64,
+           "grad_norm_f64": g64}
+    log(f"[{CARD}] I-a {label} at 1 x {I_GATE_SEQ}: f32 vs float64 loss "
+        f"{l32:.9g} vs {l64:.9g} (rel {out['loss']:.3e}, limit "
+        f"{LOSS_GAP_F64:g}), grad norm {g32:.9g} vs {g64:.9g} (rel "
+        f"{out['grad_norm']:.3e}, limit {GNORM_GAP_F64:g}); bf16 loss "
+        f"{lbf:.9g} (rel {out['bf16_loss']:.3e}, printed)")
+    check(out["loss"] <= LOSS_GAP_F64 and out["grad_norm"] <= GNORM_GAP_F64,
+          f"I-a {label}: f32 vs float64 gaps {out}")
+    return out
+
+
+def moe_drops(cfg, params, tokens) -> int:
+    """MoE assignments the step's forward drops over `tokens` [M, S+1]
+    (one microbatch per row, as the step sees them)."""
+    import torch
+    from repro_torch.models import transformer as tf
+    stats = {}
+    with torch.inference_mode():
+        cp = tf.cast_params(params, cfg.cdtype)
+        for row in tokens.split(1):
+            tf._trunk(cp, row[:, :-1], cfg, stats=stats)
+    return int(stats["dropped"])
+
+
+def lm_step_idle(label: str, cfg, opt_cfg, params, opt, tokens,
+                 n_micro: int, step_ms: float) -> dict:
+    """The device's idle share of one train step of n_micro microbatches
+    taking step_ms: torch.profiler over one microbatch's forward and
+    backward (`tokens` [1, S+1]; its gradients drained into an f32
+    accumulator by the step's own hooks) and over AdamW alone (in place,
+    from that gradient), each by operator (a whole step is ~10^5 launches,
+    whose events take the profiler minutes to sort); idle = 1 - (n_micro
+    x the microbatch's busy time + AdamW's) / step_ms. Takes one step of
+    the state from that microbatch."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import adamw_update
+    leaves, spec = pytree.tree_flatten(params)
+    xs = [p.detach().requires_grad_(True) for p in leaves]
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in leaves]
+
+    def drain(a):
+        def hook(x):
+            a.add_(x.grad)
+            x.grad = None
+        return hook
+    hooks = [x.register_post_accumulate_grad_hook(drain(a))
+             for x, a in zip(xs, acc)]
+
+    def forward_backward():
+        loss = tf.loss_fn(pytree.tree_unflatten(xs, spec),
+                          {"tokens": tokens}, cfg)
+        torch.autograd.backward(loss, inputs=xs)
+    try:
+        fb = profile_device(forward_backward, f"{label}: one microbatch's "
+                            f"forward and backward (1 x {tokens.shape[1] - 1},"
+                            f" no optimizer)", by_op=True, warm=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    del xs
+    adam = profile_device(
+        lambda: adamw_update(pytree.tree_unflatten(acc, spec), opt, params,
+                             opt_cfg, in_place=True),
+        f"{label}: AdamW alone (in place, {cfg.n_params():,} params)",
+        by_op=True, warm=False)
+    del acc
+    torch.cuda.empty_cache()
+    idle = 1 - (n_micro * fb["busy_us"] + adam["busy_us"]) / 1e3 / step_ms
+    log(f"[{CARD}] {label}: device idle share of a step, estimated as 1 - "
+        f"({n_micro} x {fb['busy_us'] / 1e3:.1f} ms busy per microbatch + "
+        f"{adam['busy_us'] / 1e3:.1f} ms busy in AdamW) / {step_ms:.1f} ms: "
+        f"{idle:.3f}")
+    return {"idle": idle, "profile": fb, "adam_profile": adam}
+
+
+def lm_train_cell(label: str, cfg, n_micro: int, dev,
+                  profile: bool) -> tuple:
+    """I1 / I2: make_train_step(loss_fn, AdamWConfig(lr=I_LR), n_micro,
+    donate) on token_batch at I1_SEQ, global batch n_micro: one warm-up
+    step and I_TIMED timed steps (CUDA events) on 2 cycled batches (each
+    batch's loss must fall from one of its steps to the next), TFLOP/s of
+    lm_train_flops against the bf16 dense peak, peak memory over all of
+    them and the MoE's dropped assignments per step. With `profile`, the
+    device's idle share of a step (`lm_step_idle`).
+    Returns (report, params, opt).
+
+    The lr is AdamWConfig's default (3e-4) cut to I_LR: AdamW (with no
+    warm-up, as the reference's) first moves every weight by about lr in
+    the sign of its gradient, and from random weights at width 2,560 the
+    loss along that direction is least near 3e-6 (danube, batch 0:
+    10.896 at 0, 10.678 at 3e-6, 10.716 at 1e-5, 14.061 at 3e-5). At
+    1e-5 batch 0's loss rose to 12.317 after two steps (12.314 in f32)
+    while a held-out batch's fell; at 3e-6 and 1e-6 each batch's loss
+    fell on its repeat (probes/train_probe.py --lr),
+    as slice G cuts its lr to G_LR."""
+    import torch
+    from functools import partial
+    from repro_torch.configs.lm_common import lm_train_flops
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import TokenPipelineConfig, token_batch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    opt_cfg = AdamWConfig(lr=I_LR)
+    opt = adamw_init(params, opt_cfg)
+    dcfg = TokenPipelineConfig(cfg.vocab, I1_SEQ, n_micro)
+    batches = [token_batch(dcfg, i, dev) for i in range(2)]
+    step = make_train_step(partial(tf.loss_fn, cfg=cfg), opt_cfg,
+                           num_microbatches=n_micro, donate=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(I_TIMED + 2)]
+    losses, gnorms = [], []
+    ev[0].record()
+    for i in range(I_TIMED + 1):
+        params, opt, m = step(params, opt, batches[i % 2])
+        ev[i + 1].record()
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    all_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(I_TIMED + 1)]
+    losses = [float(x) for x in losses]
+    gnorms = [float(x) for x in gnorms]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"{label}: non-finite loss or grad norm {losses} {gnorms}")
+    # the batches alternate: each step's loss against the same batch's
+    # two steps before
+    check(all(b < a for a, b in zip(losses, losses[2:])),
+          f"{label}: the loss on a repeated batch did not fall ({losses})")
+    ms = float(np.mean(all_ms[1:]))
+    tokens = n_micro * I1_SEQ
+    flops = lm_train_flops(cfg, tokens, n_micro, I1_SEQ)
+    tflops = flops / ms / 1e9
+    out = {"ms": ms, "warmup_ms": all_ms[0], "step_ms": all_ms[1:],
+           "losses": losses, "grad_norms": gnorms, "peak": peak,
+           "tflops": tflops, "mfu": tflops * 1e12 / BF16_DENSE_FLOP_PER_S,
+           "params": cfg.n_params(), "setup_s": setup_s}
+    drops = ""
+    if cfg.moe:
+        out["dropped"] = moe_drops(cfg, params, batches[0]["tokens"])
+        total = tokens * cfg.moe.top_k * cfg.n_layers
+        drops = (f"; MoE assignments dropped per step {out['dropped']:,} of "
+                 f"{total:,}")
+    log(f"[{CARD}] {label} ({cfg.n_layers} layers, {cfg.n_params():,} "
+        f"params) train step at {n_micro} x 1 x {I1_SEQ} tokens: set-up "
+        f"{setup_s:.1f} s, warm-up {all_ms[0]:.1f} ms, {ms:.1f} ms per step "
+        f"(CUDA events, mean of {I_TIMED}: "
+        f"{', '.join(f'{t:.1f}' for t in all_ms[1:])}), {tflops:.2f} TFLOP/s "
+        f"of lm_train_flops ({out['mfu']:.1%} of 989 bf16 dense), peak "
+        f"{peak:,} bytes; loss {', '.join(f'{x:.5f}' for x in losses)}"
+        f"{drops}")
+    if profile:
+        out.update(lm_step_idle(label, cfg, opt_cfg, params, opt,
+                                batches[0]["tokens"][:1], n_micro, ms))
+    del step, batches
+    return out, params, opt
+
+
+def gate_replay(cfg, params, opt, dev) -> dict:
+    """Gate I-b on danube: clone the state, take one step (2 microbatches
+    of 1 x I1_SEQ, donated), restore the clone and replay it: bitwise with
+    deterministic algorithms on; the gap with them off printed."""
+    import torch
+    from functools import partial
+    from torch.utils import _pytree as pytree
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import TokenPipelineConfig, token_batch
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_loop import make_train_step
+    batch = token_batch(TokenPipelineConfig(cfg.vocab, I1_SEQ,
+                                            I_REPLAY_MICRO), 7, dev)
+    step = make_train_step(partial(tf.loss_fn, cfg=cfg),
+                           AdamWConfig(lr=I_LR),
+                           num_microbatches=I_REPLAY_MICRO, donate=True)
+    state = pytree.tree_leaves((params, opt))
+    saved = [t.clone() for t in state]
+
+    def restore():
+        with torch.no_grad():
+            for a, b in zip(state, saved):
+                a.copy_(b)
+
+    def gap(ref):
+        return max(float((a - b).abs().max())
+                   for a, b in zip(pytree.tree_leaves(params), ref))
+    m1 = deterministic(lambda: step(params, opt, batch)[2])
+    first = [t.clone() for t in pytree.tree_leaves(params)]
+    restore()
+    m2 = deterministic(lambda: step(params, opt, batch)[2])
+    det_gap = gap(first)
+    same_loss = bool(torch.equal(m1["loss"], m2["loss"]))
+    restore()
+    m3 = step(params, opt, batch)[2]
+    atomic_gap = gap(first)
+    atomic_loss = abs(float(m3["loss"]) - float(m1["loss"]))
+    restore()
+    del saved, first
+    torch.cuda.empty_cache()
+    log(f"[{CARD}] I-b danube replay ({I_REPLAY_MICRO} x 1 x {I1_SEQ}): "
+        f"deterministic max param gap {det_gap:.3e}, loss equal "
+        f"{same_loss}; with atomics: max param gap {atomic_gap:.3e}, loss "
+        f"gap {atomic_loss:.3e}")
+    check(det_gap == 0.0 and same_loss,
+          f"I-b: the replay differs from the step (gap {det_gap})")
+    return {"gap": det_gap, "atomic_gap": atomic_gap,
+            "atomic_loss_gap": atomic_loss}
+
+
+def phase_slice_i3() -> dict:
+    """I3: the launcher at full width (--arch h2o-danube-1.8b, 3 steps of
+    2 x I1_SEQ, no checkpoint: a full-width checkpoint is ~29 GB of
+    zlib'd f32), then --smoke with --ckpt-dir twice: it saves, resumes
+    and prints "resumed from step"."""
+    import contextlib
+    import io
+    import shutil as _shutil
+    import torch
+    from repro_torch.launch import train as launch_train
+    dev = [] if I_DEVICE == "cuda" else ["--device", I_DEVICE]
+    t0 = time.perf_counter()
+    out = launch_train.main(["--arch", "h2o-danube-1.8b", "--steps",
+                             str(I3_STEPS), "--global-batch", "2",
+                             "--seq-len", str(I1_SEQ)] + dev)
+    full_s = time.perf_counter() - t0
+    check(all(np.isfinite(out["losses"])), f"I3: losses {out['losses']}")
+    del out["params"], out["opt"]
+    torch.cuda.empty_cache()
+    ckpt_dir = I_DIR / "checkpoints"
+    _shutil.rmtree(ckpt_dir, ignore_errors=True)
+    smoke = ["--arch", "h2o-danube-1.8b", "--smoke", "--steps", "2",
+             "--global-batch", "4", "--seq-len", "12", "--ckpt-dir",
+             str(ckpt_dir)] + dev
+    runs = []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            r = launch_train.main(smoke)
+        runs.append((r["start_step"], buf.getvalue()))
+    _shutil.rmtree(ckpt_dir, ignore_errors=True)
+    resumed = "resumed from step 1" in runs[1][1]
+    log(f"[{CARD}] I3 launcher, danube at full width, {I3_STEPS} steps of "
+        f"2 x {I1_SEQ}: {full_s:.1f} s with set-up, s per step "
+        f"{', '.join(f'{x:.2f}' for x in out['step_s'])}, losses "
+        f"{', '.join(f'{x:.5f}' for x in out['losses'])}; --smoke "
+        f"--ckpt-dir twice: start steps {runs[0][0]} and {runs[1][0]}, "
+        f"second run printed 'resumed from step 1' {resumed}")
+    check(runs[0][0] == 0 and runs[1][0] == 2 and resumed,
+          f"I3: the launcher did not resume ({runs})")
+    return {"step_s": out["step_s"], "losses": out["losses"],
+            "seconds": full_s}
+
+
+def dlrm_f64_step(params, batch, cfg) -> tuple[float, float]:
+    """The DLRM loss and grad norm of one step in float64 on the card,
+    in plain torch (index_select, not the f32-only kernels): the MLPs
+    and the rows the batch reads, widened (the other rows' gradient is
+    zero, so the norm is the full table's)."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.models.layers import mlp_apply
+    from repro_torch.models.recsys import dlrm
+    uniq, inv = torch.unique(batch["sparse_ids"].reshape(-1),
+                             return_inverse=True)
+    sub = params["table"][uniq.long()].double().requires_grad_(True)
+    mlps = pytree.tree_map(lambda t: t.detach().double().requires_grad_(
+        True), {"bot": params["bot"], "top": params["top"]})
+    dense = batch["dense"].double()
+    b = dense.shape[0]
+    d = mlp_apply(mlps["bot"], dense, final_act=True)
+    emb = sub[inv.reshape(-1)].reshape(b, cfg.n_sparse, cfg.bag_size,
+                                       cfg.embed_dim).sum(2)
+    logit = mlp_apply(mlps["top"], dlrm._interact(d, emb))[:, 0]
+    y = batch["labels"].double()
+    loss = (torch.maximum(logit, torch.zeros_like(logit)) - logit * y
+            + torch.log1p(torch.exp(-logit.abs()))).mean()
+    grads = torch.autograd.grad(loss, [sub] + pytree.tree_leaves(mlps))
+    return float(loss.detach()), float(torch.sqrt(sum(g.square().sum()
+                                             for g in grads)))
+
+
+def phase_slice_i4() -> dict:
+    """I4: DLRM-RM2 full_config() (8.64 GB table) at train_batch
+    (B = 65,536): I4_STEPS AdamW steps (lr I4_LR, donated) on 2 cycled
+    recsys_batch batches (finite, the loss falls), the first against a
+    float64 step (loss rel <= LOSS_GAP_F64, grad norm rel <=
+    GNORM_GAP_F64), both embedding_bag counters equal to the steps, ms per
+    step beside its bytes bound, the optimizer's share, peak memory, a
+    profile of one step by operator."""
+    import torch
+    from functools import partial
+    from repro_torch.configs.dlrm_rm2 import full_config
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.data import RecsysPipelineConfig, recsys_batch
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update)
+    from repro_torch.train.train_loop import make_train_step
+    from torch.utils import _pytree as pytree
+    dev = torch.device(I_DEVICE)
+    cfg = full_config()
+    params = dlrm.init_params(cfg, seed=0, device=dev)
+    pcfg = RecsysPipelineConfig(cfg.vocab_sizes, cfg.n_dense, cfg.bag_size,
+                                I4_BATCH)
+    batches = [recsys_batch(pcfg, i, dev) for i in range(2)]
+    l64, g64 = dlrm_f64_step(params, batches[0], cfg)
+    torch.cuda.empty_cache()
+    opt_cfg = AdamWConfig(lr=I4_LR)
+    opt = adamw_init(params, opt_cfg)
+    step = make_train_step(partial(dlrm.loss_fn, cfg=cfg), opt_cfg,
+                           donate=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(I4_STEPS + 1)]
+    ms_list, losses, gnorms = [], [], []
+    ev[0].record()
+    for i in range(I4_STEPS):
+        params, opt, m = step(params, opt, batches[i % 2])
+        ev[i + 1].record()
+        losses.append(m["loss"])
+        gnorms.append(m["grad_norm"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ms_list = [ev[i].elapsed_time(ev[i + 1]) for i in range(I4_STEPS)]
+    losses = [float(x) for x in losses]
+    gnorms = [float(x) for x in gnorms]
+    check(all(np.isfinite(losses)), f"I4: losses {losses}")
+    check(losses[-1] < losses[0], f"I4: the loss did not fall ({losses})")
+    check(launches["embedding_bag"] == I4_STEPS
+          and launches["embedding_bag_backward"] == I4_STEPS,
+          f"I4: embedding_bag launches {launches['embedding_bag']} forward, "
+          f"{launches['embedding_bag_backward']} backward for {I4_STEPS} "
+          "steps")
+    gap_l = abs(losses[0] - l64) / abs(l64)
+    gap_g = abs(gnorms[0] - g64) / abs(g64)
+    log(f"[{CARD}] I4 DLRM-RM2 f32 vs float64, first step: loss "
+        f"{losses[0]:.9g} vs {l64:.9g} (rel {gap_l:.3e}, limit "
+        f"{LOSS_GAP_F64:g}), grad norm {gnorms[0]:.9g} vs {g64:.9g} (rel "
+        f"{gap_g:.3e}, limit {GNORM_GAP_F64:g})")
+    check(gap_l <= LOSS_GAP_F64 and gap_g <= GNORM_GAP_F64,
+          f"I4: f32 vs float64 gaps {gap_l:.3e}, {gap_g:.3e}")
+    n_bytes = 4 * sum(t.numel() for t in pytree.tree_leaves(params))
+    table_bytes = 4 * params["table"].numel()
+    bound_ms = (table_bytes + 8 * n_bytes) / HBM_BYTES_PER_S * 1e3
+    ms = float(np.mean(ms_list[1:]))
+    prof = profile_device(lambda: step(params, opt, batches[0]),
+                          "one DLRM-RM2 train step at train_batch",
+                          by_op=True, warm=False)
+    grads = pytree.tree_map(torch.zeros_like, params)
+    adam_ms = time_ms(lambda: adamw_update(grads, opt, params, opt_cfg,
+                                           in_place=True), 3)
+    del grads
+    log(f"[{CARD}] I4 DLRM-RM2 train_batch (B={I4_BATCH:,}, table "
+        f"{table_bytes:,} bytes): {ms:.3f} ms per step (CUDA events, mean "
+        f"of steps 2-{I4_STEPS}; all: "
+        f"{', '.join(f'{t:.3f}' for t in ms_list)}), bound {bound_ms:.3f} ms "
+        f"(bytes: the table gradient's zero fill, the norm's read and "
+        f"AdamW's read of p, g, m, v and write of p, m, v: "
+        f"{table_bytes + 8 * n_bytes:,} bytes; {bound_ms / ms:.0%} of it); "
+        f"AdamW alone {adam_ms:.3f} ms ({adam_ms / ms:.0%} of the step); "
+        f"peak {peak:,} bytes; loss {', '.join(f'{x:.6f}' for x in losses)};"
+        f" embedding_bag launches {launches['embedding_bag']} forward, "
+        f"{launches['embedding_bag_backward']} backward")
+    del params, opt, step, batches
+    torch.cuda.empty_cache()
+    return {"ms": ms, "step_ms": ms_list, "bound_ms": bound_ms,
+            "adam_ms": adam_ms, "peak": peak, "losses": losses,
+            "f64": {"loss": gap_l, "grad_norm": gap_g}, "profile": prof,
+            "launches": launches}
+
+
+def phase_slice_i() -> dict:
+    """Slice I, training on the card: I1 danube at full width (with gates
+    I-b and I-a on its state), I3 the launcher, I2 granite (with I-a), I4
+    DLRM-RM2 at train_batch. bf16 compute as the configs set it, TF32
+    off, cuBLAS bf16 reductions in f32, random weights from generator
+    seed 0. Returns each part and the kernel launches of I4's path (the
+    LM paths launch no kernel of the repo)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import granite_moe_3b, h2o_danube_1_8b
+    dev = torch.device(I_DEVICE)
+    t0 = time.perf_counter()
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    try:
+        reset_counts()
+        cfg = h2o_danube_1_8b.full_config()
+        i1, params, opt = lm_train_cell("I1 danube", cfg, I1_MICRO, dev,
+                                        profile=True)
+        lm_launches = read_counts()
+        replay = gate_replay(cfg, params, opt, dev)
+        del opt
+        torch.cuda.empty_cache()
+        gate_d = lm_f64_gate("danube", cfg, params, dev)
+        del params
+        torch.cuda.empty_cache()
+        i3 = phase_slice_i3()
+        torch.cuda.empty_cache()
+        cfg2 = granite_moe_3b.full_config()
+        if I2_LAYERS:
+            cfg2 = dataclasses.replace(cfg2, n_layers=I2_LAYERS)
+        reset_counts()
+        i2, params, opt = lm_train_cell("I2 granite", cfg2, I2_MICRO, dev,
+                                        profile=True)
+        lm_launches = add_counts(lm_launches, read_counts())
+        del opt
+        torch.cuda.empty_cache()
+        gate_g = lm_f64_gate("granite", cfg2, params, dev)
+        del params
+        torch.cuda.empty_cache()
+        i4 = phase_slice_i4()
+    finally:
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = prev
+    check(lm_launches["bsr_spmm"] == lm_launches["cheb_step"]
+          == lm_launches["embedding_bag"] == 0,
+          f"the LM train steps launched a kernel off their path: "
+          f"{lm_launches}")
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] slice I: {secs:.1f} s")
+    return {"i1": i1, "i2": i2, "i3": i3, "i4": i4, "replay": replay,
+            "f64": {"danube": gate_d, "granite": gate_g},
+            "launches": i4["launches"], "seconds": secs}
+
+
+def profile_device(fn, label: str, by_op: bool = False,
+                   warm: bool = True) -> dict:
     """Device-time breakdown of one call of `fn` (torch.profiler, after one
-    warm call): the kernels by device time and the device's idle share of
-    the wall time (one stream, so kernel times add up); with `by_op`, also
-    the operators that launched them (aten ops by self device time, each
-    as a share of the busy time). Informational; prints "no device time"
-    if the profiler sees no kernels."""
+    warm call unless `warm` is False): the kernels by device time and the
+    device's idle share of the wall time (one stream, so kernel times add
+    up); with `by_op`, also the operators that launched them (aten ops by
+    self device time, each as a share of the busy time). Informational;
+    prints "no device time" if the profiler sees no kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3003,6 +3627,7 @@ def main() -> int:
 
     phase_device()
     kerr = phase_kernels()
+    eb_bwd = phase_backward_kernel()
     a = phase_slice_a()
     b = phase_slice_b()
     d_paper = phase_slice_d_paper_refresh(b.pop("svc"))
@@ -3032,10 +3657,13 @@ def main() -> int:
     h = phase_slice_h()["launches"]
     check(h["bsr_spmm"] == h["cheb_step"] == h["embedding_bag"] == 0,
           f"slice H launched a kernel off its path: {h}")
+    torch.cuda.empty_cache()
+    i = phase_slice_i()["launches"]
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
     eb_b, eb_by = bound(c["eb"]["bytes_ms"], c["eb"]["ops_ms"])
+    ebb_b, ebb_by = bound(eb_bwd["bytes_ms"], eb_bwd["ops_ms"])
     table = {"kernels": [
         {"name": "bsr_spmm", "route": "cuda",
          "source": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
@@ -3078,14 +3706,26 @@ def main() -> int:
          "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                    "embedding_bag.cu",
          "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:40",
-         "launches": c["launches"]["embedding_bag"] + g["embedding_bag"],
+         "launches": c["launches"]["embedding_bag"] + g["embedding_bag"]
+         + i["embedding_bag"],
          "launches_by_path": {"slice_c": c["launches"]["embedding_bag"],
                               "slice_g": g["embedding_bag"],
-                              "slice_h": h["embedding_bag"]},
+                              "slice_h": h["embedding_bag"],
+                              "slice_i": i["embedding_bag"]},
          "max_abs_err": c["err"],
          "ms": c["eb"]["ms"], "plain_ms": c["eb"]["plain_ms"],
          "bound_ms": eb_b, "bound_by": eb_by,
          "library_ms": c["eb"]["library_ms"]},
+        {"name": "embedding_bag_backward", "route": "cuda",
+         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                   "embedding_bag_backward.cu",
+         "replaces": "src/repro/models/recsys/dlrm.py:104",
+         "launches": i["embedding_bag_backward"],
+         "launches_by_path": {"slice_i": i["embedding_bag_backward"]},
+         "max_abs_err": eb_bwd["err"],
+         "ms": eb_bwd["ms"], "plain_ms": eb_bwd["plain_ms"],
+         "bound_ms": ebb_b, "bound_by": ebb_by,
+         "library_ms": eb_bwd["library_ms"]},
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -3,22 +3,27 @@
 bottom MLP 13-512-256-64, top MLP 415-512-256-1, dot interaction.
 
 Shapes:
-  train_batch     B=65,536  train_step (not ported yet: the training slice)
+  train_batch     B=65,536  train_step
   serve_p99       B=512     serve_step (online inference)
   serve_bulk      B=262,144 serve_step (offline scoring)
   retrieval_cand  B=1, 1M candidates retrieval_step (batched dot + top-k)
 
 `make_batch` draws a real batch on a device (None = cuda) from a seeded
 generator: dense features ~ N(0, 1) and ids uniform per table, plus the
-table's offset. The reference's `build`, `cells` (the TPU dry run) and
-`smoke_run` (a train step) wait for the tooling and training slices.
+table's offset. `smoke_run` is one train step and one retrieval on the
+smoke config. The reference's `build` and `cells` (the TPU dry run) wait
+for the tooling slice.
 """
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models.recsys import dlrm
+from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.train.train_loop import make_train_step
 
 NAME = "dlrm-rm2"
 FAMILY = "recsys"
@@ -71,3 +76,25 @@ def model_flops(cfg, bsz: int, kind: str) -> float:
     inter = bsz * f * f * cfg.embed_dim
     fwd = 2 * bsz * mlps + 2 * inter
     return 3 * fwd if kind == "train" else fwd
+
+
+def smoke_run(seed: int = 0, device=None) -> dict:
+    """One AdamW train step (lr 1e-3, new tensors) on a batch of 16 at the
+    smoke config, then `retrieval_step` top-8 over 512 N(0, 1) candidates
+    for the batch's first query, on `device` (None = cuda). Returns the
+    step's {'loss', 'grad_norm'} and 'retrieval_top' (the best score)."""
+    dev = resolve_device(device)
+    cfg = smoke_config()
+    params = dlrm.init_params(cfg, seed=seed, device=dev)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    batch = make_batch(cfg, 16, seed=seed, device=dev)
+    step = make_train_step(partial(dlrm.loss_fn, cfg=cfg), opt_cfg,
+                           num_microbatches=1, donate=False)
+    _, _, metrics = step(params, adamw_init(params, opt_cfg), batch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cands = torch.randn((512, cfg.embed_dim), generator=gen, device=dev)
+    scores, _ = dlrm.retrieval_step(
+        params, {"dense": batch["dense"][:1], "candidates": cands}, cfg,
+        top_k=8)
+    metrics["retrieval_top"] = scores[0]
+    return metrics

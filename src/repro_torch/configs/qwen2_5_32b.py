@@ -1,8 +1,9 @@
 """qwen2.5-32b [hf:Qwen/Qwen2.5 family] (port of
 `repro.configs.qwen2_5_32b`): dense decoder, GQA (40Q/8KV), QKV bias,
 64L x d5120, d_ff 27648, vocab 152064. Its f32 weights (131 GB) do not fit
-one card; it runs here at smoke size. `cells`, `build` and `smoke_run`
-wait for the tooling and training slices."""
+one card; it runs here at smoke size. `cells` and `build` wait for the
+tooling slice."""
+from repro_torch.configs.lm_common import lm_smoke_run
 from repro_torch.models.transformer import TransformerConfig
 
 NAME = "qwen2.5-32b"
@@ -20,3 +21,7 @@ def smoke_config():
         name=NAME + "-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         d_ff=160, vocab=256, qkv_bias=True, compute_dtype="float32",
         q_chunk=8, k_chunk=8)
+
+
+def smoke_run(seed: int = 0, device=None):
+    return lm_smoke_run(smoke_config(), seed, device)

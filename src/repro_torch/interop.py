@@ -18,7 +18,9 @@ edge weights and coefficients run through both packages.
   * GNN parameters (any tree of dicts and lists of arrays, the layer
     stacks `layers` / `blocks` included);
   * LM parameters (the transformer's tree, stacked on a leading [L] axis,
-    MoE experts included).
+    MoE experts included);
+  * AdamW state ({"step", "m", "v"}), so a resumed step can be held to
+    the reference's from the same parameters and moments.
 """
 from __future__ import annotations
 
@@ -187,14 +189,30 @@ def lm_params(params, device=None) -> dict:
     included) as the port's: the same tree of tensors on `device` (None =
     cuda), each in its own float width (float32 stays float32, bfloat16
     leaves become torch.bfloat16). The layouts are the same."""
-    dev = resolve_device(device)
+    return _native_tree(params, resolve_device(device))
 
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        a = np.asarray(node)
-        if a.dtype.name == "bfloat16":
-            return _tensor(a.astype(np.float32), torch.float32,
-                           dev).to(torch.bfloat16)
-        return torch.tensor(np.ascontiguousarray(a), device=dev)
-    return conv(params)
+
+def _native_tree(node, dev: torch.device):
+    """A tree of dicts and lists with numpy leaves as the same tree of
+    tensors on `dev`, each leaf in its own dtype (bfloat16 included)."""
+    if isinstance(node, dict):
+        return {k: _native_tree(v, dev) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_native_tree(v, dev) for v in node]
+    a = np.asarray(node)
+    if a.dtype.name == "bfloat16":
+        return _tensor(a.astype(np.float32), torch.float32,
+                       dev).to(torch.bfloat16)
+    return torch.tensor(np.ascontiguousarray(a), device=dev)
+
+
+def adamw_state(state, device=None) -> dict:
+    """The reference's AdamW state ({"step", "m", "v"}, numpy leaves in
+    trees of dicts and lists) as the port's: "step" an int32 0-dim tensor,
+    m and v the same trees of tensors on `device` (None = cuda), each in
+    its own float width (bfloat16 moments stay bfloat16)."""
+    dev = resolve_device(device)
+    return {"step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev),
+            "m": _native_tree(state["m"], dev),
+            "v": _native_tree(state["v"], dev)}

@@ -1,11 +1,17 @@
-"""Wrapper for the embedding-bag kernel (`csrc/embedding_bag.cu`).
+"""Wrappers for the embedding-bag kernels: the lookup
+(`csrc/embedding_bag.cu`) and its table gradient
+(`csrc/embedding_bag_backward.cu`), joined by a `torch.autograd.Function`.
 
-Replaces `repro.kernels.embedding_bag.ops.embedding_bag`, whose Pallas
-kernel is `embedding_bag_pallas` in
-src/repro/kernels/embedding_bag/embedding_bag.py. A CPU tensor goes to the
-plain version (`ref.py`); a CUDA tensor launches the CUDA kernel or raises
--- there is no fallback on the card. The kernel is bound by memory: the
-random row reads of the gather and the one write of each output row.
+The lookup replaces `repro.kernels.embedding_bag.ops.embedding_bag`, whose
+Pallas kernel is `embedding_bag_pallas` in
+src/repro/kernels/embedding_bag/embedding_bag.py; the reference's gradient
+is that of `jnp.take`, a dense scatter-add, which the backward kernel
+computes. A CPU tensor goes to the plain versions (`ref.py`); a CUDA
+tensor launches the CUDA kernel or raises -- there is no fallback on the
+card. Both kernels are bound by memory: the lookup by the random row
+reads and the one write of each output row, the backward by the read of
+the output gradient and the one write of each touched row. Each has its
+own launch counter.
 """
 from __future__ import annotations
 
@@ -14,22 +20,33 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward_ref,
+                                                   embedding_bag_ref)
 
-__all__ = ["embedding_bag", "launches", "reset_launches"]
+__all__ = ["embedding_bag", "embedding_bag_backward", "launches",
+           "backward_launches", "reset_launches"]
 
 _LAUNCHES = 0
+_BWD_LAUNCHES = 0
 _FN = None
+_BWD_FN = None
 
 
 def launches() -> int:
-    """Kernel launches since the last `reset_launches()`."""
+    """Lookup kernel launches since the last `reset_launches()`."""
     return _LAUNCHES
 
 
+def backward_launches() -> int:
+    """Backward kernel launches since the last `reset_launches()` (one per
+    call: its two passes count once)."""
+    return _BWD_LAUNCHES
+
+
 def reset_launches() -> None:
-    global _LAUNCHES
-    _LAUNCHES = 0
+    """Set both counters to 0."""
+    global _LAUNCHES, _BWD_LAUNCHES
+    _LAUNCHES = _BWD_LAUNCHES = 0
 
 
 def _kernel_fn():
@@ -97,10 +114,115 @@ def _launch(ids: torch.Tensor, table: torch.Tensor,
     return out
 
 
+def _bwd_fn():
+    global _BWD_FN
+    if _BWD_FN is None:
+        lib = _build.library("embedding_bag_backward")
+        fn = lib.embedding_bag_backward_f32
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        scratch = lib.embedding_bag_backward_scratch
+        scratch.argtypes = [ctypes.c_int64, ctypes.c_int64]
+        scratch.restype = ctypes.c_int64
+        _BWD_FN = fn, scratch
+    return _BWD_FN
+
+
+def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
+                     grad: torch.Tensor,
+                     weights: torch.Tensor | None) -> torch.Tensor:
+    """Write every row of grad [V, D] that `ids` touch (the other rows are
+    left as they are: the caller zero-fills them) and return grad."""
+    global _BWD_LAUNCHES
+    _check(ids, grad, weights)
+    if grad_out.dtype != torch.float32 or grad_out.device != grad.device \
+            or not grad_out.is_contiguous() or \
+            tuple(grad_out.shape) != (ids.shape[0], grad.shape[1]):
+        raise ValueError(f"embedding_bag backward: grad_out must be "
+                         f"contiguous float32 {(ids.shape[0], grad.shape[1])}"
+                         f" on {grad.device}, got {grad_out.dtype} "
+                         f"{tuple(grad_out.shape)} on {grad_out.device}")
+    n, dim = ids.numel(), grad.shape[1]
+    if n == 0 or dim == 0:
+        return grad
+    fn, scratch = _bwd_fn()
+    # index preparation: the entries of one id, in position order
+    sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
+    head = torch.empty(scratch(n, dim), dtype=torch.float32,
+                       device=grad.device)
+    tail = torch.empty_like(head)
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        err = fn(sorted_ids.data_ptr(), perm.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 grad_out.data_ptr(), grad.data_ptr(), head.data_ptr(),
+                 tail.data_ptr(), n, ids.shape[1], dim, stream)
+    if err != 0:
+        raise RuntimeError(f"embedding_bag backward: kernel launch failed "
+                           f"with CUDA error {err}")
+    _BWD_LAUNCHES += 1
+    return grad
+
+
+def _on_cpu(*ts) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in ts)
+
+
+def embedding_bag_backward(ids: torch.Tensor, grad_out: torch.Tensor,
+                           n_rows: int,
+                           weights: torch.Tensor | None = None
+                           ) -> torch.Tensor:
+    """The lookup's table gradient: grad[ids[b, l]] += w[b, l] *
+    grad_out[b] into a dense float32 [n_rows, D] (zero where no id lands;
+    duplicates within and across bags accumulate). On CPU tensors the
+    plain `index_add_`; on CUDA tensors the sorted-segment kernel, whose
+    sums run in a fixed order (deterministic)."""
+    ids = ids.to(torch.int32)
+    if weights is not None:
+        weights = weights.to(torch.float32)
+    if grad_out.device.type == "cuda":
+        grad = torch.zeros((n_rows, grad_out.shape[1]), dtype=torch.float32,
+                           device=grad_out.device)
+        return _launch_backward(ids.contiguous(), grad_out.contiguous(),
+                                grad, weights)
+    if _on_cpu(ids, grad_out, weights):
+        return embedding_bag_backward_ref(ids, grad_out.to(torch.float32),
+                                          n_rows, weights)
+    raise ValueError(f"embedding_bag backward: tensors on {ids.device}, "
+                     f"{grad_out.device}")
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """Forward: the lookup; backward: its table gradient (the backward
+    kernel on the card) and, when asked for, the weights' gradient
+    table[ids[b, l]] . grad_out[b] in torch ops (DLRM never asks)."""
+
+    @staticmethod
+    def forward(ctx, ids, table, weights):
+        ctx.save_for_backward(ids, table, weights)
+        if table.device.type == "cuda":
+            return _launch(ids, table, weights)
+        return embedding_bag_ref(ids, table.to(torch.float32), weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, table, weights = ctx.saved_tensors
+        g_table = g_weights = None
+        if ctx.needs_input_grad[1]:
+            g_table = embedding_bag_backward(ids, g, table.shape[0],
+                                             weights).to(table.dtype)
+        if ctx.needs_input_grad[2]:
+            rows = table.index_select(0, ids.reshape(-1).long()).reshape(
+                *ids.shape, -1).to(g.dtype)
+            g_weights = (rows * g[:, None, :]).sum(-1)
+        return None, g_table, g_weights
+
+
 def embedding_bag(ids: torch.Tensor, table: torch.Tensor,
                   weights: torch.Tensor | None = None) -> torch.Tensor:
     """Bag-sum lookup: out[b] = sum_l w[b, l] * table[ids[b, l]] -> [B, D]
-    float32.
+    float32, differentiable in table (and weights).
 
     ids [B, L] are cast to int32 and weights [B, L] to float32, as the
     reference wrapper does; weights default to ones (the plain multi-hot
@@ -109,15 +231,13 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor,
 
     On CPU tensors this is the plain version; on CUDA tensors the CUDA
     kernel (table float32 [V, D], all inputs contiguous), which reads unit
-    weights without materializing them."""
+    weights without materializing them. The gradient w.r.t. the table is
+    dense, as `jnp.take`'s is in the reference: `embedding_bag_backward`."""
     ids = ids.to(torch.int32)
     if weights is not None:
         weights = weights.to(torch.float32)
-    if table.device.type == "cuda":
-        return _launch(ids, table, weights)
-    if table.device.type == "cpu" and ids.device.type == "cpu" and \
-            (weights is None or weights.device.type == "cpu"):
-        return embedding_bag_ref(ids, table.to(torch.float32), weights)
+    if table.device.type == "cuda" or _on_cpu(ids, table, weights):
+        return _EmbeddingBag.apply(ids, table, weights)
     raise ValueError(f"embedding_bag: tensors on {ids.device}, "
                      f"{table.device}"
                      + ("" if weights is None else f", {weights.device}"))

@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the embedding-bag lookup: gather + weighted
-sum (the same function as `repro.kernels.embedding_bag.ref`)."""
+"""Plain PyTorch versions of the embedding-bag lookup, gather + weighted
+sum (the same function as `repro.kernels.embedding_bag.ref`), and of its
+table gradient, a scatter-add (`index_add_`)."""
 from __future__ import annotations
 
 import torch
@@ -15,3 +16,20 @@ def embedding_bag_ref(ids: torch.Tensor, table: torch.Tensor,
     if weights is not None:
         rows = rows * weights.unsqueeze(-1)
     return rows.sum(dim=1)
+
+
+def embedding_bag_backward_ref(ids: torch.Tensor, grad_out: torch.Tensor,
+                               n_rows: int,
+                               weights: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """The lookup's table gradient: grad[ids[b, l]] += weights[b, l] *
+    grad_out[b] into a dense [n_rows, D] of grad_out's dtype (duplicates
+    accumulate), by one `index_add_`."""
+    b, bag = ids.shape
+    contrib = grad_out[:, None, :].expand(b, bag, grad_out.shape[1])
+    if weights is not None:
+        contrib = contrib * weights.unsqueeze(-1).to(grad_out.dtype)
+    grad = torch.zeros((n_rows, grad_out.shape[1]), dtype=grad_out.dtype,
+                       device=grad_out.device)
+    return grad.index_add_(0, ids.reshape(-1).long(),
+                           contrib.reshape(b * bag, -1))

@@ -15,10 +15,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch.utils import _pytree as pytree
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.graph.ops import segment_sum
-from repro_torch.models.layers import layer_norm, mlp_apply, mlp_init
+from repro_torch.models.layers import (checkpointed, layer_norm, mlp_apply,
+                                       mlp_init)
 
 __all__ = ["lnmlp_init", "lnmlp_apply", "interaction_init",
            "interaction_apply", "segment_std", "mse_loss", "stack_layers",
@@ -103,15 +103,6 @@ def n_stacked(tree) -> int:
 def layer_slice(tree, i: int):
     """Layer i of a stacked tree (views: gradients flow to the stack)."""
     return pytree.tree_map(lambda x: x[i], tree)
-
-
-def checkpointed(fn, *args):
-    """fn(*args) whose activations are recomputed in the backward pass
-    (the reference's `jax.checkpoint` around each scanned layer); a plain
-    call when autograd is off."""
-    if not torch.is_grad_enabled():
-        return fn(*args)
-    return checkpoint(fn, *args, use_reentrant=False)
 
 
 def requires_grad(tree):

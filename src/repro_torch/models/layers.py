@@ -7,18 +7,25 @@ attention). Plain functions on tensors; weights keep the reference's
 The LM layers keep the reference's order of float32 upcasts and
 compute-dtype downcasts (bfloat16 in serving): scores and softmax in f32,
 probabilities cast to v's dtype before the PV product, products of
-low-precision inputs accumulated in f32 (`matmul_f32`)."""
+low-precision inputs accumulated in f32 (`matmul_f32`).
+
+Both model families keep their layer stacks on a leading axis and take
+one view per layer (`layer_views`), each layer under activation
+checkpointing when training (`checkpointed`), as the reference scans a
+`jax.checkpoint`ed body."""
 from __future__ import annotations
 
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils import _pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["dense_init", "embed_init", "mlp_init", "mlp_apply", "layer_norm",
            "rms_norm", "rope_freqs", "rope_tables", "apply_rope",
            "matmul_f32", "chunked_attention", "decode_mask",
-           "decode_attention"]
+           "decode_attention", "layer_views", "checkpointed"]
 
 NEG = -1e30     # masked score, as the reference's
 
@@ -116,11 +123,32 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def layer_views(tree) -> list:
+    """The per-layer views of a tree whose leaves are stacked on a leading
+    [L] axis: one `unbind` per leaf. Its backward stacks the L gradients
+    once, where indexing `x[i]` per layer would add L full-size [L, ...]
+    gradients (O(L^2) bytes per leaf)."""
+    leaves, spec = pytree.tree_flatten(tree)
+    per_leaf = [torch.unbind(x) for x in leaves]
+    return [pytree.tree_unflatten([views[i] for views in per_leaf], spec)
+            for i in range(len(per_leaf[0]))]
+
+
+def checkpointed(fn, *args):
+    """fn(*args) whose activations are recomputed in the backward pass
+    (the reference's `jax.checkpoint` around each scanned layer); a plain
+    call when autograd is off."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b (batched) accumulated in f32 and returned in f32, for inputs
     of any float dtype: the reference's `preferred_element_type=f32`.
     bf16/fp16 products are exact in f32, so CUDA takes the f32-output GEMM
-    on the low-precision operands and the CPU upcasts them; f32 and wider
+    on the low-precision operands (which has no derivative: the callers
+    run it outside autograd) and the CPU upcasts them; f32 and wider
     inputs multiply as they are."""
     if a.dtype in (torch.bfloat16, torch.float16):
         if a.is_cuda:
@@ -136,6 +164,119 @@ def _tile_masked(q_lo: int, q_hi: int, k_lo: int, k_hi: int, sk: int,
     the sequence, all after every query (causal), or all out of window."""
     return (k_lo >= sk or (causal and k_lo > q_hi)
             or (window is not None and q_lo - k_hi >= window))
+
+
+def _kv_step(m, l, o, q_tile, k_tile, v_tile, mask, scale: float):
+    """One KV tile of the online softmax: the running max m, sum l and
+    unnormalized output o after the tile's scores (masked to -1e30)."""
+    s = matmul_f32(q_tile, k_tile.transpose(1, 2)) * scale
+    s = torch.where(mask, s, NEG)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    alpha = torch.exp(m - m_new)
+    l = l * alpha + p.sum(-1)
+    o = o * alpha[..., None] + matmul_f32(p.to(v_tile.dtype), v_tile)
+    return m_new, l, o
+
+
+class _Tiles:
+    """The tiling of one attention call: for q tile qi, `row(qi)` lists
+    the KV tiles the online softmax visits, each with its [G*qc, kc] mask
+    (built per q tile, so a long prefill never holds every mask)."""
+
+    def __init__(self, q_offset, sq, sk, q_chunk, k_chunk, groups, causal,
+                 window, dev):
+        self.q_offset, self.sk, self.qc, self.kc = q_offset, sk, q_chunk, \
+            k_chunk
+        self.groups, self.causal, self.window, self.dev = groups, causal, \
+            window, dev
+        self.n_k = -(-sk // k_chunk)
+        q_last = q_offset + sq - 1
+        # some query sees no valid key: one before key 0 (causal), or one
+        # past the window of the last key
+        self.skip = not (causal and q_offset < 0) and \
+            (window is None or q_last <= sk + window - 2)
+
+    def row(self, qi: int) -> list:
+        q_lo = self.q_offset + qi * self.qc
+        qp = q_lo + torch.arange(self.qc, device=self.dev)
+        out = []
+        for ki in range(self.n_k):
+            k_lo = ki * self.kc
+            if self.skip and _tile_masked(q_lo, q_lo + self.qc - 1, k_lo,
+                                          k_lo + self.kc - 1, self.sk,
+                                          self.causal, self.window):
+                continue
+            kp = k_lo + torch.arange(self.kc, device=self.dev)
+            mask = (kp < self.sk)[None, :].expand(self.qc, self.kc)
+            if self.causal:
+                mask = mask & (qp[:, None] >= kp[None, :])
+            if self.window is not None:
+                mask = mask & (qp[:, None] - kp[None, :] < self.window)
+            out.append((ki, mask.repeat(self.groups, 1)))
+        return out
+
+
+def _attend(qt, kt, vt, tiles: _Tiles, scale: float):
+    """Per q tile, the online softmax over its KV tiles: (m, l, out) with
+    out = o / max(l, 1e-30), each stacked over the q tiles."""
+    acc = _wide(qt.dtype)
+    ms, ls, outs = [], [], []
+    for qi in range(qt.shape[0]):
+        m = torch.full(qt.shape[1:3], NEG, dtype=acc, device=qt.device)
+        l = torch.zeros_like(m)
+        o = torch.zeros(qt.shape[1:], dtype=acc, device=qt.device)
+        for ki, mask in tiles.row(qi):
+            m, l, o = _kv_step(m, l, o, qt[qi], kt[ki], vt[ki], mask, scale)
+        l = torch.clamp(l, min=1e-30)
+        ms.append(m)
+        ls.append(l)
+        outs.append(o / l[..., None])
+    return torch.stack(ms), torch.stack(ls), torch.stack(outs)
+
+
+class _Attention(torch.autograd.Function):
+    """`_attend`'s output with FlashAttention-2's backward: it keeps the
+    output and each row's (m, l) and recomputes one score tile at a time,
+    p = exp(s - m) / l (the same weights as the forward, the averaged
+    masked tiles of a query with no valid key included), then dv += p^T
+    do, dp = do v^T, ds = p (dp - rowsum(do * out)), dq += ds k, dk += ds^T
+    q. Exact up to rounding against autograd through the tile loop, which
+    the reference takes (`jax.checkpoint` per tile recomputes each tile
+    there too) without saving a score tile. Products take the f32-output
+    GEMM on the operands' dtype, so bf16 rounds the cotangents first."""
+
+    @staticmethod
+    def forward(ctx, qt, kt, vt, tiles, scale):
+        m, l, out = _attend(qt, kt, vt, tiles, scale)
+        ctx.save_for_backward(qt, kt, vt, m, l, out)
+        ctx.tiles, ctx.scale = tiles, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qt, kt, vt, m, l, out = ctx.saved_tensors
+        tiles, scale = ctx.tiles, ctx.scale
+        acc = out.dtype
+        rowdot = (dout * out).sum(-1)                # [nq, BH, G*qc]
+        dq = torch.zeros(qt.shape, dtype=acc, device=qt.device)
+        dk = torch.zeros(kt.shape, dtype=acc, device=kt.device)
+        dv = torch.zeros(vt.shape, dtype=acc, device=vt.device)
+        for qi in range(qt.shape[0]):
+            do = dout[qi].to(vt.dtype)
+            for ki, mask in tiles.row(qi):
+                s = matmul_f32(qt[qi], kt[ki].transpose(1, 2)) * scale
+                s = torch.where(mask, s, NEG)
+                p = torch.exp(s - m[qi][..., None]) / l[qi][..., None]
+                dv[ki] += matmul_f32(p.to(vt.dtype).transpose(1, 2), do)
+                dp = matmul_f32(do, vt[ki].transpose(1, 2))
+                ds = p * (dp - rowdot[qi][..., None])
+                if not tiles.skip:   # masked scores get no gradient; p
+                    ds = torch.where(mask, ds, 0.0)   # is 0 there anyway
+                ds = (ds * scale).to(qt.dtype)      # once a key is valid
+                dq[qi] += matmul_f32(ds, kt[ki])
+                dk[ki] += matmul_f32(ds.transpose(1, 2), qt[qi])
+        return dq.to(qt.dtype), dk.to(kt.dtype), dv.to(vt.dtype), None, None
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -155,7 +296,14 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tile leaves (m, l, o) unchanged once a query has seen a valid key, and
     the state it builds before then is scaled by exp(-1e30 - m) = 0 at the
     first valid key. It is turned off when some query sees no valid key at
-    all (the reference then averages the masked tiles' values).
+    all (the reference then averages the masked tiles' values). Under
+    autograd a skipped tile is exact too: the reference's gradient through
+    it is zero.
+
+    When autograd records, the tiles run inside `_Attention`, whose
+    backward recomputes each score tile from the saved output and row
+    statistics, so no score tile is kept for the backward (the reference
+    wraps its scanned tile step in `jax.checkpoint` to the same end).
     """
     b, sq, h, dh = q.shape
     _, sk, hkv, _ = k.shape
@@ -163,46 +311,20 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(dh)
     n_q, n_k = -(-sq // q_chunk), -(-sk // k_chunk)
     q_pad, k_pad = n_q * q_chunk - sq, n_k * k_chunk - sk
-    # [nq, B, Hkv, G*qc, Dh] and [nk, B, Hkv, kc, Dh]: each tile one bmm
+    # [nq, B*Hkv, G*qc, Dh] and [nk, B*Hkv, kc, Dh]: each tile one bmm
     qt = F.pad(q, (0, 0, 0, 0, 0, q_pad)).reshape(
         b, n_q, q_chunk, hkv, groups, dh).permute(1, 0, 3, 4, 2, 5).reshape(
         n_q, b * hkv, groups * q_chunk, dh)
     kt, vt = (F.pad(t, (0, 0, 0, 0, 0, k_pad)).reshape(
         b, n_k, k_chunk, hkv, dh).permute(1, 0, 3, 2, 4).reshape(
         n_k, b * hkv, k_chunk, dh) for t in (k, v))
-    dev, acc = q.device, _wide(q.dtype)
-    q_last = q_offset + sq - 1
-    skip = window is None or q_last <= sk + window - 2
-    out = []
-    for qi in range(n_q):
-        q_lo = q_offset + qi * q_chunk
-        qp = q_lo + torch.arange(q_chunk, device=dev)
-        m = torch.full((b * hkv, groups * q_chunk), NEG, dtype=acc,
-                       device=dev)
-        l = torch.zeros_like(m)
-        o = torch.zeros((b * hkv, groups * q_chunk, dh), dtype=acc,
-                        device=dev)
-        for ki in range(n_k):
-            k_lo = ki * k_chunk
-            if skip and _tile_masked(q_lo, q_lo + q_chunk - 1, k_lo,
-                                     k_lo + k_chunk - 1, sk, causal, window):
-                continue
-            kp = k_lo + torch.arange(k_chunk, device=dev)
-            s = matmul_f32(qt[qi], kt[ki].transpose(1, 2)) * scale
-            mask = (kp < sk)[None, :].expand(q_chunk, k_chunk)
-            if causal:
-                mask = mask & (qp[:, None] >= kp[None, :])
-            if window is not None:
-                mask = mask & (qp[:, None] - kp[None, :] < window)
-            s = torch.where(mask.repeat(groups, 1), s, NEG)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(-1)
-            o = o * alpha[..., None] + matmul_f32(p.to(vt.dtype), vt[ki])
-            m = m_new
-        out.append(o / torch.clamp(l[..., None], min=1e-30))
-    o = torch.stack(out).reshape(n_q, b, hkv, groups, q_chunk, dh)
+    tiles = _Tiles(q_offset, sq, sk, q_chunk, k_chunk, groups, causal,
+                   window, q.device)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        o = _Attention.apply(qt, kt, vt, tiles, scale)
+    else:
+        o = _attend(qt, kt, vt, tiles, scale)[2]
+    o = o.reshape(n_q, b, hkv, groups, q_chunk, dh)
     o = o.permute(1, 0, 4, 2, 3, 5).reshape(b, n_q * q_chunk, h, dh)
     return o[:, :sq].to(v.dtype)
 

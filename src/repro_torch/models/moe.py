@@ -81,9 +81,12 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
     fe = (eidx[:, 0, None] == experts).to(wide).mean(0)
     aux = e * (fe * me).sum()
 
-    # position of each (token, slot) assignment inside its expert
-    assign = (eidx.reshape(t * k, 1) == experts).long()       # [T*k, E]
-    pos_of = ((assign.cumsum(0) - assign) * assign).sum(-1)    # [T*k]
+    # position of each (token, slot) assignment inside its expert; the
+    # one-hot lies [E, T*k] so the scan runs along contiguous rows (a
+    # scan down the columns of [T*k, E] took 6 ms at T*k = 32,768 on the
+    # card)
+    assign = (experts[:, None] == eidx.reshape(1, t * k)).long()  # [E, T*k]
+    pos_of = ((assign.cumsum(1) - assign) * assign).sum(0)     # [T*k]
     e_of = eidx.reshape(t * k)
     in_cap = pos_of < cap
     slot = torch.where(in_cap, pos_of, cap - 1)

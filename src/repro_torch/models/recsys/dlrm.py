@@ -10,8 +10,11 @@ the reference's layout ({"table", "bot": [{"w", "b"}], "top": [...]}, MLP
 weights [d_in, d_out]), so `repro_torch.interop.dlrm_params` carries the
 reference's parameters across unchanged.
 
-`retrieval_step` scores one query against a candidate bank with a single
-[Nc, D] x [D] product + top-k (the `retrieval_cand` shape).
+`loss_fn` is the training objective: binary cross-entropy with logits in
+its numerically stable form; the lookup's table gradient is dense, the
+backward kernel's (`embedding_bag_backward`), as `jnp.take`'s is in the
+reference. `retrieval_step` scores one query against a candidate bank
+with a single [Nc, D] x [D] product + top-k (the `retrieval_cand` shape).
 """
 from __future__ import annotations
 
@@ -26,7 +29,7 @@ from repro_torch.models.layers import mlp_apply, mlp_init
 from repro_torch.topk import topk_lower_index_first
 
 __all__ = ["CRITEO_KAGGLE_VOCABS", "DLRMConfig", "init_params", "forward",
-           "serve_step", "retrieval_step"]
+           "loss_fn", "serve_step", "retrieval_step"]
 
 # Criteo-Kaggle per-feature cardinalities (DLRM paper experimental setup).
 CRITEO_KAGGLE_VOCABS = (
@@ -117,6 +120,18 @@ def forward(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
         b, cfg.n_sparse, cfg.embed_dim)
     x = _interact(dense_out, emb)
     return mlp_apply(params["top"], x)[:, 0]
+
+
+def loss_fn(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
+    """Mean binary cross-entropy with logits over batch["labels"] [B]:
+    max(z, 0) - z * y + log1p(exp(-|z|)), the reference's stable form
+    (`torch.maximum`, so a logit of exactly 0 splits its gradient as
+    `jnp.maximum` does)."""
+    logit = forward(params, batch, cfg)
+    y = batch["labels"].to(torch.float32)
+    loss = torch.maximum(logit, torch.zeros_like(logit)) - logit * y + \
+        torch.log1p(torch.exp(-logit.abs()))
+    return loss.mean()
 
 
 def serve_step(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:

@@ -6,6 +6,8 @@ reference's are, so its parameter trees carry across unchanged
 (`interop.lm_params`); the blocks run in a Python loop over layer views.
 
 Entry points:
+  loss_fn      training: mean next-token cross-entropy + the MoE aux loss,
+               with autograd (the serve entry points run without it)
   forward      tokens -> logits (and optionally the stacked KV)
   prefill      last-token logits + a KV cache [L, B, S(_pad), Hkv, Dh]
   decode_step  one token against a KV cache, updated in place
@@ -13,27 +15,33 @@ Entry points:
 Each casts the parameters to `compute_dtype` as the reference's `_cast`
 does (the f32 MoE router included); a caller that serves many steps
 casts once with `cast_params` and passes the result, for which the cast
-is free. `loss_fn` and the remat / sequence-sharding knobs wait for the
-training slice; the knobs are carried as fields so configs construct
-unchanged.
+is free. Layer views come from one `unbind` per stacked leaf
+(`layer_views`). With `remat` (the default, as in the reference), each
+block runs under activation checkpointing when autograd records;
+inside it `chunked_attention`'s backward (`_Attention`) recomputes each
+score tile from the saved output and row statistics.
+`seq_shard_carry` shards the saved carry over a TPU mesh's model axis in
+the reference; on one card it means nothing and is carried as a field so
+configs construct unchanged.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import (apply_rope, chunked_attention,
-                                       decode_attention, decode_mask,
-                                       dense_init, embed_init, rms_norm,
-                                       rope_tables)
+from repro_torch.models.layers import (apply_rope, checkpointed,
+                                       chunked_attention, decode_attention,
+                                       decode_mask, dense_init, embed_init,
+                                       layer_views, rms_norm, rope_tables)
 from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
 
-__all__ = ["TransformerConfig", "init_params", "cast_params", "forward",
-           "prefill", "decode_step", "make_kv_cache", "layer_params",
-           "qkv", "ffn", "rope_for"]
+__all__ = ["TransformerConfig", "init_params", "cast_params", "loss_fn",
+           "forward", "prefill", "decode_step", "make_kv_cache",
+           "layer_views", "qkv", "ffn", "rope_for"]
 
 
 @dataclass(frozen=True)
@@ -52,11 +60,11 @@ class TransformerConfig:
     moe: MoEConfig | None = None          # if set, d_ff is per-expert width
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    remat: bool = True                    # training slice
+    remat: bool = True                    # checkpoint each block (train)
     q_chunk: int = 512
     k_chunk: int = 1024
     scan_unroll: bool = False             # the reference's dry-run probe
-    seq_shard_carry: bool = True          # training slice
+    seq_shard_carry: bool = True          # a TPU mesh's; nothing here
 
     @property
     def head_dim(self) -> int:
@@ -144,12 +152,6 @@ def cast_params(params, dtype: torch.dtype, device=None):
     return params.to(device=device)
 
 
-def layer_params(layers: dict, i: int) -> dict:
-    """Layer i's views of the stacked [L, ...] weights."""
-    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
-
-
 # ----------------------------------------------------------------- blocks --
 
 def rope_for(cfg: TransformerConfig, positions: torch.Tensor):
@@ -212,34 +214,66 @@ def _attn(lp, x, cfg: TransformerConfig, positions, rope, kv=None,
 
 
 def _block(lp, x, cfg: TransformerConfig, positions, rope, kv=None,
-           cache_len=0, valid=None):
+           cache_len=0, valid=None, stats=None):
     a, new_kv = _attn(lp, rms_norm(x, lp["ln1"]), cfg, positions, rope, kv,
                       cache_len, valid)
     x = x + a
-    f, aux = ffn(lp, rms_norm(x, lp["ln2"]), cfg)
+    f, aux = ffn(lp, rms_norm(x, lp["ln2"]), cfg, stats)
     return x + f, aux, new_kv
+
+
+def _carry(lp, x, cfg: TransformerConfig, positions, rope):
+    """A training block: (x, aux) without the KV, for `checkpointed`."""
+    x, aux, _ = _block(lp, x, cfg, positions, rope)
+    return x, aux
 
 
 # --------------------------------------------------------------- forward ---
 
 def _trunk(cp: dict, tokens: torch.Tensor, cfg: TransformerConfig,
-           start_pos: int = 0, kv_sink=None, layers=None):
+           start_pos: int = 0, kv_sink=None, layers=None, stats=None):
     """Embedding, every block and the final norm over tokens [B, S] with
     cast parameters; kv_sink(layer, k, v) receives each layer's KV;
-    `layers`: the per-layer views, when the caller keeps them.
+    `layers`: the per-layer views, when the caller keeps them; `stats`:
+    passed to the MoE (dropped assignments). With `cfg.remat` and autograd
+    on, each block is checkpointed (no KV sink then).
     Returns (x [B, S, D], aux f32)."""
     x = cp["embed"][tokens]
     positions = start_pos + torch.arange(tokens.shape[1],
                                          device=tokens.device)[None, :]
     rope = rope_for(cfg, positions)
     aux = torch.zeros((), device=x.device)
-    for i in range(cfg.n_layers):
-        lp = layers[i] if layers else layer_params(cp["layers"], i)
-        x, aux_l, (k, v) = _block(lp, x, cfg, positions, rope)
+    remat = cfg.remat and kv_sink is None and stats is None and \
+        torch.is_grad_enabled()
+    for i, lp in enumerate(layers or layer_views(cp["layers"])):
+        if remat:
+            x, aux_l = checkpointed(partial(_carry, cfg=cfg,
+                                            positions=positions, rope=rope),
+                                    lp, x)
+        else:
+            x, aux_l, (k, v) = _block(lp, x, cfg, positions, rope,
+                                      stats=stats)
+            if kv_sink is not None:
+                kv_sink(i, k, v)
         aux = aux + aux_l
-        if kv_sink is not None:
-            kv_sink(i, k, v)
     return rms_norm(x, cp["final_ln"]), aux
+
+
+def loss_fn(params, batch: dict, cfg: TransformerConfig,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """batch: {'tokens': [B, S+1]} -> scalar mean next-token cross-entropy
+    + aux_weight * aux / n_layers (the reference's `loss_fn`). The logits
+    are f32 (float64 under a float64 compute dtype) over the padded
+    vocabulary, logsumexp included; autograd records through the cast to
+    `compute_dtype`."""
+    tokens, labels = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    cp = cast_params(params, cfg.cdtype)
+    x, aux = _trunk(cp, tokens, cfg)
+    logits = x @ cp["lm_head"]
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - ll).mean() + aux_weight * aux / cfg.n_layers
 
 
 @torch.inference_mode()
@@ -293,10 +327,10 @@ def decode_step(params, token: torch.Tensor, kv_cache, cache_len: int,
     rope = rope_for(cfg, positions)
     valid = decode_mask(cache_len + token.shape[1], k_cache.shape[2],
                         cfg.sliding_window, token.device)
-    for i in range(cfg.n_layers):
-        x, _, _ = _block(layer_params(cp["layers"], i), x, cfg, positions,
-                         rope, kv=(k_cache[i], v_cache[i]),
-                         cache_len=cache_len, valid=valid)
+    for i, lp in enumerate(layer_views(cp["layers"])):
+        x, _, _ = _block(lp, x, cfg, positions, rope,
+                         kv=(k_cache[i], v_cache[i]), cache_len=cache_len,
+                         valid=valid)
     x = rms_norm(x, cp["final_ln"])
     return (x[:, 0] @ cp["lm_head"]).float(), kv_cache
 

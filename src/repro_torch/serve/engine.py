@@ -61,8 +61,7 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = tf.cast_params(params, cfg.cdtype, self.device)
-        self._layers = [tf.layer_params(self.params["layers"], i)
-                        for i in range(cfg.n_layers)]
+        self._layers = tf.layer_views(self.params["layers"])
         self.max_batch = max_batch
         self.max_len = max_len
         self.kv = tf.make_kv_cache(cfg, max_batch, max_len,

@@ -1,11 +1,11 @@
-"""Deterministic data pipelines (port of `repro.train.data`): the recsys
-pipeline and the minibatch GNN pipeline.
+"""Deterministic data pipelines (port of `repro.train.data`): the token
+stream, the recsys pipeline and the minibatch GNN pipeline.
 
 Every batch is a pure function of (seed, step): resuming after a crash
-means restoring the step counter, with no iterator state. The recsys
-numbers differ from the reference's `jax.random` streams (the formulas and
-the ranges are the same); the GNN batches are host numpy and equal the
-reference's array for array.
+means restoring the step counter, with no iterator state. The token and
+recsys numbers differ from the reference's `jax.random` streams (the
+formulas and the ranges are the same); the GNN batches are host numpy and
+equal the reference's array for array.
 """
 from __future__ import annotations
 
@@ -18,7 +18,16 @@ from repro_torch.device import resolve_device
 from repro_torch.graph.sampler import NeighborSampler
 from repro_torch.graph.structure import Graph
 
-__all__ = ["RecsysPipelineConfig", "recsys_batch", "GraphBatchPipeline"]
+__all__ = ["TokenPipelineConfig", "token_batch", "RecsysPipelineConfig",
+           "recsys_batch", "GraphBatchPipeline"]
+
+
+@dataclass(frozen=True)
+class TokenPipelineConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
 
 
 @dataclass(frozen=True)
@@ -34,6 +43,18 @@ def _step_seed(seed: int, step: int) -> int:
     """A generator seed for (seed, step), mixed so neighbouring steps and
     seeds give unrelated streams."""
     return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
+def token_batch(cfg: TokenPipelineConfig, step: int, device=None) -> dict:
+    """{'tokens': [global_batch, seq_len + 1] int32} on `device` (None =
+    cuda): a Zipf-ish stream, id = min(floor(V * u^3), V - 1) with
+    u ~ U[0, 1), so small ids take most of the mass (mean ~V/4)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(_step_seed(cfg.seed, step))
+    u = torch.rand((cfg.global_batch, cfg.seq_len + 1), generator=gen,
+                   device=dev)
+    toks = (cfg.vocab * u ** 3).to(torch.int32)
+    return {"tokens": torch.clamp(toks, max=cfg.vocab - 1)}
 
 
 def recsys_batch(cfg: RecsysPipelineConfig, step: int, device=None) -> dict:

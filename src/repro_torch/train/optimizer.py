@@ -57,38 +57,88 @@ def global_norm(tree) -> torch.Tensor:
                           for l in leaves))
 
 
-@torch.no_grad()
-def adamw_update(grads, state, params, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics) as new tensors; the inputs
-    are not modified. metrics = {"grad_norm": the norm before clipping}."""
-    step = state["step"] + 1
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
-    b1, b2 = cfg.b1, cfg.b2
-    stepf = step.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                       device=stepf.device), stepf)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                       device=stepf.device), stepf)
+def _leaves_like(tree, like) -> list:
+    """The leaves of `tree` in the order of `like`'s (dict keys matched by
+    name, whatever order each dict was built in)."""
+    if isinstance(like, dict):
+        return [x for k in like for x in _leaves_like(tree[k], like[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for t, l in zip(tree, like) for x in _leaves_like(t, l)]
+    return [tree]
 
-    def upd(p, g, m, v):
-        dt = _math_dtype(p)
-        g = g.to(dt) * scale
-        m_new = b1 * m.to(dt) + (1 - b1) * g
-        v_new = b2 * v.to(dt) + (1 - b2) * g.square()
+
+# elements per slice of a leaf the update takes at once: its temporaries
+# then stay ~256 MB each, whatever the leaf's size
+_SLICE_ELEMS = 1 << 26
+
+
+def _slices(t: torch.Tensor):
+    """Views of t along its leading axis, each of at most _SLICE_ELEMS
+    elements where a leading row allows it (a stacked leaf goes a few
+    layers at a time)."""
+    if t.ndim == 0 or t.numel() <= _SLICE_ELEMS:
+        return [t]
+    rows = max(1, _SLICE_ELEMS // max(1, t[0].numel()))
+    return list(torch.split(t, rows))
+
+
+@torch.no_grad()
+def _update_into(outs, p, g, m, v, scale, bc1, bc2, cfg: AdamWConfig):
+    """One leaf's AdamW update, slice by slice: each slice's new p, m, v
+    are written into `outs` (which may be p, m, v themselves) before the
+    next slice starts. The arithmetic is elementwise, so the result is
+    bitwise that of the whole leaf at once."""
+    b1, b2 = cfg.b1, cfg.b2
+    dt = _math_dtype(p)
+    for po, mo, vo, ps, gs, ms, vs in zip(*map(_slices, (*outs, p, g, m,
+                                                          v))):
+        gs = gs.to(dt) * scale
+        m_new = b1 * ms.to(dt) + (1 - b1) * gs
+        v_new = b2 * vs.to(dt) + (1 - b2) * gs.square()
         m_hat = m_new / bc1
         v_hat = v_new / bc2
         delta = m_hat / (torch.sqrt(v_hat) + cfg.eps) + \
-            cfg.weight_decay * p.to(dt)
-        p_new = p.to(dt) - cfg.lr * delta
-        return p_new.to(p.dtype), m_new.to(m.dtype), v_new.to(v.dtype)
+            cfg.weight_decay * ps.to(dt)
+        p_new = ps.to(dt) - cfg.lr * delta
+        po.copy_(p_new)
+        mo.copy_(m_new)
+        vo.copy_(v_new)
+
+
+@torch.no_grad()
+def adamw_update(grads, state, params, cfg: AdamWConfig,
+                 in_place: bool = False):
+    """Returns (new_params, new_state, metrics). metrics = {"grad_norm":
+    the norm before clipping}.
+
+    By default the inputs are not modified and the results are new
+    tensors. With in_place, each parameter, m and v is overwritten with
+    its update (leaf by leaf, a large leaf slice by slice, so the peak is
+    the state plus one slice's temporaries) and the same tensors are
+    returned, `state["step"]` included; the values are bitwise the same.
+    """
+    step = state["step"] + 1
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
+    stepf = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,
+                                       device=stepf.device), stepf)
+    bc2 = 1.0 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32,
+                                       device=stepf.device), stepf)
 
     p_leaves, spec = pytree.tree_flatten(params)
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        p_leaves, pytree.tree_leaves(grads), pytree.tree_leaves(state["m"]),
-        pytree.tree_leaves(state["v"]))]
-    new_params, new_m, new_v = (pytree.tree_unflatten([o[k] for o in out],
-                                                      spec)
-                                for k in range(3))
+    m_leaves = _leaves_like(state["m"], params)
+    v_leaves = _leaves_like(state["v"], params)
+    outs = (p_leaves, m_leaves, v_leaves) if in_place else \
+        tuple([torch.empty_like(t) for t in leaves]
+              for leaves in (p_leaves, m_leaves, v_leaves))
+    for i, (p, g, m, v) in enumerate(zip(p_leaves,
+                                         _leaves_like(grads, params),
+                                         m_leaves, v_leaves)):
+        _update_into([o[i] for o in outs], p, g, m, v, scale, bc1, bc2, cfg)
+    if in_place:
+        state["step"].copy_(step)
+        return params, state, {"grad_norm": gnorm}
+    new_params, new_m, new_v = (pytree.tree_unflatten(o, spec) for o in outs)
     return new_params, {"step": step, "m": new_m, "v": new_v}, \
         {"grad_norm": gnorm}

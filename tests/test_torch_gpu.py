@@ -574,3 +574,137 @@ class TestLmOnCard:
             assert [t.data_ptr() for t in eng.kv] == ptrs
         assert all(r.done for r in reqs)
         assert eng.stats["ticks"] > 0
+
+
+@pytest.mark.gpu
+class TestTrainingOnCard:
+    """Training on the card: the embedding_bag backward kernel against its
+    plain version (max |err| <= 1e-5 of the sum of |terms| per element,
+    against a float64 `index_add_`: f32 sums of up to thousands of terms
+    in another order) and bitwise from run to run (sorted segments, no
+    atomics); one DLRM step at smoke size through both kernels against
+    the same step on the CPU; one LM step in bf16 through the
+    differentiable f32-output GEMM."""
+
+    @pytest.mark.parametrize("n_bags,bag,dim,vocab", [
+        (1, 1, 64, 10), (333, 1, 64, 5), (333, 3, 13, 1000),
+        (5000, 2, 100, 7), (70_000, 1, 64, 3), (1234, 26, 8, 50_000)])
+    @pytest.mark.parametrize("weighted", [False, True])
+    def test_embedding_bag_backward_vs_plain(self, cuda, n_bags, bag, dim,
+                                             vocab, weighted):
+        from repro_torch.kernels.embedding_bag.ops import \
+            embedding_bag_backward
+        from repro_torch.kernels.embedding_bag.ref import \
+            embedding_bag_backward_ref
+        rng = np.random.default_rng(n_bags + bag + dim)
+        # power-law ids: a few hot rows take most of the adds
+        ids = torch.from_numpy((vocab * rng.random((n_bags, bag)) ** 3)
+                               .astype(np.int32)).to(cuda)
+        g = torch.from_numpy(rng.standard_normal((n_bags, dim)).astype(
+            np.float32)).to(cuda)
+        w = torch.from_numpy(rng.standard_normal((n_bags, bag)).astype(
+            np.float32)).to(cuda) if weighted else None
+        before = eb_ops.backward_launches()
+        got = embedding_bag_backward(ids, g, vocab + 3, w)
+        again = embedding_bag_backward(ids, g, vocab + 3, w)
+        torch.cuda.synchronize()
+        assert eb_ops.backward_launches() == before + 2
+        assert torch.equal(got, again)
+        w64 = None if w is None else w.double()
+        want = embedding_bag_backward_ref(ids, g.double(), vocab + 3, w64)
+        mag = embedding_bag_backward_ref(
+            ids, g.double().abs(), vocab + 3,
+            None if w is None else w64.abs())
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-5 * mag + 1e-30).all()), float(
+            (err / mag.clamp(min=1e-30)).max())
+        plain = embedding_bag_backward_ref(ids, g, vocab + 3, w)
+        assert bool(((got - plain).abs().double() <= 1e-5 * mag
+                     + 1e-30).all())
+        assert not got[vocab:].any()       # rows no id reads stay zero
+
+    def test_embedding_bag_autograd_launches_both_kernels(self, cuda):
+        table = torch.randn(50, 16, device=cuda, requires_grad=True)
+        ids = torch.randint(0, 50, (40, 2), device=cuda, dtype=torch.int32)
+        eb_ops.reset_launches()
+        embedding_bag(ids, table).square().sum().backward()
+        torch.cuda.synchronize()
+        assert eb_ops.launches() == 1 and eb_ops.backward_launches() == 1
+        t2 = table.detach().clone().requires_grad_(True)
+        embedding_bag_ref(ids.long(), t2).square().sum().backward()
+        torch.testing.assert_close(table.grad, t2.grad, rtol=1e-5,
+                                   atol=1e-6)
+
+    def test_dlrm_step_card_vs_cpu(self, cuda):
+        from functools import partial
+        from torch.utils import _pytree as pytree
+        from repro_torch.configs import dlrm_rm2
+        from repro_torch.models.recsys import dlrm
+        from repro_torch.train.optimizer import AdamWConfig, adamw_init
+        from repro_torch.train.train_loop import make_train_step
+        cfg = dlrm_rm2.smoke_config()
+        params = dlrm.init_params(cfg, seed=0)
+        batch = dlrm_rm2.make_batch(cfg, 64, seed=1)
+        cpu_params = pytree.tree_map(lambda t: t.cpu(), params)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        opt_cfg = AdamWConfig(lr=1e-3)
+        step = make_train_step(partial(dlrm.loss_fn, cfg=cfg), opt_cfg)
+        eb_ops.reset_launches()
+        p, _, m = step(params, adamw_init(params, opt_cfg), batch)
+        torch.cuda.synchronize()
+        assert eb_ops.launches() == 1 and eb_ops.backward_launches() == 1
+        cp, _, cm = step(cpu_params, adamw_init(cpu_params, opt_cfg),
+                         cpu_batch)
+        for k in ("loss", "grad_norm"):
+            torch.testing.assert_close(m[k].cpu(), cm[k], rtol=1e-5,
+                                       atol=1e-7)
+        # a step-1 update is ~lr * sign(g): a gradient at noise level may
+        # take the other sign on the other device
+        for a, b in zip(pytree.tree_leaves(p), pytree.tree_leaves(cp)):
+            assert float((a.cpu() - b).abs().max()) <= 2.0001 * opt_cfg.lr
+        # the gradients themselves, GNN suite's bounds
+        grads = []
+        for prm, bt in ((dlrm.init_params(cfg, seed=0), batch),
+                        (pytree.tree_map(lambda t: t.cpu(),
+                                         dlrm.init_params(cfg, seed=0)),
+                         cpu_batch)):
+            leaves = [t.requires_grad_(True)
+                      for t in pytree.tree_leaves(prm)]
+            grads.append(torch.autograd.grad(
+                dlrm.loss_fn(prm, bt, cfg), leaves))
+        for a, b in zip(*grads):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6)
+
+    def test_lm_bf16_step_runs_and_f32_matches_cpu(self, cuda):
+        import dataclasses
+        from functools import partial
+        from torch.utils import _pytree as pytree
+        from repro_torch.configs import granite_moe_3b
+        from repro_torch.models import transformer as tf
+        from repro_torch.train.data import TokenPipelineConfig, token_batch
+        from repro_torch.train.optimizer import AdamWConfig, adamw_init
+        from repro_torch.train.train_loop import make_train_step
+        cfg = granite_moe_3b.smoke_config()
+        params = tf.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                cfg)
+        batch = token_batch(TokenPipelineConfig(cfg.vocab, 16, 4), 0, cuda)
+        opt_cfg = AdamWConfig(lr=1e-3)
+        loss = {}
+        for dt in ("float32", "bfloat16"):
+            c = dataclasses.replace(cfg, compute_dtype=dt)
+            p = pytree.tree_map(lambda t: t.clone(), params)
+            _, _, m = make_train_step(partial(tf.loss_fn, cfg=c), opt_cfg,
+                                      num_microbatches=2)(
+                p, adamw_init(p, opt_cfg), batch)
+            loss[dt] = float(m["loss"])
+            assert np.isfinite(loss[dt]) and np.isfinite(float(
+                m["grad_norm"]))
+        cpu = pytree.tree_map(lambda t: t.cpu(), params)
+        _, _, cm = make_train_step(partial(tf.loss_fn, cfg=cfg), opt_cfg,
+                                   num_microbatches=2)(
+            cpu, adamw_init(cpu, opt_cfg),
+            {k: v.cpu() for k, v in batch.items()})
+        assert abs(loss["float32"] - float(cm["loss"])) <= 1e-5 * abs(
+            float(cm["loss"]))
+        assert abs(loss["bfloat16"] - loss["float32"]) <= 5e-2 * abs(
+            loss["float32"])

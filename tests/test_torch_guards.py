@@ -76,7 +76,8 @@ def test_fresh_import_leaves_jax_and_reference_out():
             "repro_torch.configs.granite_moe_3b, "
             "repro_torch.configs.deepseek_7b, "
             "repro_torch.configs.qwen2_5_32b, "
-            "repro_torch.configs.qwen3_moe_235b\n"
+            "repro_torch.configs.qwen3_moe_235b, "
+            "repro_torch.launch.train, repro_torch.train.grad_compress\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -407,7 +407,8 @@ class TestEmbeddingBagChecks:
 class TestBuild:
     def test_sources_cover_both_kernels(self):
         srcs = _build.sources()
-        assert set(srcs) == {"bsr_spmm", "cheb_step", "embedding_bag"}
+        assert set(srcs) == {"bsr_spmm", "cheb_step", "embedding_bag",
+                             "embedding_bag_backward"}
         for path in srcs.values():
             assert path.suffix == ".cu" and path.parent.name == "csrc"
 
