@@ -23,7 +23,8 @@ package. Phases, each of which must pass:
      [33.7M, 64] gradient) against a float64 and the plain f32
      index_add_ (1e-4 of sum |terms| per element), untouched rows zero, a
      second launch bitwise; its time beside its bound, index_add_ and the
-     dense zero fill;
+     dense zero fill, split into torch.sort and its two passes, with the
+     passes' registers and spills;
   3. slice A: the PPR service at `full_config()` with engine "auto"
      (naca must land on the fused block-ELL engine, kmer on COO), 256
      seeded queries + 10% repeats, answers checked against a float64
@@ -187,6 +188,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2970,6 +2972,23 @@ EB_BWD_TOL = 1e-4      # backward kernel vs float64, share of sum |terms|
 BF16_DENSE_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor core, dense
 
 
+def ptxas_report(name: str) -> dict:
+    """{kernel function: "N registers, S bytes spill stores, L bytes spill
+    loads"} from the last build log of library `name` ({} when it was
+    loaded from disk)."""
+    from repro_torch.kernels import _build
+    out, fn, spill = {}, None, ""
+    for line in _build.build_log(name).splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill stores" in line:
+            spill = line.strip().split(", ", 1)[1]
+        elif "registers" in line and fn:
+            regs = line.split("Used ")[1].split(",")[0]
+            out[fn] = f"{regs}, {spill}"
+    return out
+
+
 def phase_backward_kernel() -> dict:
     """Phase 2 for embedding_bag's backward kernel at DLRM-RM2 train_batch's
     shapes: recsys_batch's power-law ids at B = 65,536 (26 bags of one row
@@ -2977,13 +2996,17 @@ def phase_backward_kernel() -> dict:
     per row), a random output gradient, the dense [33.7M, 64] gradient.
     Held on the touched rows to a float64 index_add_ and to the plain f32
     version, each within EB_BWD_TOL of sum |terms| per element (f32 sums
-    of up to ~22,000 terms in no common order: a typical gap is
-    ~sqrt(n) u ~ 9e-6 of it); untouched rows zero; a second launch
+    of up to ~38,000 terms in no common order: a typical gap is
+    ~sqrt(n) u ~ 1e-5 of it); untouched rows zero; a second launch
     bitwise equal. Timed (CUDA events): the kernel on a zeroed gradient
-    (sort + two passes), the plain version, index_add_ on the same rows
-    (the library call) and the dense zero fill."""
+    (the whole call: sort + two passes), torch.sort alone, the plain
+    version, index_add_ on the same rows (the library call) and the dense
+    zero fill; the two passes by device time (torch.profiler, by kernel
+    name); their ptxas registers and spills; the chunk plan and the
+    pieces pass's resident blocks per SM."""
     import torch
     from repro_torch.configs.dlrm_rm2 import full_config
+    from repro_torch.kernels import _build
     from repro_torch.kernels.embedding_bag import ops as eb_ops
     from repro_torch.kernels.embedding_bag.ref import \
         embedding_bag_backward_ref
@@ -3028,8 +3051,25 @@ def phase_backward_kernel() -> dict:
           f"|terms| (limit {EB_BWD_TOL})")
     check(untouched_zero and again, "embedding_bag backward: an untouched "
           "row is not zero or a second launch differs")
+    chunk, n_chunks = eb_ops.backward_plan(n)
+    per_sm = _build.library(
+        "embedding_bag_backward").embedding_bag_backward_blocks_per_sm()
+    for fn, line in ptxas_report("embedding_bag_backward").items():
+        name = re.search(r"backward_(pieces|join)ILi(\d)E", fn)
+        log(f"[{CARD}] embedding_bag backward ptxas "
+            f"{name[1] if name else fn}<{name[2] if name else '?'}>: {line}")
     idx = ids.reshape(-1).long()
-    ms = time_ms(lambda: eb_ops._launch_backward(ids, g, grad, None), 20)
+    flat = ids.reshape(-1)
+
+    def call():
+        eb_ops._launch_backward(ids, g, grad, None)
+    ms = time_ms(call, 20)
+    sort_ms = time_ms(lambda: torch.sort(flat, stable=True), 20)
+    by_kernel = device_time_by_kernel(call, 20)
+    pieces_ms = sum(us for k, us in by_kernel.items()
+                    if "backward_pieces" in k) / 1e3
+    join_ms = sum(us for k, us in by_kernel.items()
+                  if "backward_join" in k) / 1e3
     zero_ms = time_ms(lambda: grad.zero_(), 5)
     lib_ms = time_ms(lambda: grad.index_add_(0, idx, g), 20)
     del grad
@@ -3041,15 +3081,22 @@ def phase_backward_kernel() -> dict:
     bytes_ms = (4 * n * d + 4 * n + 4 * n_rows * d) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2.0 * n * d / FP32_FLOP_PER_S * 1e3
     bnd = max(bytes_ms, ops_ms)
-    log(f"[{CARD}] embedding_bag backward: kernel {ms:.3f} ms per launch "
-        f"(sort + 2 passes), bound {bnd:.3f} ms (bytes: grad_out + ids + "
-        f"one write of each touched row; {bnd / ms:.0%} of it); "
-        f"plain {plain_ms:.3f} ms (zeros + index_add_); index_add_ on the "
-        f"same rows {lib_ms:.3f} ms; the dense zero fill of "
-        f"{4 * v * d:,} bytes {zero_ms:.3f} ms")
+    log(f"[{CARD}] embedding_bag backward: whole call {ms:.4f} ms per "
+        f"launch (CUDA events): torch.sort alone {sort_ms:.4f} ms, pieces "
+        f"pass {pieces_ms:.4f} ms, join pass {join_ms:.4f} ms (device time, "
+        f"torch.profiler); chunks of {chunk} entries x {n_chunks:,}, "
+        f"{per_sm} resident blocks of 8 warps per SM; bound {bnd:.4f} ms "
+        f"(bytes: grad_out + ids + one write of each touched row; "
+        f"{bnd / ms:.0%} of it; the passes alone "
+        f"{bnd / max(pieces_ms + join_ms, 1e-9):.0%}); plain "
+        f"{plain_ms:.3f} ms (zeros + index_add_); index_add_ on the same "
+        f"rows {lib_ms:.3f} ms; the dense zero fill of {4 * v * d:,} bytes "
+        f"{zero_ms:.3f} ms")
     return {"err": err, "share": share, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "zero_ms": zero_ms, "bytes_ms": bytes_ms,
-            "ops_ms": ops_ms, "touched_rows": n_rows, "hot": hot}
+            "ops_ms": ops_ms, "touched_rows": n_rows, "hot": hot,
+            "split_ms": {"sort": sort_ms, "pieces": pieces_ms,
+                         "join": join_ms}}
 
 
 def loss_and_grad_norm(loss_fn, params, batch) -> tuple[float, float]:
@@ -3723,7 +3770,8 @@ def main() -> int:
          "launches": i["embedding_bag_backward"],
          "launches_by_path": {"slice_i": i["embedding_bag_backward"]},
          "max_abs_err": eb_bwd["err"],
-         "ms": eb_bwd["ms"], "plain_ms": eb_bwd["plain_ms"],
+         "ms": eb_bwd["ms"], "split_ms": eb_bwd["split_ms"],
+         "plain_ms": eb_bwd["plain_ms"],
          "bound_ms": ebb_b, "bound_by": ebb_by,
          "library_ms": eb_bwd["library_ms"]},
     ]}

@@ -23,8 +23,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward_ref,
                                                    embedding_bag_ref)
 
-__all__ = ["embedding_bag", "embedding_bag_backward", "launches",
-           "backward_launches", "reset_launches"]
+__all__ = ["embedding_bag", "embedding_bag_backward", "backward_plan",
+           "launches", "backward_launches", "reset_launches"]
+
+# The backward kernel's chunk plan (csrc/embedding_bag_backward.cu): one
+# warp per chunk of sorted entries, each chunk at least TILE entries (the
+# kernel's kTile, staged in shared memory per warp) and no more chunks than
+# CHUNKS, one wave of resident warps on an H100 (132 SMs x 4 blocks of 8
+# warps, the kernel's launch bounds), so no warp waits for a second wave.
+TILE = 256
+CHUNKS = 132 * 4 * 8
 
 _LAUNCHES = 0
 _BWD_LAUNCHES = 0
@@ -119,14 +127,20 @@ def _bwd_fn():
     if _BWD_FN is None:
         lib = _build.library("embedding_bag_backward")
         fn = lib.embedding_bag_backward_f32
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 3 + \
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4 + \
             [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        scratch = lib.embedding_bag_backward_scratch
-        scratch.argtypes = [ctypes.c_int64, ctypes.c_int64]
-        scratch.restype = ctypes.c_int64
-        _BWD_FN = fn, scratch
+        _BWD_FN = fn
     return _BWD_FN
+
+
+def backward_plan(n: int) -> tuple[int, int]:
+    """(chunk, n_chunks) of the backward kernel for n sorted entries: the
+    shortest chunk of at least TILE entries that cuts n into at most CHUNKS
+    chunks, and the count of chunks. The kernel's sums run in an order
+    fixed by the sorted ids and this plan, which depends on n alone."""
+    chunk = max(TILE, -(-n // CHUNKS))
+    return chunk, -(-n // chunk)
 
 
 def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
@@ -146,18 +160,19 @@ def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
     n, dim = ids.numel(), grad.shape[1]
     if n == 0 or dim == 0:
         return grad
-    fn, scratch = _bwd_fn()
+    fn = _bwd_fn()
     # index preparation: the entries of one id, in position order
     sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
-    head = torch.empty(scratch(n, dim), dtype=torch.float32,
-                       device=grad.device)
-    tail = torch.empty_like(head)
+    chunk, n_chunks = backward_plan(n)
+    # each chunk's head and tail partials: [2, n_chunks, D]
+    head, tail = torch.empty((2, n_chunks, dim), dtype=torch.float32,
+                             device=grad.device)
     with torch.cuda.device(grad.device):
         stream = torch.cuda.current_stream(grad.device).cuda_stream
         err = fn(sorted_ids.data_ptr(), perm.data_ptr(),
                  None if weights is None else weights.data_ptr(),
                  grad_out.data_ptr(), grad.data_ptr(), head.data_ptr(),
-                 tail.data_ptr(), n, ids.shape[1], dim, stream)
+                 tail.data_ptr(), n, chunk, ids.shape[1], dim, stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag backward: kernel launch failed "
                            f"with CUDA error {err}")

@@ -114,6 +114,55 @@ class TestEmbeddingBagGradient:
         assert not out.requires_grad
 
 
+class TestBackwardPlan:
+    """The chunk plan the wrapper computes before the backward kernel's
+    launch (`backward_plan`), against a count in numpy: the fewest entries
+    per chunk, at least TILE, that cut n into at most CHUNKS chunks."""
+
+    @staticmethod
+    def _count(n: int) -> tuple[int, int]:
+        chunk = eb_ops.TILE
+        while len(np.arange(0, n, chunk)) > eb_ops.CHUNKS:
+            chunk += 1
+        return chunk, len(np.arange(0, n, chunk))
+
+    @pytest.mark.parametrize("n", [
+        1, 255, 256, 257, 4_096, eb_ops.TILE * eb_ops.CHUNKS - 1,
+        eb_ops.TILE * eb_ops.CHUNKS, eb_ops.TILE * eb_ops.CHUNKS + 1,
+        1_703_936, 3_000_001])
+    def test_plan_against_a_count(self, n):
+        chunk, n_chunks = eb_ops.backward_plan(n)
+        assert (chunk, n_chunks) == self._count(n)
+        # every entry in exactly one chunk, none longer than `chunk`
+        sizes = np.bincount(np.arange(n) // chunk)
+        assert len(sizes) == n_chunks and sizes.sum() == n
+        assert sizes.max() <= chunk and sizes.min() >= 1
+
+    def test_train_batch_plan_and_scratch(self):
+        """DLRM-RM2's train_batch: 1,703,936 entries in one wave of
+        chunks; the head and tail partials, [2, n_chunks, D] floats, stay
+        near 2 MB at D = 64."""
+        chunk, n_chunks = eb_ops.backward_plan(65_536 * 26)
+        assert n_chunks <= eb_ops.CHUNKS < n_chunks + 8
+        assert chunk == -(-65_536 * 26 // eb_ops.CHUNKS) == 404
+        assert n_chunks == 4_218 and 2 * n_chunks * 64 * 4 == 2_159_616
+
+    def test_plan_constants_match_the_source(self):
+        """TILE is the kernel's kTile; CHUNKS is an H100's 132 SMs times
+        the blocks per SM of the kernel's launch bounds times its warps per
+        block."""
+        import re
+        from repro_torch.kernels import _build
+        src = _build.sources()["embedding_bag_backward"].read_text()
+
+        def const(pattern):
+            return int(re.search(pattern, src)[1])
+        assert eb_ops.TILE == const(r"constexpr int kTile = (\d+);")
+        assert eb_ops.CHUNKS == 132 * const(
+            r"constexpr int kMinBlocks = (\d+);") * const(
+            r"constexpr int kWarps = (\d+);")
+
+
 def _ref_config(cfg):
     return j_dlrm.DLRMConfig(**dataclasses.asdict(cfg))
 

@@ -586,42 +586,110 @@ class TestTrainingOnCard:
     the same step on the CPU; one LM step in bf16 through the
     differentiable f32-output GEMM."""
 
+    @staticmethod
+    def _hold_backward(ids, g, rows, w=None):
+        """The backward kernel on (ids, g, w) into [rows, D], launched
+        twice: one count per launch, bitwise equal, within 1e-5 of the sum
+        of |terms| per element of a float64 `index_add_` and of the plain
+        f32 version, zero on every row no id reads."""
+        from repro_torch.kernels.embedding_bag.ops import \
+            embedding_bag_backward
+        from repro_torch.kernels.embedding_bag.ref import \
+            embedding_bag_backward_ref
+        before = eb_ops.backward_launches()
+        got = embedding_bag_backward(ids, g, rows, w)
+        again = embedding_bag_backward(ids, g, rows, w)
+        torch.cuda.synchronize()
+        assert eb_ops.backward_launches() == before + 2
+        assert torch.equal(got, again)
+        w64 = None if w is None else w.double()
+        want = embedding_bag_backward_ref(ids, g.double(), rows, w64)
+        mag = embedding_bag_backward_ref(
+            ids, g.double().abs(), rows, None if w is None else w64.abs())
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-5 * mag + 1e-30).all()), float(
+            (err / mag.clamp(min=1e-30)).max())
+        plain = embedding_bag_backward_ref(ids, g, rows, w)
+        assert bool(((got - plain).abs().double() <= 1e-5 * mag
+                     + 1e-30).all())
+        read = torch.zeros(rows, dtype=torch.bool, device=ids.device)
+        read[ids.reshape(-1).long()] = True
+        assert not got[~read].any()        # rows no id reads stay zero
+
+    @staticmethod
+    def _case(cuda, ids: np.ndarray, dim: int, weighted: bool, rng):
+        g = torch.from_numpy(rng.standard_normal(
+            (ids.shape[0], dim)).astype(np.float32)).to(cuda)
+        w = torch.from_numpy(rng.standard_normal(ids.shape).astype(
+            np.float32)).to(cuda) if weighted else None
+        return torch.from_numpy(ids.astype(np.int32)).to(cuda), g, w
+
     @pytest.mark.parametrize("n_bags,bag,dim,vocab", [
         (1, 1, 64, 10), (333, 1, 64, 5), (333, 3, 13, 1000),
         (5000, 2, 100, 7), (70_000, 1, 64, 3), (1234, 26, 8, 50_000)])
     @pytest.mark.parametrize("weighted", [False, True])
     def test_embedding_bag_backward_vs_plain(self, cuda, n_bags, bag, dim,
                                              vocab, weighted):
-        from repro_torch.kernels.embedding_bag.ops import \
-            embedding_bag_backward
-        from repro_torch.kernels.embedding_bag.ref import \
-            embedding_bag_backward_ref
         rng = np.random.default_rng(n_bags + bag + dim)
         # power-law ids: a few hot rows take most of the adds
-        ids = torch.from_numpy((vocab * rng.random((n_bags, bag)) ** 3)
-                               .astype(np.int32)).to(cuda)
-        g = torch.from_numpy(rng.standard_normal((n_bags, dim)).astype(
-            np.float32)).to(cuda)
-        w = torch.from_numpy(rng.standard_normal((n_bags, bag)).astype(
-            np.float32)).to(cuda) if weighted else None
-        before = eb_ops.backward_launches()
-        got = embedding_bag_backward(ids, g, vocab + 3, w)
-        again = embedding_bag_backward(ids, g, vocab + 3, w)
-        torch.cuda.synchronize()
-        assert eb_ops.backward_launches() == before + 2
-        assert torch.equal(got, again)
-        w64 = None if w is None else w.double()
-        want = embedding_bag_backward_ref(ids, g.double(), vocab + 3, w64)
-        mag = embedding_bag_backward_ref(
-            ids, g.double().abs(), vocab + 3,
-            None if w is None else w64.abs())
-        err = (got.double() - want).abs()
-        assert bool((err <= 1e-5 * mag + 1e-30).all()), float(
-            (err / mag.clamp(min=1e-30)).max())
-        plain = embedding_bag_backward_ref(ids, g, vocab + 3, w)
-        assert bool(((got - plain).abs().double() <= 1e-5 * mag
-                     + 1e-30).all())
-        assert not got[vocab:].any()       # rows no id reads stay zero
+        ids = (vocab * rng.random((n_bags, bag)) ** 3).astype(np.int32)
+        ids, g, w = self._case(cuda, ids, dim, weighted, rng)
+        self._hold_backward(ids, g, vocab + 3, w)
+
+    @pytest.mark.parametrize("weighted", [False, True])
+    def test_backward_one_segment_over_a_thousand_chunks(self, cuda,
+                                                         weighted):
+        """One id for all 300,000 entries: a single segment across 1,172
+        chunks, the join's longest search and deepest sum."""
+        assert eb_ops.backward_plan(300_000)[1] > 1000
+        ids, g, w = self._case(cuda, np.zeros((300_000, 1)), 64, weighted,
+                               np.random.default_rng(1))
+        self._hold_backward(ids, g, 5, w)
+
+    @pytest.mark.parametrize("bag", [1, 2])
+    def test_backward_segments_around_the_tile(self, cuda, bag):
+        """Segments of tile - 1, tile, tile + 1 and 2 tile entries (and
+        single ones) in one input, so chunk boundaries (one per tile here)
+        fall at, one before and one after a segment's ends; the entries
+        shuffled across bags."""
+        t = eb_ops.TILE
+        lens = [t - 1, t, t + 1, 2 * t, 1, t - 1, t + 1, 2 * t, t, 1]
+        rng = np.random.default_rng(bag)
+        flat = rng.permutation(np.repeat(np.arange(len(lens)), lens))
+        ids, g, w = self._case(cuda, flat.reshape(-1, bag), 64, True, rng)
+        self._hold_backward(ids, g, len(lens) + 2, w)
+
+    def test_backward_all_ids_distinct(self, cuda):
+        rng = np.random.default_rng(3)
+        ids, g, w = self._case(cuda, rng.permutation(100_000)[:, None], 64,
+                               False, rng)
+        self._hold_backward(ids, g, 100_000)
+
+    @pytest.mark.parametrize("dim", [1, 3, 65, 130, 256])
+    @pytest.mark.parametrize("weighted", [False, True])
+    def test_backward_widths(self, cuda, dim, weighted):
+        """Odd widths take one float per lane, even ones two; 65, 130 and
+        256 take several column sweeps."""
+        rng = np.random.default_rng(dim)
+        ids = (500 * rng.random((20_000, 2)) ** 3).astype(np.int32)
+        ids, g, w = self._case(cuda, ids, dim, weighted, rng)
+        self._hold_backward(ids, g, 503, w)
+
+    @pytest.mark.parametrize("weighted", [False, True])
+    def test_backward_fewer_entries_than_a_tile(self, cuda, weighted):
+        rng = np.random.default_rng(7)
+        ids = (40 * rng.random((50, 2)) ** 2).astype(np.int32)
+        assert ids.size < eb_ops.TILE
+        ids, g, w = self._case(cuda, ids, 64, weighted, rng)
+        self._hold_backward(ids, g, 43, w)
+
+    def test_backward_plan_is_one_wave(self, cuda):
+        """An H100 holds ops.CHUNKS warps of the pieces pass at once (4
+        blocks of 8 per SM), so the plan's chunks run in one wave."""
+        from repro_torch.kernels import _build
+        lib = _build.library("embedding_bag_backward")
+        assert lib.embedding_bag_backward_blocks_per_sm() * 8 * 132 >= \
+            eb_ops.CHUNKS
 
     def test_embedding_bag_autograd_launches_both_kernels(self, cuda):
         table = torch.randn(50, 16, device=cuda, requires_grad=True)
