@@ -177,6 +177,27 @@ package. Phases, each of which must pass:
        card (loss rel <= 1e-4, grad norm rel <= 1e-3), both embedding_bag
        counters equal to the steps, ms per step beside its bytes bound,
        AdamW's share, peak memory.
+ 12. slice J, the expert-parallel all-to-all MoE (no kernel of its own:
+     the reference's packing and trips are XLA ops) over NCCL at world
+     size 1 on a (1, 1) ("data", "model") mesh (`distributed.use_mesh`,
+     ep = 1), bf16 compute, TF32 off:
+     - granite-moe-3b-a800m at full width and depth on I2's weights, a
+       fresh AdamW state: its train step with impl "a2a" beside the dense
+       step, J_ROUNDS rounds of dense a2a a2a dense on one batch of
+       4 x 1 x 4,096 (ms, peak, the a2a step's idle share), the
+       capacities, dropped assignments per stage beside the dense path's,
+       one trip's cost against a device copy; J-d: the trip counters show
+       every MoE layer of every step ran the a2a path; J-b: f32 vs
+       float64 at 1 x 512 at the config's capacity factor 1.25 (drops
+       real; loss rel <= 1e-4, grad norm rel <= 1e-3); J-c: a second call
+       (loss and every gradient leaf of 1 x 4,096) bitwise equal with
+       deterministic algorithms on; J-a: a2a vs dense at capacity factor
+       8 in f32 at 1 x 512, where neither drops (loss rel <= 1e-5, grad
+       norm rel <= 1e-4);
+     - qwen3-moe-235b-a22b's train_4k_a2a cell through
+       `registry.get(...).cell_config`, full width cut to 2 of 94 layers:
+       the loss of 1 x 4,096 and its gradient (ms, peaks, drops, trips)
+       and J-a on uniform tokens.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -3102,7 +3123,9 @@ def phase_backward_kernel() -> dict:
 def loss_and_grad_norm(loss_fn, params, batch) -> tuple[float, float]:
     """loss_fn(params, batch) and the global norm of its gradient (leaf
     sums of squares added in tree order, as `global_norm`), each leaf's
-    gradient dropped as soon as its square sum is taken."""
+    gradient dropped as soon as its square sum is taken (a reduction that
+    allocates no leaf-sized temporary: granite's float64 expert leaf is
+    7.5 GiB)."""
     import torch
     from torch.utils import _pytree as pytree
     leaves, spec = pytree.tree_flatten(params)
@@ -3111,7 +3134,7 @@ def loss_and_grad_norm(loss_fn, params, batch) -> tuple[float, float]:
 
     def hook(i):
         def take(x):
-            sq[i] = x.grad.square().sum()
+            sq[i] = torch.linalg.vector_norm(x.grad).square()
             x.grad = None
         return take
     hooks = [x.register_post_accumulate_grad_hook(hook(i))
@@ -3125,12 +3148,12 @@ def loss_and_grad_norm(loss_fn, params, batch) -> tuple[float, float]:
     return float(loss.detach()), float(torch.sqrt(sum(sq)))
 
 
-def lm_f64_gate(label: str, cfg, params, dev) -> dict:
-    """Gate I-a: one step's loss and grad norm at one sequence of
-    I_GATE_SEQ tokens with compute_dtype float32 against float64 (the
-    same parameters widened), loss rel <= LOSS_GAP_F64 and grad norm rel
-    <= GNORM_GAP_F64 (slice G's gates); the bf16 loss against float64
-    printed."""
+def lm_f64_gate(label: str, cfg, params, dev, gate: str = "I-a") -> dict:
+    """Gate I-a (J-b under a mesh): one step's loss and grad norm at one
+    sequence of I_GATE_SEQ tokens with compute_dtype float32 against
+    float64 (the same parameters widened), loss rel <= LOSS_GAP_F64 and
+    grad norm rel <= GNORM_GAP_F64 (slice G's gates); the bf16 loss
+    against float64 printed."""
     import dataclasses
     import torch
     from functools import partial
@@ -3154,19 +3177,26 @@ def lm_f64_gate(label: str, cfg, params, dev) -> dict:
            "grad_norm": abs(g32 - g64) / abs(g64),
            "bf16_loss": abs(lbf - l64) / abs(l64), "loss_f64": l64,
            "grad_norm_f64": g64}
-    log(f"[{CARD}] I-a {label} at 1 x {I_GATE_SEQ}: f32 vs float64 loss "
+    log(f"[{CARD}] {gate} {label} at 1 x {I_GATE_SEQ}: f32 vs float64 loss "
         f"{l32:.9g} vs {l64:.9g} (rel {out['loss']:.3e}, limit "
         f"{LOSS_GAP_F64:g}), grad norm {g32:.9g} vs {g64:.9g} (rel "
         f"{out['grad_norm']:.3e}, limit {GNORM_GAP_F64:g}); bf16 loss "
         f"{lbf:.9g} (rel {out['bf16_loss']:.3e}, printed)")
     check(out["loss"] <= LOSS_GAP_F64 and out["grad_norm"] <= GNORM_GAP_F64,
-          f"I-a {label}: f32 vs float64 gaps {out}")
+          f"{gate} {label}: f32 vs float64 gaps {out}")
     return out
 
 
 def moe_drops(cfg, params, tokens) -> int:
     """MoE assignments the step's forward drops over `tokens` [M, S+1]
     (one microbatch per row, as the step sees them)."""
+    return moe_drop_stats(cfg, params, tokens)["dropped"]
+
+
+def moe_drop_stats(cfg, params, tokens) -> dict:
+    """The MoE's drop counters (`stats`, as ints) of the step's forward
+    over `tokens` [M, S+1], one microbatch per row, under the active mesh
+    (the all-to-all path counts each stage too)."""
     import torch
     from repro_torch.models import transformer as tf
     stats = {}
@@ -3174,7 +3204,7 @@ def moe_drops(cfg, params, tokens) -> int:
         cp = tf.cast_params(params, cfg.cdtype)
         for row in tokens.split(1):
             tf._trunk(cp, row[:, :-1], cfg, stats=stats)
-    return int(stats["dropped"])
+    return {k: int(v) for k, v in stats.items()}
 
 
 def lm_step_idle(label: str, cfg, opt_cfg, params, opt, tokens,
@@ -3532,11 +3562,13 @@ def phase_slice_i4() -> dict:
 
 def phase_slice_i() -> dict:
     """Slice I, training on the card: I1 danube at full width (with gates
-    I-b and I-a on its state), I3 the launcher, I2 granite (with I-a), I4
-    DLRM-RM2 at train_batch. bf16 compute as the configs set it, TF32
-    off, cuBLAS bf16 reductions in f32, random weights from generator
-    seed 0. Returns each part and the kernel launches of I4's path (the
-    LM paths launch no kernel of the repo)."""
+    I-b and I-a on its state), I3 the launcher, I4 DLRM-RM2 at
+    train_batch, I2 granite (with I-a). bf16 compute as the configs set
+    it, TF32 off, cuBLAS bf16 reductions in f32, random weights from
+    generator seed 0. Returns each part, the kernel launches of I4's path
+    (the LM paths launch no kernel of the repo) and granite's config and
+    parameters after I2, which slice J trains on (its AdamW state goes
+    before I-a, whose float64 copy would not fit beside it)."""
     import dataclasses
     import torch
     from repro_torch.configs import granite_moe_3b, h2o_danube_1_8b
@@ -3559,6 +3591,7 @@ def phase_slice_i() -> dict:
         torch.cuda.empty_cache()
         i3 = phase_slice_i3()
         torch.cuda.empty_cache()
+        i4 = phase_slice_i4()
         cfg2 = granite_moe_3b.full_config()
         if I2_LAYERS:
             cfg2 = dataclasses.replace(cfg2, n_layers=I2_LAYERS)
@@ -3569,9 +3602,7 @@ def phase_slice_i() -> dict:
         del opt
         torch.cuda.empty_cache()
         gate_g = lm_f64_gate("granite", cfg2, params, dev)
-        del params
         torch.cuda.empty_cache()
-        i4 = phase_slice_i4()
     finally:
         torch.backends.cuda.matmul.\
             allow_bf16_reduced_precision_reduction = prev
@@ -3583,7 +3614,431 @@ def phase_slice_i() -> dict:
     log(f"[{CARD}] slice I: {secs:.1f} s")
     return {"i1": i1, "i2": i2, "i3": i3, "i4": i4, "replay": replay,
             "f64": {"danube": gate_d, "granite": gate_g},
-            "launches": i4["launches"], "seconds": secs}
+            "launches": i4["launches"], "seconds": secs,
+            "granite": (cfg2, params)}
+
+
+# ---------------------------------------------------------------- slice J --
+J_MICRO = I2_MICRO     # granite: 4 microbatches of 1 x I1_SEQ, as I2
+J_NODROP_CF = 8.0      # J-a's capacity factor, raised to E / k where that
+                       # is more, so neither path can drop an assignment
+J_QWEN_GATE_SEQ = 128  # qwen3's J-a sequence: at E / k = 16 its f32 a2a
+                       # expert buffer is [128, 16 T, 4,096]
+J_ROUNDS = 1           # timed rounds of dense, a2a, a2a, dense steps
+                       # (probes/slice_j_probe.py --rounds takes more)
+J_A2A_LOSS_GAP = 1e-5  # J-a: a2a vs dense, relative
+J_A2A_GNORM_GAP = 1e-4
+J_QWEN_LAYERS = 2      # qwen3-moe-235b-a22b cut from 94 layers (f32 ~24 GB)
+
+
+def with_moe(cfg, **kw):
+    """cfg with its MoEConfig fields `kw` replaced."""
+    import dataclasses
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **kw))
+
+
+def trip_calls() -> dict:
+    """{site: calls} of the all-to-all MoE's collectives since the last
+    `reset_collective_counts` (dispatch, return, their _grad, aux)."""
+    from repro_torch.core.distributed import collective_counts
+    from repro_torch.models.moe import TRIPS
+    return {k.split("/")[1]: v["calls"]
+            for k, v in collective_counts().items()
+            if k.startswith(TRIPS + "/")}
+
+
+def a2a_capacities(cfg, tokens: int, ep: int = 1) -> dict:
+    """moe_apply_a2a's capacities and buffer bytes at `tokens` per rank
+    (the reference's formulas), beside the dense path's capacity."""
+    from repro_torch.models.moe import a2a_capacities as caps, moe_capacity
+    m, d = cfg.moe, cfg.d_model
+    e_loc = m.n_experts // ep
+    cap_loc, cap2 = caps(m, tokens, ep)
+    width = 2 if cfg.compute_dtype == "bfloat16" else 4
+    return {"cap_loc": cap_loc, "cap2": cap2,
+            "dense_cap": moe_capacity(m, tokens),
+            "send_x_bytes": ep * cap_loc * d * width,
+            "buf_bytes": e_loc * cap2 * d * width}
+
+
+def gate_a2a_dense(label: str, cfg, params, mesh, dev,
+                   seq: int | None = None) -> dict:
+    """J-a: the loss and grad norm of one sequence of `seq` tokens
+    (default I_GATE_SEQ) with
+    compute float32, through the all-to-all path under `mesh` against the
+    dense path, at capacity factor max(J_NODROP_CF, E / k): from E / k on
+    the dense path has a slot per token in every expert (cf T k / E >= T)
+    and at ep = 1 so do both a2a stages. The two paths' capacities
+    differ, so only where nothing drops do they compute the same
+    function: neither path may drop an assignment (their forwards'
+    counters). Loss rel <= J_A2A_LOSS_GAP, grad norm rel <=
+    J_A2A_GNORM_GAP; the a2a call makes trips and the dense one none."""
+    import dataclasses
+    from functools import partial
+    from repro_torch.core.distributed import reset_collective_counts
+    from repro_torch.distributed import use_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import TokenPipelineConfig, token_batch
+    seq = seq or I_GATE_SEQ
+    batch = token_batch(TokenPipelineConfig(cfg.vocab, seq, 1), 12, dev)
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cf = max(J_NODROP_CF, cfg.moe.n_experts / cfg.moe.top_k)
+    res, trips, drops = {}, {}, {}
+    for name, m in (("a2a", mesh), ("dense", None)):
+        c = with_moe(f32, impl=name, capacity_factor=cf)
+        reset_collective_counts()
+        with use_mesh(m):
+            res[name] = loss_and_grad_norm(partial(tf.loss_fn, cfg=c),
+                                           params, batch)
+            trips[name] = sum(trip_calls().values())
+            drops[name] = moe_drop_stats(c, params, batch["tokens"])[
+                "dropped"]
+    (la, ga), (ld, gd) = res["a2a"], res["dense"]
+    out = {"loss": abs(la - ld) / abs(ld), "grad_norm": abs(ga - gd) / abs(gd),
+           "trips": trips, "capacity_factor": cf, "dropped": drops}
+    log(f"[{CARD}] J-a {label} at 1 x {seq}, f32, capacity factor "
+        f"{cf:g}: a2a vs dense loss {la:.9g} vs {ld:.9g} (rel "
+        f"{out['loss']:.3e}, limit {J_A2A_LOSS_GAP:g}), grad norm {ga:.9g} "
+        f"vs {gd:.9g} (rel {out['grad_norm']:.3e}, limit "
+        f"{J_A2A_GNORM_GAP:g}); trips a2a {trips['a2a']}, dense "
+        f"{trips['dense']}; dropped a2a {drops['a2a']}, dense "
+        f"{drops['dense']}")
+    check(out["loss"] <= J_A2A_LOSS_GAP and out["grad_norm"] <= J_A2A_GNORM_GAP
+          and trips["a2a"] > 0 and trips["dense"] == 0
+          and drops["a2a"] == drops["dense"] == 0,
+          f"J-a {label}: a2a vs dense {out}")
+    return out
+
+
+def gate_a2a_bitwise(cfg, params, mesh, tokens) -> dict:
+    """J-c: the loss and every gradient leaf of one microbatch (`tokens`
+    [1, S+1], the train config) through the all-to-all path, twice with
+    deterministic algorithms on: bitwise equal; the gap of a third call
+    with them off printed."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.distributed import use_mesh
+    from repro_torch.models import transformer as tf
+    leaves, spec = pytree.tree_flatten(params)
+
+    def call():
+        xs = [p.detach().requires_grad_(True) for p in leaves]
+        with use_mesh(mesh):
+            loss = tf.loss_fn(pytree.tree_unflatten(xs, spec),
+                              {"tokens": tokens}, cfg)
+            grads = torch.autograd.grad(loss, xs)
+        return loss.detach(), grads
+    l1, g1 = deterministic(call)
+    l2, g2 = deterministic(call)
+    same = bool(torch.equal(l1, l2)) and all(
+        bool(torch.equal(a, b)) for a, b in zip(g1, g2))
+    del g2
+    l3, g3 = call()
+    gap = max(float((a - b).abs().max()) for a, b in zip(g1, g3))
+    loss_gap = abs(float(l3) - float(l1))
+    del g1, g3
+    torch.cuda.empty_cache()
+    log(f"[{CARD}] J-c granite a2a, 1 x {tokens.shape[1] - 1}: a second "
+        f"call with deterministic algorithms on is bitwise equal (loss and "
+        f"{len(leaves)} gradient leaves) {same}; with them off: max "
+        f"gradient gap {gap:.3e}, loss gap {loss_gap:.3e}")
+    check(same, "J-c: a second a2a call is not bitwise equal")
+    return {"bitwise": same, "atomic_gap": gap, "atomic_loss_gap": loss_gap}
+
+
+def trip_cost(mesh, rows: int, d: int, dev, reps: int = 50) -> dict:
+    """One dispatch trip's cost at world size 1: `all_to_all` over the
+    mesh's "model" group of a [rows, d] bf16 send buffer, against a device
+    copy of the same buffer: device ms per call (CUDA events) and host ms
+    per call (the host clock around the enqueue of `reps` calls)."""
+    import torch
+    from repro_torch.core.distributed import all_to_all
+    x = torch.ones((rows, d), dtype=torch.bfloat16, device=dev)
+    group = mesh.get_group("model")
+    out = {}
+    for name, fn in (("all_to_all", lambda: all_to_all(x, group)),
+                     ("copy", lambda: torch.empty_like(x).copy_(x))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = time_ms(fn, reps, warmup=0)
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        out[name] = {"ms": ms, "host_ms": host}
+    log(f"[{CARD}] J one trip at world size 1, [{rows:,}, {d}] bf16 "
+        f"({2 * rows * d:,} bytes): all_to_all {out['all_to_all']['ms']:.4f}"
+        f" ms device, {out['all_to_all']['host_ms']:.4f} ms host per call; "
+        f"a device copy {out['copy']['ms']:.4f} ms, "
+        f"{out['copy']['host_ms']:.4f} ms host (mean of {reps})")
+    return out
+
+
+def j_steps(cfg_d, cfg_a, params, mesh, dev) -> dict:
+    """Granite's train step (make_train_step, AdamWConfig(lr=I_LR),
+    J_MICRO microbatches of 1 x I1_SEQ, donated) dense and all-to-all on
+    I2's batches, from a fresh AdamW state (I2's went before gate I-a):
+    an a2a warm-up on batch 1, then J_ROUNDS rounds of dense, a2a, a2a, dense
+    on batch 0 (the step is host-bound and moves from call to call; the medians
+    are compared), each timed with CUDA events and its peak memory taken. J-d:
+    the timed a2a steps made their trips (per layer and microbatch: 3 dispatch
+    and 1 return forward, as many again where the checkpointed block is
+    recomputed, which stops after the return trip, and the 2 gradient trips),
+    the dense steps none; a forward over batch 0 makes exactly 4 per layer and
+    microbatch. Dropped assignments of that forward at each stage beside the
+    dense path's; the device's idle share of an a2a step
+    (`lm_step_idle`, which takes one more step)."""
+    import torch
+    from functools import partial
+    from repro_torch.core.distributed import reset_collective_counts
+    from repro_torch.distributed import use_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import TokenPipelineConfig, token_batch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    opt_cfg = AdamWConfig(lr=I_LR)
+    opt = adamw_init(params, opt_cfg)
+    batches = [token_batch(TokenPipelineConfig(cfg_d.vocab, I1_SEQ, J_MICRO),
+                           i, dev) for i in range(2)]
+    steps = {"dense": make_train_step(partial(tf.loss_fn, cfg=cfg_d),
+                                      opt_cfg, J_MICRO, donate=True)}
+    a2a_step = make_train_step(partial(tf.loss_fn, cfg=cfg_a), opt_cfg,
+                               J_MICRO, donate=True)
+
+    def under_mesh(p, o, b):
+        with use_mesh(mesh):
+            return a2a_step(p, o, b)
+    steps["a2a"] = under_mesh
+    steps["a2a"](params, opt, batches[1])
+    torch.cuda.synchronize()
+    reset_collective_counts()
+    ms = {"dense": [], "a2a": []}
+    peak = {"dense": 0, "a2a": 0}
+    losses = []
+    for kind in ("dense", "a2a", "a2a", "dense") * J_ROUNDS:
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        _, _, m = steps[kind](params, opt, batches[0])
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms[kind].append(ev[0].elapsed_time(ev[1]))
+        peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
+        losses.append((kind, float(m["loss"])))
+    trips = trip_calls()
+    # each round's a2a steps over its dense steps: the rounds' interleaving
+    # cancels a drift of the host's speed that is linear within a round
+    ratios = [(ms["a2a"][2 * r] + ms["a2a"][2 * r + 1])
+              / (ms["dense"][2 * r] + ms["dense"][2 * r + 1])
+              for r in range(J_ROUNDS)]
+    with use_mesh(mesh):
+        idle = lm_step_idle("J granite a2a", cfg_a, opt_cfg, params, opt,
+                            batches[0]["tokens"][:1], J_MICRO,
+                            float(np.median(ms["a2a"])))
+    del opt
+    torch.cuda.empty_cache()
+    lm = cfg_d.n_layers * J_MICRO
+    n = 2 * J_ROUNDS          # timed a2a steps
+    want = {"dispatch": n * 6 * lm, "return": n * 2 * lm,
+            "dispatch_grad": n * lm, "return_grad": n * lm}
+    tokens = batches[0]["tokens"]
+    drops_d = moe_drop_stats(cfg_d, params, tokens)
+    reset_collective_counts()
+    with use_mesh(mesh):
+        drops_a = moe_drop_stats(cfg_a, params, tokens)
+    fwd_trips = trip_calls()
+    caps = a2a_capacities(cfg_a, I1_SEQ)
+    cost = trip_cost(mesh, caps["cap_loc"], cfg_a.d_model, dev)
+    check(all(np.isfinite([x for _, x in losses])), f"J: losses {losses}")
+    log(f"[{CARD}] J granite ({cfg_d.n_layers} layers, {cfg_d.n_params():,} "
+        f"params) train step at {J_MICRO} x 1 x {I1_SEQ}, (data, model) "
+        f"mesh (1, 1): a2a {', '.join(f'{t:.1f}' for t in ms['a2a'])} ms "
+        f"(median {np.median(ms['a2a']):.1f}) beside dense "
+        f"{', '.join(f'{t:.1f}' for t in ms['dense'])} ms (median "
+        f"{np.median(ms['dense']):.1f}) on the same batch (CUDA events, "
+        f"{J_ROUNDS} rounds of dense a2a a2a dense); peak "
+        f"a2a {peak['a2a']:,} bytes, dense {peak['dense']:,}; losses "
+        f"{', '.join(f'{k} {x:.5f}' for k, x in losses)}")
+    log(f"[{CARD}] J granite a2a / dense step time per round: "
+        f"{', '.join(f'{x:.4f}' for x in ratios)} (median "
+        f"{np.median(ratios):.4f}, range {min(ratios):.4f} to "
+        f"{max(ratios):.4f}); dense steps {min(ms['dense']):.1f} to "
+        f"{max(ms['dense']):.1f} ms")
+    log(f"[{CARD}] J granite capacities at T = {I1_SEQ}: cap_loc "
+        f"{caps['cap_loc']:,}, cap2 {caps['cap2']:,} per expert (dense "
+        f"{caps['dense_cap']:,}); per layer send_x {caps['send_x_bytes']:,} "
+        f"bytes, buf {caps['buf_bytes']:,}; dropped assignments per step "
+        f"(forward over the {J_MICRO} microbatches, of "
+        f"{J_MICRO * I1_SEQ * cfg_d.moe.top_k * cfg_d.n_layers:,}): a2a "
+        f"stage 1 {drops_a['dropped_stage1']:,}, stage 2 "
+        f"{drops_a['dropped_stage2']:,}; dense {drops_d['dropped']:,}")
+    log(f"[{CARD}] J-d trips of the {n} a2a steps {trips} (want {want}, "
+        f"the dense steps none); the forward over {J_MICRO} microbatches "
+        f"{fwd_trips} (want dispatch {3 * lm}, return {lm})")
+    check(all(trips.get(k) == v for k, v in want.items())
+          and fwd_trips.get("dispatch") == 3 * lm
+          and fwd_trips.get("return") == lm,
+          f"J-d: not every MoE layer ran the a2a path: {trips}, forward "
+          f"{fwd_trips}")
+    return {"ms": ms, "ratios": ratios, "peak": peak, "losses": losses,
+            "trips": trips, "idle": idle["idle"], "forward_trips": fwd_trips,
+            "trip_cost": cost, "dropped": {"a2a": drops_a, "dense": drops_d},
+            "capacities": caps}
+
+
+def phase_slice_j_qwen(mesh, dev) -> dict:
+    """qwen3-moe-235b-a22b's train_4k_a2a cell, resolved through
+    `registry.get` and `cell_config` (impl "a2a", train_4k's sequence),
+    at full width cut to J_QWEN_LAYERS layers, random weights from
+    generator seed 0: the loss of 1 x 4,096 in bf16 through the a2a path
+    (CUDA events, peak), its dropped assignments and trips, then the loss
+    and gradient norm (peak); gate J-a at 1 x J_QWEN_GATE_SEQ."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.lm_common import LM_SHAPES
+    from repro_torch.core.distributed import reset_collective_counts
+    from repro_torch.distributed import use_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.data import TokenPipelineConfig, token_batch
+    from functools import partial
+    cfg, shape = registry.get("qwen3-moe-235b-a22b").cell_config(
+        "train_4k_a2a")
+    cfg = dataclasses.replace(cfg, n_layers=J_QWEN_LAYERS)
+    check(cfg.moe.impl == "a2a" and shape == "train_4k",
+          f"qwen3 train_4k_a2a resolves to {cfg.moe}, {shape}")
+    seq = LM_SHAPES[shape]["seq"]
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = token_batch(TokenPipelineConfig(cfg.vocab, seq, 1), 0, dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    caps = a2a_capacities(cfg, seq)
+    torch.cuda.reset_peak_memory_stats()
+    reset_collective_counts()
+    stats = {}
+    with use_mesh(mesh), torch.no_grad():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        loss = tf.loss_fn(params, batch, cfg)
+        ev[1].record()
+        torch.cuda.synchronize()
+        tf._trunk(tf.cast_params(params, cfg.cdtype),
+                  batch["tokens"][:, :-1], cfg, stats=stats)
+    loss_ms = ev[0].elapsed_time(ev[1])
+    loss_peak = torch.cuda.max_memory_allocated()
+    trips = trip_calls()
+    loss = float(loss)
+    check(np.isfinite(loss), f"qwen3 a2a loss {loss}")
+    check(trips.get("dispatch") == 2 * 3 * cfg.n_layers
+          and trips.get("return") == 2 * cfg.n_layers,
+          f"qwen3: not every MoE layer ran the a2a path: {trips}")
+    out = {"loss": loss, "loss_ms": loss_ms, "loss_peak": loss_peak,
+           "setup_s": setup_s, "capacities": caps, "trips": trips,
+           "dropped": {k: int(v) for k, v in stats.items()},
+           "params": cfg.n_params()}
+    log(f"[{CARD}] J qwen3-moe-235b-a22b train_4k_a2a ({cfg.n_layers} of 94 "
+        f"layers, {cfg.n_params():,} params, set-up {setup_s:.1f} s): loss "
+        f"of 1 x {seq} in {cfg.compute_dtype} through a2a {loss:.6f} in "
+        f"{loss_ms:.1f} ms (CUDA events), peak {loss_peak:,} bytes; cap_loc "
+        f"{caps['cap_loc']:,}, cap2 {caps['cap2']:,} (dense "
+        f"{caps['dense_cap']:,}); dropped stage 1 "
+        f"{out['dropped']['dropped_stage1']:,}, stage 2 "
+        f"{out['dropped']['dropped_stage2']:,} of "
+        f"{seq * cfg.moe.top_k * cfg.n_layers:,}; trips {trips}")
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with use_mesh(mesh):
+        lg, gn = loss_and_grad_norm(partial(tf.loss_fn, cfg=cfg), params,
+                                    batch)
+    torch.cuda.synchronize()
+    out.update(grad_s=time.perf_counter() - t1, grad_norm=gn,
+               grad_peak=torch.cuda.max_memory_allocated())
+    check(np.isfinite(lg) and np.isfinite(gn),
+          f"qwen3 a2a loss {lg}, grad norm {gn}")
+    log(f"[{CARD}] J qwen3 loss and gradient through a2a: loss {lg:.6f}, "
+        f"grad norm {gn:.6g}, {out['grad_s']:.2f} s (host clock), peak "
+        f"{out['grad_peak']:,} bytes")
+    # at random init the tokens route alike (attention averages the
+    # prefix), so at capacity factor 8 one of 128 experts takes more than
+    # its 256 dense slots of 512 tokens; at E / k = 16, where nothing can
+    # drop, the a2a buffers of 512 tokens would not fit beside the weights
+    out["gate"] = gate_a2a_dense("qwen3", cfg, params, mesh, dev,
+                                 seq=J_QWEN_GATE_SEQ)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_slice_j(granite) -> dict:
+    """Slice J, the expert-parallel all-to-all MoE on the card at NCCL
+    world size 1 on a (1, 1) ("data", "model") mesh (ep = 1; no kernel of
+    its own: the reference's packing and trips are XLA ops), bf16
+    compute, TF32 off, cuBLAS bf16 reductions in f32: granite at full
+    width and depth on I2's weights (`j_steps` with J-d and the cost of
+    one trip; J-b: gate I-a on the a2a config at its own capacity factor
+    1.25 under the mesh; J-c; J-a), then qwen3's train_4k_a2a cell
+    (`phase_slice_j_qwen`)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.distributed import init_mesh
+    from repro_torch.distributed import axis_size, use_mesh
+    cfg_d, params = granite
+    del granite
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    mesh = init_mesh((1, 1), ("data", "model"), dev)
+    backend = str(dist.get_backend(mesh.get_group("model")))
+    check(axis_size(mesh, "data") == axis_size(mesh, "model") == 1
+          and "nccl" in backend, f"J: mesh {mesh} on {backend}")
+    cfg_a = with_moe(cfg_d, impl="a2a")
+    prev = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    try:
+        steps = j_steps(cfg_d, cfg_a, params, mesh, dev)
+        torch.cuda.empty_cache()
+        with use_mesh(mesh):
+            gate_b = lm_f64_gate("granite a2a (capacity factor "
+                                 f"{cfg_a.moe.capacity_factor:g})", cfg_a,
+                                 params, dev, gate="J-b")
+            stats = moe_drop_stats(
+                dataclasses.replace(cfg_a, compute_dtype="float32"), params,
+                gate_batch(cfg_a, dev))
+        log(f"[{CARD}] J-b granite a2a at 1 x {I_GATE_SEQ}: dropped "
+            f"assignments stage 1 {stats['dropped_stage1']:,}, stage 2 "
+            f"{stats['dropped_stage2']:,} of "
+            f"{I_GATE_SEQ * cfg_a.moe.top_k * cfg_a.n_layers:,} (f32 "
+            f"forward of the gate's sequence)")
+        gate_b["dropped"] = stats
+        torch.cuda.empty_cache()
+        bitwise = gate_a2a_bitwise(cfg_a, params, mesh,
+                                   token_batch_row(cfg_d, dev))
+        gate_a = gate_a2a_dense("granite", cfg_d, params, mesh, dev)
+        del params
+        torch.cuda.empty_cache()
+        qwen = phase_slice_j_qwen(mesh, dev)
+    finally:
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = prev
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] slice J: {secs:.1f} s")
+    return {"granite": steps, "bitwise": bitwise,
+            "f64": gate_b, "a2a_vs_dense": gate_a, "qwen3": qwen,
+            "seconds": secs}
+
+
+def token_batch_row(cfg, dev):
+    """The first sequence of I2's batch 0, [1, I1_SEQ + 1]."""
+    from repro_torch.train.data import TokenPipelineConfig, token_batch
+    return token_batch(TokenPipelineConfig(cfg.vocab, I1_SEQ, J_MICRO), 0,
+                       dev)["tokens"][:1]
+
+
+def gate_batch(cfg, dev):
+    """The gates' sequence (lm_f64_gate's batch), [1, I_GATE_SEQ + 1]."""
+    from repro_torch.train.data import TokenPipelineConfig, token_batch
+    return token_batch(TokenPipelineConfig(cfg.vocab, I_GATE_SEQ, 1), 11,
+                       dev)["tokens"]
 
 
 def profile_device(fn, label: str, by_op: bool = False,
@@ -3705,7 +4160,16 @@ def main() -> int:
     check(h["bsr_spmm"] == h["cheb_step"] == h["embedding_bag"] == 0,
           f"slice H launched a kernel off its path: {h}")
     torch.cuda.empty_cache()
-    i = phase_slice_i()["launches"]
+    i_res = phase_slice_i()
+    i = i_res.pop("launches")
+    reset_counts()
+    phase_slice_j(i_res.pop("granite"))
+    j = read_counts()
+    check(j["bsr_spmm"] == j["cheb_step"] == j["embedding_bag"]
+          == j["embedding_bag_backward"] == 0,
+          f"slice J launched a kernel off its path: {j}")
+    del i_res
+    torch.cuda.empty_cache()
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
@@ -3722,7 +4186,8 @@ def main() -> int:
                               "slice_d": d["bsr_spmm"],
                               "slice_e": e["bsr_spmm"],
                               "slice_g": g["bsr_spmm"],
-                              "slice_h": h["bsr_spmm"]},
+                              "slice_h": h["bsr_spmm"],
+                              "slice_j": j["bsr_spmm"]},
          "launches_by_variant": {
              k: a["launches"]["bsr_spmm_variants"][k]
              + b["launches"]["bsr_spmm_variants"][k]
@@ -3745,7 +4210,8 @@ def main() -> int:
                               "slice_d": d["cheb_step"],
                               "slice_e": e["cheb_step"],
                               "slice_g": g["cheb_step"],
-                              "slice_h": h["cheb_step"]},
+                              "slice_h": h["cheb_step"],
+                              "slice_j": j["cheb_step"]},
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},
@@ -3758,7 +4224,8 @@ def main() -> int:
          "launches_by_path": {"slice_c": c["launches"]["embedding_bag"],
                               "slice_g": g["embedding_bag"],
                               "slice_h": h["embedding_bag"],
-                              "slice_i": i["embedding_bag"]},
+                              "slice_i": i["embedding_bag"],
+                              "slice_j": j["embedding_bag"]},
          "max_abs_err": c["err"],
          "ms": c["eb"]["ms"], "plain_ms": c["eb"]["plain_ms"],
          "bound_ms": eb_b, "bound_by": eb_by,
@@ -3768,7 +4235,8 @@ def main() -> int:
                    "embedding_bag_backward.cu",
          "replaces": "src/repro/models/recsys/dlrm.py:104",
          "launches": i["embedding_bag_backward"],
-         "launches_by_path": {"slice_i": i["embedding_bag_backward"]},
+         "launches_by_path": {"slice_i": i["embedding_bag_backward"],
+                              "slice_j": j["embedding_bag_backward"]},
          "max_abs_err": eb_bwd["err"],
          "ms": eb_bwd["ms"], "split_ms": eb_bwd["split_ms"],
          "plain_ms": eb_bwd["plain_ms"],

@@ -1,9 +1,9 @@
 """dimenet [arXiv:2003.03123]: 6 blocks, d=128, 8 bilinear, 7 spherical x 6
 radial basis functions. Triplets capped at max_triplets_per_edge=8 on the
-non-molecular shapes (port of `repro.configs.dimenet`; `cells`/`build` are
-not ported). `make_batch` draws its features on `device` (None = cuda)
-from a generator seeded with seed + 1; the graph and triplet arrays are
-the reference's."""
+non-molecular shapes (port of `repro.configs.dimenet`; `build`, the dry-run
+plan, waits for the dry-run tooling). `make_batch` draws its features on
+`device` (None = cuda) from a generator seeded with seed + 1; the graph and
+triplet arrays are the reference's."""
 from __future__ import annotations
 
 import torch
@@ -56,6 +56,10 @@ def model_flops(cfg, dims) -> float:
                  + 2 * t * nsb * cfg.n_bilinear)
     emb = 2 * e * (2 * cfg.d_in + cfg.n_radial) * d + 2 * e * d * d
     return cfg.n_blocks * per_block + emb + 2 * n * (d * d + d)
+
+
+def cells():
+    return gc.gnn_cells()
 
 
 def smoke_run(seed: int = 0, device=None):

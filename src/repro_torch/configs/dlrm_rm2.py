@@ -11,8 +11,8 @@ Shapes:
 `make_batch` draws a real batch on a device (None = cuda) from a seeded
 generator: dense features ~ N(0, 1) and ids uniform per table, plus the
 table's offset. `smoke_run` is one train step and one retrieval on the
-smoke config. The reference's `build` and `cells` (the TPU dry run) wait
-for the tooling slice.
+smoke config. `cells` lists one cell per shape; the reference's `build`
+(the dry-run plan) waits for the dry-run tooling.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from functools import partial
 
 import torch
 
+from repro_torch.configs.base import Cell
 from repro_torch.device import resolve_device
 from repro_torch.models.recsys import dlrm
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -46,6 +47,10 @@ def smoke_config():
                            vocab_sizes=(64, 96, 128, 32), n_sparse=4,
                            embed_dim=16, bot_mlp=(13, 32, 16),
                            top_mlp=(32, 32, 1))
+
+
+def cells():
+    return [Cell(shape=s, kind=i["kind"]) for s, i in SHAPES.items()]
 
 
 def make_batch(cfg, bsz: int, seed: int = 0, device=None,

@@ -13,8 +13,9 @@ Node/edge counts are padded to multiples of 1024, as in the reference.
 `graph_arrays` is host numpy and gives the reference's arrays; the random
 features come from a `torch.Generator` on the batch's device
 (`random_array`), so their values differ from the reference's
-`jax.random` ones. The reference's `build_gnn_plan` / `gnn_cells` (TPU
-dry-run plans) are not ported.
+`jax.random` ones. `gnn_cells` lists the cells (the registry's); the
+reference's `build_gnn_plan` (the dry-run plan) waits for the dry-run
+tooling.
 """
 from __future__ import annotations
 
@@ -23,11 +24,12 @@ from functools import partial
 import numpy as np
 import torch
 
+from repro_torch.configs.base import Cell
 from repro_torch.device import resolve_device
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import make_train_step
 
-__all__ = ["GNN_SHAPES", "graph_arrays", "random_array", "upload",
+__all__ = ["GNN_SHAPES", "gnn_cells", "graph_arrays", "random_array", "upload",
            "gnn_smoke_dims", "run_gnn_smoke"]
 
 
@@ -107,3 +109,8 @@ def run_gnn_smoke(arch_cfg, init_params, loss_fn, batch_builder,
                            num_microbatches=1, donate=False)
     _, _, metrics = step(params, opt, batch)
     return metrics
+
+
+def gnn_cells() -> list:
+    """One train Cell per GNN shape."""
+    return [Cell(shape=s, kind="train") for s in GNN_SHAPES]

@@ -1,6 +1,7 @@
 """graphcast [arXiv:2212.12794]: 16L processor, d=512, mesh refinement 6
 (40,962 mesh nodes, 327,660 multi-level directed mesh edges), 227 output
-vars (port of `repro.configs.graphcast`; `cells`/`build` are not ported).
+vars (port of `repro.configs.graphcast`; `build`, the dry-run plan, waits
+for the dry-run tooling).
 The input graph of each assigned shape plays the grid role; grid<->mesh
 bipartite edges are synthetic nearest-assignment. `make_batch` draws its
 features on `device` (None = cuda) from a generator seeded with seed + 1;
@@ -106,6 +107,10 @@ def model_flops(cfg, dims) -> float:
     dec = 2 * n_grid * M2G_PER_GRID * 4 * d * d + \
         2 * n_grid * (d * d + d * cfg.n_vars)
     return cfg.n_layers * per_layer + enc + dec
+
+
+def cells():
+    return gc.gnn_cells()
 
 
 def smoke_run(seed: int = 0, device=None):

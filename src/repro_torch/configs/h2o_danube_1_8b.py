@@ -1,8 +1,8 @@
 """h2o-danube-1.8b [arXiv:2401.16818] (port of
 `repro.configs.h2o_danube_1_8b`): llama+mistral mix with sliding-window
 attention. 24L x d2560, 32Q/8KV heads, d_ff 6912, vocab 32000, window
-4096. `cells` and `build` wait for the tooling slice."""
-from repro_torch.configs.lm_common import lm_smoke_run
+4096. `build` (the dry-run plan) waits for the dry-run tooling."""
+from repro_torch.configs.lm_common import lm_cells, lm_smoke_run
 from repro_torch.models.transformer import TransformerConfig
 
 NAME = "h2o-danube-1.8b"
@@ -20,6 +20,10 @@ def smoke_config():
         name=NAME + "-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         d_ff=160, vocab=256, sliding_window=8, compute_dtype="float32",
         q_chunk=8, k_chunk=8)
+
+
+def cells():
+    return lm_cells(full_config())
 
 
 def smoke_run(seed: int = 0, device=None):

@@ -8,9 +8,9 @@ Shapes:
   long_500k    cache 524288, global_batch 1   -> decode step; only for
                sub-quadratic (sliding-window) archs
 
-`lm_smoke_run` is one train step plus a prefill and a decode step on a
-reduced config. `lm_cells` and `build_lm_plan` (the TPU dry run) wait for
-the tooling slice.
+`lm_cells` lists an arch's cells (the registry's); `lm_smoke_run` is one
+train step plus a prefill and a decode step on a reduced config.
+`build_lm_plan` (the dry-run plan) waits for the dry-run tooling.
 """
 from __future__ import annotations
 
@@ -18,14 +18,15 @@ from functools import partial
 
 import torch
 
+from repro_torch.configs.base import Cell
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import make_train_step
 
-__all__ = ["LM_SHAPES", "lm_attn_flops", "lm_train_flops", "lm_decode_flops",
-           "lm_smoke_run"]
+__all__ = ["LM_SHAPES", "lm_cells", "lm_attn_flops", "lm_train_flops",
+           "lm_decode_flops", "lm_smoke_run"]
 
 LM_SHAPES = {
     "train_4k": dict(kind="train", seq=4096, global_batch=256),
@@ -33,6 +34,18 @@ LM_SHAPES = {
     "decode_32k": dict(kind="decode", seq=32768, global_batch=128),
     "long_500k": dict(kind="decode", seq=524288, global_batch=1),
 }
+
+
+def lm_cells(cfg: TransformerConfig) -> list:
+    """One Cell per shape; long_500k skipped for full-attention archs."""
+    cells = []
+    for name, info in LM_SHAPES.items():
+        skip = None
+        if name == "long_500k" and cfg.sliding_window is None:
+            skip = ("pure full-attention arch: 500k decode requires "
+                    "sub-quadratic attention (assignment rule)")
+        cells.append(Cell(shape=name, kind=info["kind"], skip_reason=skip))
+    return cells
 
 
 def lm_attn_flops(cfg: TransformerConfig, batch: int, seq: int) -> float:

@@ -1,7 +1,8 @@
 """meshgraphnet [arXiv:2010.03409]: 15L, d=128, sum aggregator, 2-layer
-MLPs (port of `repro.configs.meshgraphnet`; `cells`/`build` are not
-ported). `make_batch` draws its features on `device` (None = cuda) from a
-generator seeded with seed + 1; the graph arrays are the reference's."""
+MLPs (port of `repro.configs.meshgraphnet`; `build`, the dry-run plan, waits
+for the dry-run tooling). `make_batch` draws its features on `device` (None =
+cuda) from a generator seeded with seed + 1; the graph arrays are the
+reference's."""
 from __future__ import annotations
 
 import torch
@@ -47,6 +48,10 @@ def model_flops(cfg, dims) -> float:
     enc = 2 * n * cfg.d_in_node * d + 2 * e * cfg.d_in_edge * d
     dec = 2 * n * (d * d + d * cfg.d_out)
     return cfg.n_layers * per_layer + enc + dec
+
+
+def cells():
+    return gc.gnn_cells()
 
 
 def smoke_run(seed: int = 0, device=None):

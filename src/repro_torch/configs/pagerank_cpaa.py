@@ -14,13 +14,15 @@ Rounds: 12 (= ERR < 1e-3 at c=0.85, the paper's Table 2 operating point).
 
 The constants, `SHAPES`, the abstract partitions, `full_config`,
 `smoke_config` and `model_flops` are copies of the reference's;
-`smoke_run` solves on a device through the port's `select_engine`. The
-reference's `cells` / `build` (TPU dry-run plans) are not ported.
+`smoke_run` solves on a device through the port's `select_engine`;
+`cells` lists one cell per shape. The reference's `build` (the dry-run
+plan) waits for the dry-run tooling.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from repro_torch.configs.base import Cell
 from repro_torch.core.chebyshev import make_schedule
 
 NAME = "cpaa-pagerank"
@@ -117,6 +119,10 @@ def full_config():
 
 def smoke_config():
     return full_config()
+
+
+def cells():
+    return [Cell(shape=s, kind="pagerank") for s in SHAPES]
 
 
 def model_flops(n: int, m: int, rounds: int, batch: int | None) -> float:

@@ -8,7 +8,8 @@ service on a device (None = cuda), with the engine (measured selection
 refresh, metrics-detail, scheduling and sharded-engine knobs
 (`mesh_grid`, `partition_lane`) wired as in the reference. With a sharded
 engine every rank calls `make_service`; rank 0 then drives the service
-and the other ranks run its `follow()` loop.
+and the other ranks run its `follow()` loop. It has no cells: an online
+workload, not an (arch x shape) cell.
 """
 from __future__ import annotations
 
@@ -83,6 +84,10 @@ def smoke_config() -> PPRServeConfig:
 
 def serve_config(smoke: bool = False) -> PPRServeConfig:
     return smoke_config() if smoke else full_config()
+
+
+def cells():
+    return []  # online serving workload; not an (arch x shape) cell
 
 
 def make_service(cfg: PPRServeConfig, device=None):

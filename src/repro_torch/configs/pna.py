@@ -1,8 +1,8 @@
 """pna [arXiv:2004.05718]: 4L, d=75, aggregators mean/max/min/std,
 scalers identity/amplification/attenuation (port of `repro.configs.pna`;
-`cells`/`build` are not ported). `make_batch` draws its features on
-`device` (None = cuda) from a generator seeded with seed + 1; the graph
-arrays are the reference's."""
+`build`, the dry-run plan, waits for the dry-run tooling). `make_batch` draws
+its features on `device` (None = cuda) from a generator seeded with seed + 1;
+the graph arrays are the reference's."""
 from __future__ import annotations
 
 import torch
@@ -40,6 +40,10 @@ def model_flops(cfg, dims) -> float:
     per_layer = 2 * e * (2 * d * d + d * d) + 2 * n * (13 * d * d + d * d)
     return (cfg.n_layers * per_layer + 2 * n * cfg.d_in * d
             + 2 * n * (d * d + d * cfg.d_out))
+
+
+def cells():
+    return gc.gnn_cells()
 
 
 def smoke_run(seed: int = 0, device=None):

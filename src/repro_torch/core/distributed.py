@@ -88,7 +88,8 @@ warnings.filterwarnings(
 
 # (engine, site, op, mesh dim) -> [calls, bytes]. site: "apply" (the SpMV's
 # own collectives), "reduce" (the solvers' column-sum / max hooks),
-# "layout" (from_internal's gather of the whole vector).
+# "layout" (from_internal's gather of the whole vector); the all-to-all
+# MoE counts its trips under tag "moe" (`models.moe`).
 COLLECTIVES: dict[tuple[str, str, str, str], list[int]] = {}
 
 
@@ -285,13 +286,24 @@ def reduce_scatter(x: torch.Tensor, group, *, tag=None,
     return out
 
 
-def all_reduce(x: torch.Tensor, group, op, *, tag=None,
+def all_reduce(x: torch.Tensor, group, op, *, tag=None, site: str = "reduce",
                dim: str = "world") -> torch.Tensor:
     """In-place all-reduce of x over the group (the result is bitwise the
     same on every rank); returns x."""
-    _count(tag, "reduce", "all_reduce", dim, _nbytes(x))
+    _count(tag, site, "all_reduce", dim, _nbytes(x))
     dist.all_reduce(x, op=op, group=group)
     return x
+
+
+def all_to_all(x: torch.Tensor, group, *, tag=None, site: str = "apply",
+               dim: str = "world") -> torch.Tensor:
+    """Equal splits along dim 0: chunk i of x goes to group rank i, and
+    chunk j of the result came from group rank j."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _count(tag, site, "all_to_all", dim, _nbytes(x))
+    dist.all_to_all_single(out, x, group=group)
+    return out
 
 
 def pad_personalization(p: np.ndarray, n_pad: int) -> np.ndarray:

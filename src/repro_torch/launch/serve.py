@@ -15,6 +15,11 @@ archs, or the online Personalized-PageRank service.
     torchrun --nproc-per-node N -m repro_torch.launch.serve \
         --arch pagerank-serve --smoke --engine sharded-2d --mesh-grid RxC
 
+`--arch` resolves through `configs.registry.get` (KeyError for a name it
+does not know); an arch that is neither an LM nor pagerank-serve exits
+with the reference's message. The LM serving path runs under no mesh, as
+the reference's does, so an all-to-all MoE config serves densely.
+
 An LM arch (h2o-danube-1.8b, granite-moe-3b-a800m, deepseek-7b,
 qwen2.5-32b, qwen3-moe-235b-a22b) builds random weights from generator
 seed 0 (`--smoke`: the arch's reduced config), a `ServeEngine` of
@@ -51,14 +56,8 @@ from dataclasses import replace
 import numpy as np
 import torch.distributed as dist
 
-from repro_torch.configs import (deepseek_7b, granite_moe_3b,
-                                 h2o_danube_1_8b, pagerank_serve,
-                                 qwen2_5_32b, qwen3_moe_235b)
+from repro_torch.configs.registry import get
 from repro_torch.core.distributed import init_process_group, rank
-
-ARCHS = {m.NAME: m for m in (pagerank_serve, h2o_danube_1_8b,
-                             granite_moe_3b, deepseek_7b, qwen2_5_32b,
-                             qwen3_moe_235b)}
 
 
 def _parse_tenants(specs) -> tuple:
@@ -258,7 +257,8 @@ def _workload(svc, cfg, args) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--arch", required=True,
+                    help="an LM arch or pagerank-serve (configs/registry.py)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--updates", type=int, default=0,
@@ -344,9 +344,13 @@ def main(argv=None):
                     help="torch device for weights, graphs and solves "
                          "(default cuda)")
     args = ap.parse_args(argv)
-    mod = ARCHS[args.arch]
+    mod = get(args.arch)
     if getattr(mod, "FAMILY", None) == "lm":
         return serve_lm(mod, args)
+    if not hasattr(mod, "serve_config"):
+        raise SystemExit(
+            f"--arch {args.arch} (family {getattr(mod, 'FAMILY', '?')}) is "
+            f"not servable; use an LM arch or pagerank-serve")
     started = False
     if int(os.environ.get("WORLD_SIZE", "1")) > 1 and \
             not dist.is_initialized():

@@ -4,7 +4,9 @@ trains an LM arch on the synthetic token stream.
     PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
         --smoke --steps 50 --ckpt-dir /tmp/run1 [--device cuda|cpu]
 
-The flags are the reference's (plus `--device`). Parameters come from
+The flags are the reference's (plus `--device`); `--arch` resolves
+through `configs.registry.get`, which raises KeyError for a name it does
+not know. Parameters come from
 generator seed 0 (`--smoke`: the arch's reduced config, else its full
 config), AdamW (`--lr`) takes one step per batch of `--global-batch`
 sequences of `--seq-len` + 1 tokens (`token_batch`, deterministic in the
@@ -29,10 +31,7 @@ from functools import partial
 
 import torch
 
-from repro_torch.configs import (deepseek_7b, dimenet, dlrm_rm2,
-                                 granite_moe_3b, graphcast, h2o_danube_1_8b,
-                                 meshgraphnet, pagerank_cpaa, pagerank_serve,
-                                 pna, qwen2_5_32b, qwen3_moe_235b)
+from repro_torch.configs.registry import get
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.train import checkpoint as ckpt
@@ -40,19 +39,15 @@ from repro_torch.train.data import TokenPipelineConfig, token_batch
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import make_train_step
 
-__all__ = ["ARCHS", "main"]
-
-ARCHS = {m.NAME: m for m in (h2o_danube_1_8b, granite_moe_3b, deepseek_7b,
-                             qwen2_5_32b, qwen3_moe_235b, meshgraphnet, pna,
-                             dimenet, graphcast, dlrm_rm2, pagerank_serve,
-                             pagerank_cpaa)}
+__all__ = ["main"]
 
 
 def main(argv=None) -> dict:
     """Run the launcher; returns {'device', 'start_step', 'losses',
     'step_s', 'params', 'opt'} for callers that drive it in-process."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True, choices=sorted(ARCHS))
+    ap.add_argument("--arch", required=True,
+                    help="an arch of configs/registry.py")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced config")
     ap.add_argument("--steps", type=int, default=100)
@@ -67,7 +62,7 @@ def main(argv=None) -> dict:
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    mod = ARCHS[args.arch]
+    mod = get(args.arch)
     if mod.FAMILY != "lm":
         raise SystemExit("launch.train drives LM archs; use "
                          "repro_torch.launch.train_gnn for the GNN family")

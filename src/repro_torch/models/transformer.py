@@ -23,6 +23,15 @@ score tile from the saved output and row statistics.
 `seq_shard_carry` shards the saved carry over a TPU mesh's model axis in
 the reference; on one card it means nothing and is carried as a field so
 configs construct unchanged.
+
+Under `distributed.use_mesh(mesh)` (a ("data", "model") mesh), an MoE
+config with `impl="a2a"` runs the expert-parallel all-to-all path
+(`ffn`). The port is SPMD: each rank passes its shard of the batch (its
+"data" rows) and gets its shard's loss, with the aux estimate averaged
+over the mesh; the mean of the ranks' losses is the whole batch's, and
+the mean of their gradients (each rank's expert slice, zero elsewhere)
+is its gradient. No code of the port takes that mean yet: the caller
+does, and `make_train_step` refuses a mesh of more than one rank.
 """
 from __future__ import annotations
 
@@ -32,12 +41,16 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import flat_rank
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (axis_index, axis_size,
+                                              current_mesh, use_mesh)
 from repro_torch.models.layers import (apply_rope, checkpointed,
                                        chunked_attention, decode_attention,
                                        decode_mask, dense_init, embed_init,
                                        layer_views, rms_norm, rope_tables)
-from repro_torch.models.moe import MoEConfig, moe_apply, moe_init
+from repro_torch.models.moe import (MoEConfig, all_reduce_mean, moe_apply,
+                                    moe_apply_a2a, moe_init)
 
 __all__ = ["TransformerConfig", "init_params", "cast_params", "loss_fn",
            "forward", "prefill", "decode_step", "make_kv_cache",
@@ -180,14 +193,49 @@ def ffn(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
         stats: dict | None = None):
     """SwiGLU or MoE FFN on x [B, S, D] -> ([B, S, D], aux f32). The MoE
     sees all B * S tokens of the call at once (its capacity depends on
-    them)."""
+    them). `impl="a2a"` takes the all-to-all path under an active mesh
+    that qualifies (`_moe_a2a_sharded`) and the dense path otherwise, as
+    the reference falls back."""
     if cfg.moe:
         b, s, d = x.shape
+        if cfg.moe.impl == "a2a":
+            out = _moe_a2a_sharded(lp["moe"], x, cfg, stats)
+            if out is not None:
+                return out
         y, aux = moe_apply(lp["moe"], x.reshape(b * s, d), cfg.moe,
                            stats=stats)
         return y.reshape(b, s, d), aux
     h = F.silu(x @ lp["w1"]) * (x @ lp["w3"])
     return h @ lp["w2"], torch.zeros((), device=x.device)
+
+
+def _moe_a2a_sharded(mp: dict, x: torch.Tensor, cfg: TransformerConfig,
+                     stats: dict | None = None):
+    """The reference's `_moe_a2a_sharded` over the active mesh: None (the
+    caller takes the dense path) without a mesh, without a "model"
+    dimension, or when its size does not divide the expert count.
+
+    x is this rank's shard of the tokens: its "data" rows, the same on
+    every rank of its "model" group (the reference's token spec). The
+    rank runs its own slice of the experts (`w1`/`w3`/`w2` rows
+    [m E/ep, (m+1) E/ep) for "model" coordinate m; the rest of the
+    stacked weights get no gradient here) and averages the aux estimate
+    over every rank of the mesh (data x model), as the reference's
+    `pmean` does."""
+    mesh = current_mesh()
+    if mesh is None or "model" not in (mesh.mesh_dim_names or ()):
+        return None
+    ep = axis_size(mesh, "model")
+    if cfg.moe.n_experts % ep:
+        return None
+    e_loc = cfg.moe.n_experts // ep
+    lo = axis_index(mesh, "model") * e_loc
+    local = {"router": mp["router"],
+             **{w: mp[w][lo:lo + e_loc] for w in ("w1", "w3", "w2")}}
+    b, s, d = x.shape
+    y, aux = moe_apply_a2a(local, x.reshape(b * s, d), cfg.moe, ep,
+                           mesh.get_group("model"), stats=stats)
+    return y.reshape(b, s, d), all_reduce_mean(aux, flat_rank(mesh)[0])
 
 
 def _attn(lp, x, cfg: TransformerConfig, positions, rope, kv=None,
@@ -222,9 +270,12 @@ def _block(lp, x, cfg: TransformerConfig, positions, rope, kv=None,
     return x + f, aux, new_kv
 
 
-def _carry(lp, x, cfg: TransformerConfig, positions, rope):
-    """A training block: (x, aux) without the KV, for `checkpointed`."""
-    x, aux, _ = _block(lp, x, cfg, positions, rope)
+def _carry(lp, x, cfg: TransformerConfig, positions, rope, mesh=None):
+    """A training block: (x, aux) without the KV, for `checkpointed`,
+    under the mesh of its forward (the recompute in the backward may run
+    outside the caller's `use_mesh`)."""
+    with use_mesh(mesh):
+        x, aux, _ = _block(lp, x, cfg, positions, rope)
     return x, aux
 
 
@@ -248,7 +299,8 @@ def _trunk(cp: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     for i, lp in enumerate(layers or layer_views(cp["layers"])):
         if remat:
             x, aux_l = checkpointed(partial(_carry, cfg=cfg,
-                                            positions=positions, rope=rope),
+                                            positions=positions, rope=rope,
+                                            mesh=current_mesh()),
                                     lp, x)
         else:
             x, aux_l, (k, v) = _block(lp, x, cfg, positions, rope,

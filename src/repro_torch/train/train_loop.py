@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 __all__ = ["make_train_step"]
@@ -45,6 +46,19 @@ def _backward(loss_fn, xs, spec, batch) -> torch.Tensor:
     return loss.detach()
 
 
+def _refuse_multi_rank_mesh() -> None:
+    """Under a mesh of more than one rank (`distributed.use_mesh`) each
+    rank's gradient covers only its own data shard and expert slice, and
+    the port takes no data-parallel mean of them yet: AdamW on each
+    rank's own gradient would drive the replicated weights apart."""
+    mesh = current_mesh()
+    if mesh is not None and mesh.size() > 1:
+        raise NotImplementedError(
+            f"repro_torch: a train step under a mesh of {mesh.size()} ranks "
+            f"needs the data-parallel mean of the ranks' gradients, which "
+            f"the port does not take yet; train at world size 1")
+
+
 def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
                     donate: bool = True):
     """loss_fn(params, microbatch) -> scalar. Returns
@@ -54,9 +68,14 @@ def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
     donate=True updates the caller's parameter and moment tensors in place
     (slice by slice, `adamw_update(in_place=True)`) and returns them;
     donate=False leaves them untouched and returns new tensors (a step can
-    then be replayed from the same state). Both give the same bits."""
+    then be replayed from the same state). Both give the same bits.
+
+    Raises:
+        NotImplementedError: the step is called under a mesh of more than
+            one rank (`_refuse_multi_rank_mesh`)."""
 
     def train_step(params, opt_state, batch):
+        _refuse_multi_rank_mesh()
         leaves, spec, xs = _grad_leaves(params)
         if num_microbatches == 1:
             loss = _backward(loss_fn, xs, spec, batch)

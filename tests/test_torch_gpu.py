@@ -776,3 +776,69 @@ class TestTrainingOnCard:
             float(cm["loss"]))
         assert abs(loss["bfloat16"] - loss["float32"]) <= 5e-2 * abs(
             loss["float32"])
+
+
+@pytest.mark.gpu
+class TestMoeA2AOnCard:
+    """The all-to-all MoE at NCCL world size 1 on a (1, 1) ("data",
+    "model") mesh, at smoke granite's widths: against the dense path at
+    capacity factor 8 (nothing drops; loss rtol 1e-5, gradients rtol 1e-4
+    / atol 1e-6), and a second call bitwise equal."""
+
+    def _run(self, cuda, monkeypatch):
+        import dataclasses
+        import torch.distributed as dist
+        from torch.utils import _pytree as pytree
+        from repro_torch.configs import granite_moe_3b
+        from repro_torch.core.distributed import (collective_counts,
+                                                  init_mesh,
+                                                  reset_collective_counts)
+        from repro_torch.distributed import use_mesh
+        from repro_torch.models import transformer as tf
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        cfg = granite_moe_3b.smoke_config()
+        moe = dataclasses.replace(cfg.moe, capacity_factor=8.0)
+        cfgs = {"dense": dataclasses.replace(cfg, moe=moe),
+                "a2a": dataclasses.replace(cfg, moe=dataclasses.replace(
+                    moe, impl="a2a"))}
+        mesh = init_mesh((1, 1), ("data", "model"), cuda)
+        assert "nccl" in str(dist.get_backend(mesh.get_group("model")))
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        params = tf.init_params(gen, cfg)
+        tokens = torch.randint(0, cfg.vocab, (2, 33), generator=gen,
+                               device=cuda)
+        leaves, spec = pytree.tree_flatten(params)
+
+        def run(kind):
+            xs = [p.detach().requires_grad_(True) for p in leaves]
+            reset_collective_counts()
+            with use_mesh(mesh if kind == "a2a" else None):
+                loss = tf.loss_fn(pytree.tree_unflatten(xs, spec),
+                                  {"tokens": tokens}, cfgs[kind])
+                grads = torch.autograd.grad(loss, xs)
+            trips = collective_counts()
+            return loss.detach(), grads, trips
+        return run, cfg.n_layers
+
+    def test_a2a_matches_dense_on_card(self, cuda, monkeypatch):
+        run, n_layers = self._run(cuda, monkeypatch)
+        la, ga, trips = run("a2a")
+        ld, gd, none = run("dense")
+        assert none == {}
+        assert trips["moe/dispatch/all_to_all/model"]["calls"] \
+            == 2 * 3 * n_layers
+        assert trips["moe/return_grad/all_to_all/model"]["calls"] == n_layers
+        torch.testing.assert_close(la, ld, rtol=1e-5, atol=1e-6)
+        for a, b in zip(ga, gd):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
+
+    def test_a2a_second_call_bitwise(self, cuda, monkeypatch):
+        run, _ = self._run(cuda, monkeypatch)
+        torch.use_deterministic_algorithms(True)
+        try:
+            l1, g1, _ = run("a2a")
+            l2, g2, _ = run("a2a")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        assert torch.equal(l1, l2)
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2))
