@@ -199,6 +199,28 @@ package. Phases, each of which must pass:
        the loss of 1 x 4,096 and its gradient (ms, peaks, drops, trips)
        and J-a on uniform tokens.
 
+ 13. slice K, the dry-run tooling (`launch/{dryrun,analysis,roofline,
+     mesh}.py`; no kernel of its own), TF32 off:
+     - K-a: every registry cell, single-pod and multi-pod, through the
+       dry-run's abstract pass under the production mesh (a skip naming
+       this world's size, per-device argument bytes from the specs) and
+       the card's (1, 1) mesh (a skip only for "does not fit", naming
+       both byte counts): every plan on meta tensors, no error, the fit
+       table printed; qwen2.5-32b, qwen3-moe-235b-a22b and deepseek-7b's
+       train_4k must not fit;
+     - K-b: `run_cell(..., mesh="card")` at full width on dlrm-rm2
+       serve_p99, serve_bulk, retrieval_cand and train_batch, pna
+       molecule, cpaa-pagerank pr_mesh_67m (463M edges, NCCL world size
+       1) and h2o-danube-1.8b long_500k (32.2 GB of bf16 KV cache): each
+       ok, counted FLOPs and bytes > 0, embedding_bag launched on the
+       three DLRM kernel cells and its backward on train_batch, no
+       roofline term above 1.05 x the measured step (median of 3, CUDA
+       events);
+     - K-c: `launch/roofline.py` renders K's records, one roofline row
+       per K-b cell;
+     - K-d (in slice I3): the training launcher prints its elastic mesh,
+       "mesh: (1, 1) over 1 device(s)".
+
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
 fails the run. The line before the last is the kernel table as JSON; the
@@ -3400,8 +3422,9 @@ def gate_replay(cfg, params, opt, dev) -> dict:
 def phase_slice_i3() -> dict:
     """I3: the launcher at full width (--arch h2o-danube-1.8b, 3 steps of
     2 x I1_SEQ, no checkpoint: a full-width checkpoint is ~29 GB of
-    zlib'd f32), then --smoke with --ckpt-dir twice: it saves, resumes
-    and prints "resumed from step"."""
+    zlib'd f32; its output must hold the elastic mesh's line, "mesh:
+    (1, 1) over 1 device(s)", gate K-d), then --smoke with --ckpt-dir
+    twice: it saves, resumes and prints "resumed from step"."""
     import contextlib
     import io
     import shutil as _shutil
@@ -3409,10 +3432,18 @@ def phase_slice_i3() -> dict:
     from repro_torch.launch import train as launch_train
     dev = [] if I_DEVICE == "cuda" else ["--device", I_DEVICE]
     t0 = time.perf_counter()
-    out = launch_train.main(["--arch", "h2o-danube-1.8b", "--steps",
-                             str(I3_STEPS), "--global-batch", "2",
-                             "--seq-len", str(I1_SEQ)] + dev)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        out = launch_train.main(["--arch", "h2o-danube-1.8b", "--steps",
+                                 str(I3_STEPS), "--global-batch", "2",
+                                 "--seq-len", str(I1_SEQ)] + dev)
     full_s = time.perf_counter() - t0
+    log(printed.getvalue().rstrip())
+    # K-d: the launcher builds and prints the elastic mesh, as the
+    # reference does
+    check("mesh: (1, 1) over 1 device(s)" in printed.getvalue()
+          and out["mesh"] == (1, 1),
+          f"K-d: the launcher's mesh line is missing: {printed.getvalue()}")
     check(all(np.isfinite(out["losses"])), f"I3: losses {out['losses']}")
     del out["params"], out["opt"]
     torch.cuda.empty_cache()
@@ -4027,6 +4058,191 @@ def phase_slice_j(granite) -> dict:
             "seconds": secs}
 
 
+# ---------------------------------------------------------------- slice K --
+K_DIR = ROOT / "build" / "chip_smoke_k"     # gitignored scratch of slice K
+# K-b: the cells run at full width on the card's (1, 1) mesh
+K_CELLS = (("dlrm-rm2", "serve_p99"), ("dlrm-rm2", "serve_bulk"),
+           ("dlrm-rm2", "retrieval_cand"), ("dlrm-rm2", "train_batch"),
+           ("pna", "molecule"), ("cpaa-pagerank", "pr_mesh_67m"),
+           ("h2o-danube-1.8b", "long_500k"))
+K_EB_CELLS = ("serve_p99", "serve_bulk", "train_batch")
+K_TERM_SLACK = 1.05    # no roofline term may exceed 1.05 x the step
+# K-a: cells that cannot fit one card (f32 weights; qwen3's bf16 moments
+# do not save it; deepseek-7b's train_4k params + m + v ~83 GB, and its
+# f32 gradient)
+K_NO_FIT = {"qwen2.5-32b": None, "qwen3-moe-235b-a22b": None,
+            "deepseek-7b": ("train_4k",)}
+
+
+def _must_not_fit(arch: str, shape: str) -> bool:
+    return arch in K_NO_FIT and (K_NO_FIT[arch] is None
+                                 or shape in K_NO_FIT[arch])
+
+
+def phase_slice_k_abstract() -> dict:
+    """K-a: every registry cell, single-pod and multi-pod, through the
+    dry-run's abstract pass under both meshes: each plan not skipped by
+    its cell builds on meta tensors; the production mesh records a skip
+    naming this world's size; the card skips only what does not fit,
+    naming both byte counts; no error. Prints the fit table; returns the
+    card's skip records (single-pod) for K-c."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.registry import all_cells
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    total = dryrun.device_bytes(torch.device("cuda"))
+    rows, skips, n_plans = [], [], 0
+    for arch, cell in all_cells():
+        fit = {}
+        for mp in (False, True):
+            prod, plan = dryrun.plan_cell(arch, cell.shape, mp,
+                                          "production")
+            card, _ = dryrun.plan_cell(arch, cell.shape, mp, "card")
+            if cell.skip_reason:
+                check(prod["status"] == card["status"] == "skipped"
+                      and card["reason"] == cell.skip_reason,
+                      f"K-a {arch} {cell.shape}: {prod} {card}")
+                fit[mp] = "cell skip"
+                continue
+            n_plans += 1
+            check(all(x.device.type == "meta" for x in
+                      pytree.tree_leaves(plan.abstract_args)
+                      if isinstance(x, torch.Tensor)),
+                  f"K-a {arch} {cell.shape}: a plan leaf is not on meta")
+            check(prod["status"] == "skipped"
+                  and "this world has 1" in prod["reason"],
+                  f"K-a {arch} {cell.shape}: production {prod}")
+            need = card["memory"]["argument_bytes"] + \
+                card["memory"]["stated_output_bytes"] + \
+                card["memory"]["stated_temp_bytes"]
+            if card["status"] == "skipped":
+                check(card["reason"].startswith("does not fit one card")
+                      and f"{need:,}" in card["reason"]
+                      and f"{total:,}" in card["reason"],
+                      f"K-a {arch} {cell.shape}: card skip {card}")
+                if not mp:
+                    skips.append(card)
+            else:
+                check(card["status"] == "fits" and need <= total,
+                      f"K-a {arch} {cell.shape}: card {card}")
+            if _must_not_fit(arch, cell.shape):
+                check(card["status"] == "skipped",
+                      f"K-a {arch} {cell.shape} fits ({need:,} bytes)")
+            fit[mp] = (card["status"], need,
+                       prod["memory"]["argument_bytes"])
+        rows.append((arch, cell.shape, fit))
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] K-a: {n_plans} plans on meta tensors in {secs:.1f} s "
+        f"(each built twice); the card holds {total:,} bytes")
+    log("K-a fit table: arch | shape | card 1-pod (args + stated outputs "
+        "and buffers, GB) | card 2-pod | production per-device args GB "
+        "(1-pod / 2-pod)")
+    for arch, shape, fit in rows:
+        if fit[False] == "cell skip":
+            log(f"  {arch} | {shape} | cell skip | cell skip | -")
+            continue
+        (s1, n1, p1), (s2, n2, p2) = fit[False], fit[True]
+        log(f"  {arch} | {shape} | {s1} {n1 / 1e9:.3f} | {s2} "
+            f"{n2 / 1e9:.3f} | {p1 / 1e9:.4f} / {p2 / 1e9:.4f}")
+    n_fit = sum(1 for _, _, f in rows if f[False] != "cell skip"
+                and f[False][0] == "fits")
+    log(f"K-a: {n_fit} of {n_plans // 2} single-pod plans fit one card")
+    return {"skips": skips, "plans": n_plans, "fits": n_fit,
+            "seconds": secs}
+
+
+def phase_slice_k_runs() -> dict:
+    """K-b: K_CELLS through `launch/dryrun.run_cell(..., mesh="card")`:
+    each ok, FLOPs and bytes > 0, embedding_bag launched on the DLRM
+    kernel cells and its backward on train_batch, no roofline term over
+    K_TERM_SLACK x the measured step. Returns the records and the
+    kernels' launches over the phase."""
+    import torch
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    reset_counts()
+    recs = []
+    for arch, shape in K_CELLS:
+        rec = dryrun.run_cell(arch, shape, False, "card", verbose=False)
+        torch.cuda.empty_cache()
+        check(rec["status"] == "ok", f"K-b {arch} {shape}: {rec}")
+        rf, ms = rec["roofline"], rec["step_ms"]
+        step_s = ms["median"] * 1e-3
+        bound = max(rf["compute_s"], rf["memory_s"], rf["collective_s"])
+        mem = rec["memory"]
+        log(f"[{CARD}] K-b {arch} {shape}: step {ms['median']:.3f} ms "
+            f"(min {ms['min']:.3f}, max {ms['max']:.3f}; CUDA events, "
+            f"{len(ms['all'])} steps); terms compute "
+            f"{rf['compute_s'] * 1e3:.3f} / memory "
+            f"{rf['memory_s'] * 1e3:.3f} / collective "
+            f"{rf['collective_s'] * 1e3:.3f} ms, dominant {rf['dominant']},"
+            f" bound / step {bound / step_s:.3f}; counted "
+            f"{rec['cost']['flops']:.6g} FLOPs, "
+            f"{rec['cost']['bytes_accessed']:.6g} bytes, model flops "
+            f"{rf['model_flops']:.6g} (useful {rf['useful_flops_ratio']:.3f});"
+            f" args {mem['argument_bytes']:,} B, peak "
+            f"{mem['peak_per_device']} B, launches "
+            f"{ {k: v for k, v in rec['launches'].items() if v} }, "
+            f"collectives {rf['coll_bytes']:.6g} B, args made in "
+            f"{rec['args_s']} s")
+        check(rec["cost"]["flops"] > 0 and rec["cost"]["bytes_accessed"] > 0,
+              f"K-b {arch} {shape}: nothing counted {rec['cost']}")
+        if shape in K_EB_CELLS:
+            check(rec["launches"]["embedding_bag"] > 0,
+                  f"K-b {shape}: embedding_bag not launched")
+        if shape == "train_batch":
+            check(rec["launches"]["embedding_bag_backward"] > 0,
+                  f"K-b {shape}: the backward kernel not launched")
+        for term in ("compute_s", "memory_s", "collective_s"):
+            check(rf[term] <= K_TERM_SLACK * step_s,
+                  f"K-b {arch} {shape}: {term} {rf[term]:.6g} s over "
+                  f"{K_TERM_SLACK} x the step {step_s:.6g} s: the count is "
+                  f"wrong")
+        recs.append(rec)
+    launches = read_counts()
+    check(launches["bsr_spmm"] == launches["cheb_step"] == 0,
+          f"slice K launched a kernel off its path: {launches}")
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] K-b: {len(recs)} cells in {secs:.1f} s; launches "
+        f"{launches}")
+    return {"records": recs, "launches": launches, "seconds": secs}
+
+
+def phase_slice_k_report(recs: list, skips: list) -> str:
+    """K-c: launch/roofline.py renders K-b's records and K-a's card skips
+    (one jsonl) with one roofline row per K-b cell."""
+    from repro_torch.launch import roofline
+    K_DIR.mkdir(parents=True, exist_ok=True)
+    src, out = K_DIR / "dryrun.jsonl", K_DIR / "roofline.md"
+    src.write_text("".join(json.dumps(r) + "\n" for r in recs + skips))
+    roofline.main(["--in", str(src), "--out", str(out)])
+    text = out.read_text()
+    body = text.split("## Roofline")[1]
+    rows = [ln for ln in body.splitlines() if ln.startswith("| ")
+            and not ln.startswith("| arch")]
+    check(len(rows) == len(recs),
+          f"K-c: {len(rows)} roofline rows for {len(recs)} cells")
+    for arch, shape in K_CELLS:
+        check(any(ln.startswith(f"| {arch} | {shape} |") for ln in rows),
+              f"K-c: no roofline row for {arch} {shape}")
+    log(f"K-c: roofline report ({len(rows)} rows):\n{text.rstrip()}")
+    return text
+
+
+def phase_slice_k() -> dict:
+    """Slice K, the dry-run tooling on the card: K-a, K-b, K-c (K-d runs
+    in slice I3)."""
+    t0 = time.perf_counter()
+    a = phase_slice_k_abstract()
+    b = phase_slice_k_runs()
+    phase_slice_k_report(b["records"], a["skips"])
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] slice K: {secs:.1f} s")
+    return {"abstract": a, "runs": b, "launches": b["launches"],
+            "seconds": secs}
+
+
 def token_batch_row(cfg, dev):
     """The first sequence of I2's batch 0, [1, I1_SEQ + 1]."""
     from repro_torch.train.data import TokenPipelineConfig, token_batch
@@ -4170,6 +4386,8 @@ def main() -> int:
           f"slice J launched a kernel off its path: {j}")
     del i_res
     torch.cuda.empty_cache()
+    k = phase_slice_k()["launches"]
+    torch.cuda.empty_cache()
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
@@ -4180,14 +4398,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
          "replaces": "src/repro/kernels/bsr_spmm/bsr_spmm.py:42",
          "launches": a["launches"]["bsr_spmm"] + b["launches"]["bsr_spmm"]
-         + d["bsr_spmm"] + e["bsr_spmm"] + g["bsr_spmm"],
+         + d["bsr_spmm"] + e["bsr_spmm"] + g["bsr_spmm"] + k["bsr_spmm"],
          "launches_by_path": {"slice_a": a["launches"]["bsr_spmm"],
                               "slice_b": b["launches"]["bsr_spmm"],
                               "slice_d": d["bsr_spmm"],
                               "slice_e": e["bsr_spmm"],
                               "slice_g": g["bsr_spmm"],
                               "slice_h": h["bsr_spmm"],
-                              "slice_j": j["bsr_spmm"]},
+                              "slice_j": j["bsr_spmm"],
+                              "slice_k": k["bsr_spmm"]},
          "launches_by_variant": {
              k: a["launches"]["bsr_spmm_variants"][k]
              + b["launches"]["bsr_spmm_variants"][k]
@@ -4204,14 +4423,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/cheb_step/csrc/cheb_step.cu",
          "replaces": "src/repro/kernels/cheb_step/cheb_step.py:40",
          "launches": a["launches"]["cheb_step"] + b["launches"]["cheb_step"]
-         + d["cheb_step"] + e["cheb_step"] + g["cheb_step"],
+         + d["cheb_step"] + e["cheb_step"] + g["cheb_step"] + k["cheb_step"],
          "launches_by_path": {"slice_a": a["launches"]["cheb_step"],
                               "slice_b": b["launches"]["cheb_step"],
                               "slice_d": d["cheb_step"],
                               "slice_e": e["cheb_step"],
                               "slice_g": g["cheb_step"],
                               "slice_h": h["cheb_step"],
-                              "slice_j": j["cheb_step"]},
+                              "slice_j": j["cheb_step"],
+                              "slice_k": k["cheb_step"]},
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},
@@ -4220,12 +4440,13 @@ def main() -> int:
                    "embedding_bag.cu",
          "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:40",
          "launches": c["launches"]["embedding_bag"] + g["embedding_bag"]
-         + i["embedding_bag"],
+         + i["embedding_bag"] + k["embedding_bag"],
          "launches_by_path": {"slice_c": c["launches"]["embedding_bag"],
                               "slice_g": g["embedding_bag"],
                               "slice_h": h["embedding_bag"],
                               "slice_i": i["embedding_bag"],
-                              "slice_j": j["embedding_bag"]},
+                              "slice_j": j["embedding_bag"],
+                              "slice_k": k["embedding_bag"]},
          "max_abs_err": c["err"],
          "ms": c["eb"]["ms"], "plain_ms": c["eb"]["plain_ms"],
          "bound_ms": eb_b, "bound_by": eb_by,
@@ -4234,9 +4455,11 @@ def main() -> int:
          "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                    "embedding_bag_backward.cu",
          "replaces": "src/repro/models/recsys/dlrm.py:104",
-         "launches": i["embedding_bag_backward"],
+         "launches": i["embedding_bag_backward"]
+         + k["embedding_bag_backward"],
          "launches_by_path": {"slice_i": i["embedding_bag_backward"],
-                              "slice_j": j["embedding_bag_backward"]},
+                              "slice_j": j["embedding_bag_backward"],
+                              "slice_k": k["embedding_bag_backward"]},
          "max_abs_err": eb_bwd["err"],
          "ms": eb_bwd["ms"], "split_ms": eb_bwd["split_ms"],
          "plain_ms": eb_bwd["plain_ms"],

@@ -1,7 +1,8 @@
 """deepseek-7b [arXiv:2401.02954] (port of `repro.configs.deepseek_7b`):
 llama-arch dense decoder, MHA (kv=32), 30L x d4096, d_ff 11008, vocab
-102400. `build` (the dry-run plan) waits for the dry-run tooling."""
-from repro_torch.configs.lm_common import lm_cells, lm_smoke_run
+102400."""
+from repro_torch.configs.lm_common import build_lm_plan, lm_cells, \
+    lm_smoke_run
 from repro_torch.models.transformer import TransformerConfig
 
 NAME = "deepseek-7b"
@@ -22,6 +23,10 @@ def smoke_config():
 
 def cells():
     return lm_cells(full_config())
+
+
+def build(shape: str, multi_pod: bool):
+    return build_lm_plan(full_config(), shape, multi_pod)
 
 
 def smoke_run(seed: int = 0, device=None):

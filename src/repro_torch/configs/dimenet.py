@@ -1,14 +1,15 @@
 """dimenet [arXiv:2003.03123]: 6 blocks, d=128, 8 bilinear, 7 spherical x 6
 radial basis functions. Triplets capped at max_triplets_per_edge=8 on the
-non-molecular shapes (port of `repro.configs.dimenet`; `build`, the dry-run
-plan, waits for the dry-run tooling). `make_batch` draws its features on
-`device` (None = cuda) from a generator seeded with seed + 1; the graph and
-triplet arrays are the reference's."""
+non-molecular shapes (port of `repro.configs.dimenet`). `make_batch` draws
+its features on `device` (None = cuda) from a generator seeded with seed + 1;
+the graph and triplet arrays are the reference's; with `abstract` it returns
+meta tensors of the same shapes. `build` is a cell's dry-run plan."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import gnn_common as gc
+from repro_torch.configs.base import meta
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import dimenet as dn
 
@@ -30,9 +31,21 @@ def smoke_config():
                             max_triplets_per_edge=4)
 
 
-def make_batch(cfg, dims, seed: int = 0, device=None) -> dict:
-    dev = resolve_device(device)
+def make_batch(cfg, dims, seed: int = 0, device=None,
+               abstract: bool = False) -> dict:
     n = dims["n"]
+    if abstract:
+        t = dims["e"] * cfg.max_triplets_per_edge
+        batch = gc.abstract_graph_arrays(dims)
+        batch.pop("deg")
+        batch["node_feat"] = meta((n, cfg.d_in), torch.float32)
+        batch["positions"] = meta((n, 3), torch.float32)
+        batch["targets"] = meta((n, 1), torch.float32)
+        batch["t_kj"] = meta((t,), torch.int32)
+        batch["t_ji"] = meta((t,), torch.int32)
+        batch["t_mask"] = meta((t,), torch.float32)
+        return batch
+    dev = resolve_device(device)
     arrays = gc.graph_arrays(dims, seed)
     arrays.pop("deg")
     tkj, tji, tmask = dn.build_triplets(arrays["senders"],
@@ -60,6 +73,14 @@ def model_flops(cfg, dims) -> float:
 
 def cells():
     return gc.gnn_cells()
+
+
+def build(shape: str, multi_pod: bool):
+    dims = gc.GNN_SHAPES[shape]
+    cfg = full_config(d_in=dims["d_feat"])
+    return gc.build_gnn_plan(cfg, dn.init_params, dn.loss_fn, make_batch,
+                             shape, multi_pod, model_flops,
+                             layers_field="n_blocks")
 
 
 def smoke_run(seed: int = 0, device=None):

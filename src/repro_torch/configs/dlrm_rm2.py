@@ -10,9 +10,11 @@ Shapes:
 
 `make_batch` draws a real batch on a device (None = cuda) from a seeded
 generator: dense features ~ N(0, 1) and ids uniform per table, plus the
-table's offset. `smoke_run` is one train step and one retrieval on the
-smoke config. `cells` lists one cell per shape; the reference's `build`
-(the dry-run plan) waits for the dry-run tooling.
+table's offset (with `abstract`, meta tensors of the same shapes).
+`smoke_run` is one train step and one retrieval on the smoke config.
+`cells` lists one cell per shape; `build` is a cell's dry-run plan: the
+train step (the `embedding_bag` kernel and its backward on the card),
+`serve_step` (the kernel) or `retrieval_step`.
 """
 from __future__ import annotations
 
@@ -20,8 +22,11 @@ from functools import partial
 
 import torch
 
-from repro_torch.configs.base import Cell
+from repro_torch.configs.base import Cell, DryRunPlan, abstract_call, \
+    grad_abstract, meta
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shard
+from repro_torch.distributed.sharding import P
 from repro_torch.models.recsys import dlrm
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import make_train_step
@@ -54,11 +59,18 @@ def cells():
 
 
 def make_batch(cfg, bsz: int, seed: int = 0, device=None,
-               with_labels: bool = True) -> dict:
+               with_labels: bool = True, abstract: bool = False) -> dict:
     """dense [bsz, n_dense] f32, sparse_ids [bsz, n_sparse, bag] int32
     (uniform within each table, offsets applied) and, with labels,
     labels [bsz] f32 ~ Bernoulli(0.3); made on `device` from a generator
-    seeded with `seed`."""
+    seeded with `seed`, or meta tensors of those shapes (`abstract`)."""
+    if abstract:
+        b = {"dense": meta((bsz, cfg.n_dense), torch.float32),
+             "sparse_ids": meta((bsz, cfg.n_sparse, cfg.bag_size),
+                                torch.int32)}
+        if with_labels:
+            b["labels"] = meta((bsz,), torch.float32)
+        return b
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     dense = torch.randn((bsz, cfg.n_dense), generator=gen, device=dev)
@@ -81,6 +93,80 @@ def model_flops(cfg, bsz: int, kind: str) -> float:
     inter = bsz * f * f * cfg.embed_dim
     fwd = 2 * bsz * mlps + 2 * inter
     return 3 * fwd if kind == "train" else fwd
+
+
+def _batch_specs(batch: dict, bx) -> dict:
+    return {k: P(bx, *([None] * (v.ndim - 1))) for k, v in batch.items()}
+
+
+def build(shape: str, multi_pod: bool) -> DryRunPlan:
+    """The dry-run plan of one cell at `full_config()`.
+    `static["make_args"](seed, device)` draws the parameters
+    (`init_params(cfg, seed)`) and the batch (`make_batch`, seed + 1;
+    retrieval: a query and candidates ~ N(0, 1))."""
+    cfg = full_config()
+    info = SHAPES[shape]
+    bsz = info["batch"]
+    aparams = abstract_call(dlrm.init_params, cfg, device="cpu")
+    pspecs = shard.dlrm_param_specs(aparams, multi_pod)
+    bx = shard.batch_axes(multi_pod)
+    static = {"compute_dtype": "float32"}
+
+    if info["kind"] == "train":
+        opt_cfg = AdamWConfig()
+        aopt = abstract_call(adamw_init, aparams, opt_cfg)
+        ospecs = {"step": P(), "m": pspecs, "v": pspecs}
+        batch = make_batch(cfg, bsz, abstract=True)
+        step = make_train_step(partial(dlrm.loss_fn, cfg=cfg), opt_cfg,
+                               num_microbatches=1, donate=True)
+
+        def make_args(seed: int = 0, device=None):
+            params = dlrm.init_params(cfg, seed=seed, device=device)
+            return (params, adamw_init(params, opt_cfg),
+                    make_batch(cfg, bsz, seed=seed + 1, device=device))
+        return DryRunPlan(step=step, abstract_args=(aparams, aopt, batch),
+                          in_specs=(pspecs, ospecs,
+                                    _batch_specs(batch, bx)),
+                          donate=(0, 1),
+                          model_flops=model_flops(cfg, bsz, "train"),
+                          static={**static, "make_args": make_args,
+                                  "temp_abstract": grad_abstract(aparams)})
+
+    if info["kind"] == "serve":
+        batch = make_batch(cfg, bsz, abstract=True, with_labels=False)
+
+        def make_args(seed: int = 0, device=None):
+            return (dlrm.init_params(cfg, seed=seed, device=device),
+                    make_batch(cfg, bsz, seed=seed + 1, device=device,
+                               with_labels=False))
+        return DryRunPlan(step=partial(dlrm.serve_step, cfg=cfg),
+                          abstract_args=(aparams, batch),
+                          in_specs=(pspecs, _batch_specs(batch, bx)),
+                          model_flops=model_flops(cfg, bsz, "serve"),
+                          static={**static, "make_args": make_args,
+                                  "out_abstract": meta((bsz,),
+                                                       torch.float32)})
+
+    # retrieval: one query, 1M candidates
+    nc = info["n_candidates"]
+    batch = {"dense": meta((1, cfg.n_dense), torch.float32),
+             "candidates": meta((nc, cfg.embed_dim), torch.float32)}
+    bspecs = {"dense": P(None, None),
+              "candidates": P(shard.flat_axes(multi_pod), None)}
+
+    def make_args(seed: int = 0, device=None):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        return (dlrm.init_params(cfg, seed=seed, device=dev),
+                {"dense": torch.randn((1, cfg.n_dense), generator=gen,
+                                      device=dev),
+                 "candidates": torch.randn((nc, cfg.embed_dim),
+                                           generator=gen, device=dev)})
+    return DryRunPlan(step=partial(dlrm.retrieval_step, cfg=cfg),
+                      abstract_args=(aparams, batch),
+                      in_specs=(pspecs, bspecs),
+                      model_flops=2.0 * nc * cfg.embed_dim,
+                      static={**static, "make_args": make_args})
 
 
 def smoke_run(seed: int = 0, device=None) -> dict:

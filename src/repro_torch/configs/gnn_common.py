@@ -13,9 +13,9 @@ Node/edge counts are padded to multiples of 1024, as in the reference.
 `graph_arrays` is host numpy and gives the reference's arrays; the random
 features come from a `torch.Generator` on the batch's device
 (`random_array`), so their values differ from the reference's
-`jax.random` ones. `gnn_cells` lists the cells (the registry's); the
-reference's `build_gnn_plan` (the dry-run plan) waits for the dry-run
-tooling.
+`jax.random` ones. `gnn_cells` lists the cells (the registry's);
+`build_gnn_plan` is a cell's dry-run plan, whose abstract batch comes
+from each config's `make_batch(..., abstract=True)` (meta tensors).
 """
 from __future__ import annotations
 
@@ -24,13 +24,17 @@ from functools import partial
 import numpy as np
 import torch
 
-from repro_torch.configs.base import Cell
+from repro_torch.configs.base import Cell, DryRunPlan, abstract_call, \
+    grad_abstract, meta
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as shard
+from repro_torch.distributed.sharding import P
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import make_train_step
 
-__all__ = ["GNN_SHAPES", "gnn_cells", "graph_arrays", "random_array", "upload",
-           "gnn_smoke_dims", "run_gnn_smoke"]
+__all__ = ["GNN_SHAPES", "gnn_cells", "graph_arrays", "abstract_graph_arrays",
+           "random_array", "upload", "gnn_smoke_dims", "run_gnn_smoke",
+           "build_gnn_plan"]
 
 
 def _pad(x: int, q: int = 1024) -> int:
@@ -84,6 +88,15 @@ def graph_arrays(dims, seed: int = 0) -> dict:
     }
 
 
+def abstract_graph_arrays(dims) -> dict:
+    """`graph_arrays`' leaves as meta tensors."""
+    n, e = dims["n"], dims["e"]
+    return {"senders": meta((e,), torch.int32),
+            "receivers": meta((e,), torch.int32),
+            "deg": meta((n,), torch.float32),
+            "node_mask": meta((n,), torch.float32)}
+
+
 def upload(arrays: dict, dev: torch.device) -> dict:
     """Host numpy arrays -> tensors on `dev` (same dtypes)."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
@@ -114,3 +127,52 @@ def run_gnn_smoke(arch_cfg, init_params, loss_fn, batch_builder,
 def gnn_cells() -> list:
     """One train Cell per GNN shape."""
     return [Cell(shape=s, kind="train") for s in GNN_SHAPES]
+
+
+def build_gnn_plan(arch_cfg, init_params, loss_fn, batch_builder,
+                   shape: str, multi_pod: bool,
+                   model_flops_fn=None, layers_field: str = "n_layers",
+                   _probe_layers: int | None = None) -> DryRunPlan:
+    """The dry-run plan of one GNN cell: one donated AdamW train step on
+    the shape's batch (`batch_builder(cfg, dims, abstract=True)`),
+    parameters whole, node/edge arrays over every mesh axis where they
+    tile it. `static["make_args"](seed, device)` draws the parameters from
+    a generator seeded with `seed` and the batch through
+    `batch_builder(cfg, dims, seed=seed, device=device)`."""
+    import dataclasses as dc
+    dims = GNN_SHAPES[shape]
+    if _probe_layers is not None:
+        arch_cfg = dc.replace(arch_cfg, **{layers_field: _probe_layers},
+                              scan_unroll=True)
+    aparams = abstract_call(init_params, torch.Generator(), cfg=arch_cfg)
+    pspecs = shard.replicated_specs(aparams)
+    batch = batch_builder(arch_cfg, dims, abstract=True)
+    bspecs = shard.gnn_batch_specs(batch, multi_pod)
+    opt_cfg = AdamWConfig()
+    aopt = abstract_call(adamw_init, aparams, opt_cfg)
+    ospecs = {"step": P(), "m": pspecs, "v": pspecs}
+    step = make_train_step(partial(loss_fn, cfg=arch_cfg), opt_cfg,
+                           num_microbatches=1, donate=True)
+
+    def make_args(seed: int = 0, device=None):
+        dev = resolve_device(device)
+        params = init_params(torch.Generator(device=dev).manual_seed(seed),
+                             cfg=arch_cfg)
+        return (params, adamw_init(params, opt_cfg),
+                batch_builder(arch_cfg, dims, seed=seed, device=dev))
+    mf = model_flops_fn(arch_cfg, dims) if model_flops_fn else 0.0
+    plan = DryRunPlan(step=step, abstract_args=(aparams, aopt, batch),
+                      in_specs=(pspecs, ospecs, bspecs), donate=(0, 1),
+                      model_flops=3.0 * mf,  # train = fwd + ~2x fwd for bwd
+                      note=dims["note"],
+                      static={"compute_dtype": "float32",
+                              "make_args": make_args,
+                              "temp_abstract": grad_abstract(aparams)})
+    if _probe_layers is None:
+        plan.cost_model = {
+            "L": getattr(arch_cfg, layers_field), "M": 1,
+            "probe": lambda L, M: build_gnn_plan(
+                arch_cfg, init_params, loss_fn, batch_builder, shape,
+                multi_pod, model_flops_fn, layers_field, _probe_layers=L),
+        }
+    return plan

@@ -1,8 +1,8 @@
 """granite-moe-3b-a800m [hf:ibm-granite/granite-3.0 family] (port of
 `repro.configs.granite_moe_3b`): MoE decoder, 32L x d1536, 24Q/8KV heads,
-per-expert d_ff 512, 40 experts top-8, vocab 49155. `build` (the dry-run
-plan) waits for the dry-run tooling."""
-from repro_torch.configs.lm_common import lm_cells, lm_smoke_run
+per-expert d_ff 512, 40 experts top-8, vocab 49155."""
+from repro_torch.configs.lm_common import build_lm_plan, lm_cells, \
+    lm_smoke_run
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
 
@@ -26,6 +26,10 @@ def smoke_config():
 
 def cells():
     return lm_cells(full_config())
+
+
+def build(shape: str, multi_pod: bool):
+    return build_lm_plan(full_config(), shape, multi_pod)
 
 
 def smoke_run(seed: int = 0, device=None):

@@ -1,14 +1,15 @@
 """graphcast [arXiv:2212.12794]: 16L processor, d=512, mesh refinement 6
 (40,962 mesh nodes, 327,660 multi-level directed mesh edges), 227 output
-vars (port of `repro.configs.graphcast`; `build`, the dry-run plan, waits
-for the dry-run tooling).
+vars (port of `repro.configs.graphcast`; `build` is a cell's dry-run
+plan).
 The input graph of each assigned shape plays the grid role; grid<->mesh
 bipartite edges are synthetic nearest-assignment. `make_batch` draws its
 features on `device` (None = cuda) from a generator seeded with seed + 1;
 the topology arrays are the reference's, m2g included as its final
 reassignment leaves it: senders are grid ids and receivers mesh ids (the
 variables it swaps already hold each other's ids), so at full width they
-index past the node sets, where the model applies XLA's rule."""
+index past the node sets, where the model applies XLA's rule. With
+`abstract`, `make_batch` returns meta tensors of the same shapes."""
 from __future__ import annotations
 
 from functools import partial
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import gnn_common as gc
+from repro_torch.configs.base import meta
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import graphcast as gcast
 from repro_torch.models.gnn.common import lnmlp_init, requires_grad
@@ -77,10 +79,36 @@ def topology_arrays(cfg, n_grid: int, seed: int = 0) -> dict:
             "m2g_senders": m2g_m, "m2g_receivers": m2g_g}
 
 
-def make_batch(cfg, dims, seed: int = 0, d_in=None, device=None) -> dict:
-    dev = resolve_device(device)
+def _abstract_batch(cfg, n_grid: int, d_in: int) -> dict:
+    f32, i32 = torch.float32, torch.int32
+    n_mesh = _pad512(cfg.n_mesh_nodes)
+    e_mesh = _pad512(cfg.n_mesh_edges)
+    e_g2m = _pad512(n_grid * G2M_PER_GRID)
+    e_m2g = _pad512(n_grid * M2G_PER_GRID)
+    batch = {
+        "grid_feat": meta((n_grid, d_in), f32),
+        "mesh_feat": meta((n_mesh, 4), f32),
+        "g2m_edge_feat": meta((e_g2m, 4), f32),
+        "mesh_edge_feat": meta((e_mesh, 4), f32),
+        "m2g_edge_feat": meta((e_m2g, 4), f32),
+        "targets": meta((n_grid, cfg.n_vars), f32),
+        "node_mask": meta((n_grid,), f32),
+    }
+    for k, e in (("g2m", e_g2m), ("m2g", e_m2g)):
+        batch[f"{k}_senders"] = meta((e,), i32)
+        batch[f"{k}_receivers"] = meta((e,), i32)
+    batch["mesh_senders"] = meta((e_mesh,), i32)
+    batch["mesh_receivers"] = meta((e_mesh,), i32)
+    return batch
+
+
+def make_batch(cfg, dims, seed: int = 0, d_in=None, device=None,
+               abstract: bool = False) -> dict:
     n_grid = dims["n"]
     d_in = d_in or dims["d_feat"]
+    if abstract:
+        return _abstract_batch(cfg, n_grid, d_in)
+    dev = resolve_device(device)
     arrays = topology_arrays(cfg, n_grid, seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     ar = gc.random_array
@@ -111,6 +139,15 @@ def model_flops(cfg, dims) -> float:
 
 def cells():
     return gc.gnn_cells()
+
+
+def build(shape: str, multi_pod: bool):
+    dims = gc.GNN_SHAPES[shape]
+    cfg = full_config()
+    return gc.build_gnn_plan(
+        cfg, partial(_init, d_in=dims["d_feat"]), gcast.loss_fn,
+        partial(make_batch, d_in=dims["d_feat"]), shape, multi_pod,
+        model_flops)
 
 
 def smoke_run(seed: int = 0, device=None):

@@ -1,8 +1,9 @@
 """h2o-danube-1.8b [arXiv:2401.16818] (port of
 `repro.configs.h2o_danube_1_8b`): llama+mistral mix with sliding-window
 attention. 24L x d2560, 32Q/8KV heads, d_ff 6912, vocab 32000, window
-4096. `build` (the dry-run plan) waits for the dry-run tooling."""
-from repro_torch.configs.lm_common import lm_cells, lm_smoke_run
+4096."""
+from repro_torch.configs.lm_common import build_lm_plan, lm_cells, \
+    lm_smoke_run
 from repro_torch.models.transformer import TransformerConfig
 
 NAME = "h2o-danube-1.8b"
@@ -24,6 +25,10 @@ def smoke_config():
 
 def cells():
     return lm_cells(full_config())
+
+
+def build(shape: str, multi_pod: bool):
+    return build_lm_plan(full_config(), shape, multi_pod)
 
 
 def smoke_run(seed: int = 0, device=None):

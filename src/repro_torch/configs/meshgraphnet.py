@@ -1,13 +1,14 @@
 """meshgraphnet [arXiv:2010.03409]: 15L, d=128, sum aggregator, 2-layer
-MLPs (port of `repro.configs.meshgraphnet`; `build`, the dry-run plan, waits
-for the dry-run tooling). `make_batch` draws its features on `device` (None =
-cuda) from a generator seeded with seed + 1; the graph arrays are the
-reference's."""
+MLPs (port of `repro.configs.meshgraphnet`). `make_batch` draws its features
+on `device` (None = cuda) from a generator seeded with seed + 1; the graph
+arrays are the reference's; with `abstract` it returns meta tensors of the
+same shapes. `build` is a cell's dry-run plan."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs import gnn_common as gc
+from repro_torch.configs.base import meta
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import meshgraphnet as mgn
 
@@ -29,9 +30,17 @@ def smoke_config():
                                   d_in_edge=D_EDGE_FEAT, d_out=3)
 
 
-def make_batch(cfg, dims, seed: int = 0, device=None) -> dict:
-    dev = resolve_device(device)
+def make_batch(cfg, dims, seed: int = 0, device=None,
+               abstract: bool = False) -> dict:
     n, e = dims["n"], dims["e"]
+    if abstract:
+        batch = gc.abstract_graph_arrays(dims)
+        batch.pop("deg")
+        batch["node_feat"] = meta((n, cfg.d_in_node), torch.float32)
+        batch["edge_feat"] = meta((e, cfg.d_in_edge), torch.float32)
+        batch["targets"] = meta((n, cfg.d_out), torch.float32)
+        return batch
+    dev = resolve_device(device)
     arrays = gc.graph_arrays(dims, seed)
     arrays.pop("deg")
     batch = gc.upload(arrays, dev)
@@ -52,6 +61,13 @@ def model_flops(cfg, dims) -> float:
 
 def cells():
     return gc.gnn_cells()
+
+
+def build(shape: str, multi_pod: bool):
+    dims = gc.GNN_SHAPES[shape]
+    cfg = full_config(d_in=dims["d_feat"])
+    return gc.build_gnn_plan(cfg, mgn.init_params, mgn.loss_fn, make_batch,
+                             shape, multi_pod, model_flops)
 
 
 def smoke_run(seed: int = 0, device=None):

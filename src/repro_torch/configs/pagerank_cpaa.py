@@ -15,15 +15,25 @@ Rounds: 12 (= ERR < 1e-3 at c=0.85, the paper's Table 2 operating point).
 The constants, `SHAPES`, the abstract partitions, `full_config`,
 `smoke_config` and `model_flops` are copies of the reference's;
 `smoke_run` solves on a device through the port's `select_engine`;
-`cells` lists one cell per shape. The reference's `build` (the dry-run
-plan) waits for the dry-run tooling.
+`cells` lists one cell per shape. `build` is a cell's dry-run plan: the
+fixed-round distributed CPAA (`core.distributed.cpaa_distributed_1d` /
+`_2d`) over edge arrays stacked as the production mesh's partition
+([n_dev, E] or [R, C, E]); `static["step_builder"](mesh)` makes the step
+for a mesh of one rank, which merges all the shards into one on its
+first call with them and reuses the merged copy after (the port runs no
+production mesh: `launch/dryrun.py`).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from repro_torch.configs.base import Cell
+import torch
+
+from repro_torch.configs.base import Cell, DryRunPlan, meta
+from repro_torch.core import distributed as dist
 from repro_torch.core.chebyshev import make_schedule
+from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import P
 
 NAME = "cpaa-pagerank"
 FAMILY = "pagerank"
@@ -129,6 +139,148 @@ def model_flops(n: int, m: int, rounds: int, batch: int | None) -> float:
     """Paper §4.2.3: m mults + (m + 2n) adds per iteration (per column)."""
     b = batch or 1
     return rounds * (2.0 * m + 2.0 * n) * b
+
+
+def _one_rank(mesh, shape: str) -> None:
+    if mesh.size() != 1:
+        raise NotImplementedError(
+            f"{shape}: the port runs a cpaa-pagerank plan on a mesh of one "
+            f"rank (all shards merged), not on {mesh.size()} ranks")
+
+
+def _merge_1d(part, src, dst_local, weight):
+    """A block of k stacked 1D shards [k, E] (rows_per_dev rows each) as
+    one shard of k * rows_per_dev rows: chunk-local destinations offset by
+    their shard's first row, every array flattened."""
+    off = torch.arange(src.shape[0], dtype=torch.int32,
+                       device=src.device) * part.rows_per_dev
+    return (src.reshape(-1), (dst_local + off[:, None]).reshape(-1),
+            weight.reshape(-1))
+
+
+def _merge_2d(part, src_local, dst_local, weight):
+    """The [R, C, E] shards of a 2D partition as the one shard of the
+    (1, 1) grid, whose column layout is the identity: the nested column
+    index back to the global vertex, destinations offset by their row
+    chunk."""
+    r, c = part.grid
+    rows, sub = part.rows_per_chunk, part.sub
+    dev = src_local.device
+    r_off = torch.arange(r, dtype=torch.int64, device=dev)[:, None, None]
+    c_off = torch.arange(c, dtype=torch.int64, device=dev)[None, :, None]
+    s = src_local.to(torch.int64)
+    src = (s // sub) * rows + c_off * sub + s % sub
+    dst = dst_local.to(torch.int64) + r_off * rows
+    return (src.to(torch.int32).reshape(-1),
+            dst.to(torch.int32).reshape(-1), weight.reshape(-1))
+
+
+def _merged_once(solve, merge):
+    """step(p, *edges) = solve(p, *merge(*edges)), the merge made on the
+    first call with a given set of edge tensors and reused while the same
+    tensors come back: the merge is a change of the arguments' layout, not
+    the solver's work, so the dry-run's warm-up pays it and its counted
+    and timed steps do not."""
+    memo = {"edges": (), "merged": None}
+
+    def step(p, *edges):
+        if len(edges) != len(memo["edges"]) or any(
+                a is not b for a, b in zip(edges, memo["edges"])):
+            memo["edges"], memo["merged"] = (), None   # old copy freed
+            memo["merged"], memo["edges"] = merge(*edges), edges
+        return solve(p, *memo["merged"])
+    return step
+
+
+def build(shape: str, multi_pod: bool, _rounds: int | None = None):
+    """The dry-run plan of one cell. `static["make_args"](seed, device)`
+    draws the stacked partition: sources uniform over the real vertices,
+    destinations uniform over each shard's rows, weights 1 / deg; p is the
+    uniform personalization (1 / n on every real vertex)."""
+    info = SHAPES[shape]
+    n, m = info["n"], int(info["n"] * info["deg"])
+    sched = make_schedule(C, TOL) if _rounds is None \
+        else make_schedule(C, rounds=_rounds)
+    batched = info["batch"] is not None
+    cdt = info.get("comm_dtype")
+    cdt = getattr(torch, cdt) if cdt else None
+
+    if info["partition"] == "1d":
+        n_dev = 512 if multi_pod else 256
+        part = abstract_partition_1d(n, m, n_dev)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+        stack = (n_dev,)
+        rows, src_hi = part.rows_per_dev, n
+
+        def step_builder(mesh):
+            _one_rank(mesh, shape)
+            one = _AbstractPart1D(n=part.n, n_orig=part.n_orig, n_dev=1,
+                                  rows_per_dev=part.n,
+                                  edges_per_dev=n_dev * part.edges_per_dev)
+            solve = dist.cpaa_distributed_1d(mesh, one, sched)
+            return _merged_once(solve, lambda *e: _merge_1d(part, *e))
+
+        vec_spec = P(axes, None) if batched else P(axes)
+        specs = (vec_spec, P(axes), P(axes), P(axes))
+    else:
+        grid = (32, 16) if multi_pod else (16, 16)
+        part = abstract_partition_2d(n, m, grid)
+        row_axis = ("pod", "data") if multi_pod else ("data",)
+        stack = grid
+        rows, src_hi = part.rows_per_chunk, part.cols_per_chunk
+
+        def step_builder(mesh):
+            _one_rank(mesh, shape)
+            one = _AbstractPart2D(n=part.n, n_orig=part.n_orig, grid=(1, 1),
+                                  rows_per_chunk=part.n,
+                                  cols_per_chunk=part.n, sub=part.n,
+                                  edges_per_dev=(grid[0] * grid[1]
+                                                 * part.edges_per_dev))
+            solve = dist.cpaa_distributed_2d(mesh, one, sched,
+                                             comm_dtype=cdt)
+            return _merged_once(solve, lambda *e: _merge_2d(part, *e))
+
+        es = P(row_axis, "model")
+        vec_spec = P("model", None) if batched else P("model")
+        specs = (vec_spec, es, es, es)
+
+    e = part.edges_per_dev
+    vec_shape = (part.n, info["batch"]) if batched else (part.n,)
+    args = (meta(vec_shape, torch.float32),
+            meta((*stack, e), torch.int32),
+            meta((*stack, e), torch.int32),
+            meta((*stack, e), torch.float32))
+
+    def make_args(seed: int = 0, device=None):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        p = torch.zeros(vec_shape, device=dev)
+        p[:n] = 1.0 / n
+        src = torch.randint(0, min(src_hi, n), (*stack, e), generator=gen,
+                            device=dev, dtype=torch.int32)
+        dst = torch.randint(0, rows, (*stack, e), generator=gen, device=dev,
+                            dtype=torch.int32)
+        weight = torch.full((*stack, e), 1.0 / info["deg"], device=dev)
+        return p, src, dst, weight
+
+    def probe(L, M):
+        return build(shape, multi_pod, _rounds=L)
+
+    plan = DryRunPlan(step=None, abstract_args=args, in_specs=specs,
+                      static={"step_builder": step_builder,
+                              "make_args": make_args,
+                              "compute_dtype": "float32",
+                              "out_abstract": meta(vec_shape,
+                                                   torch.float32),
+                              # the one-rank copy of the edges it keeps
+                              "temp_abstract": args[1:]},
+                      model_flops=model_flops(n, m, sched.rounds,
+                                              info["batch"]),
+                      note=f"rounds={sched.rounds} "
+                           f"partition={info['partition']}")
+    if _rounds is None:
+        plan.cost_model = {"L": sched.rounds, "M": 1, "probe": probe}
+    return plan
 
 
 def smoke_run(seed: int = 0, device=None) -> dict:

@@ -90,6 +90,16 @@ def cells():
     return []  # online serving workload; not an (arch x shape) cell
 
 
+def build(shape: str, multi_pod: bool):
+    """pagerank-serve has no dry-run cells (as in the reference).
+
+    Raises:
+        NotImplementedError: always.
+    """
+    raise NotImplementedError(
+        "pagerank-serve has no dry-run cells; use launch/serve.py")
+
+
 def make_service(cfg: PPRServeConfig, device=None):
     """Registry with every configured graph warm + the service over it, on
     `device` (None = cuda; raises without a GPU)."""

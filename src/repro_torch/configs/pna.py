@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs import gnn_common as gc
+from repro_torch.configs.base import meta
 from repro_torch.device import resolve_device
 from repro_torch.models.gnn import pna
 
@@ -25,9 +26,15 @@ def smoke_config():
                          d_in=12, d_out=4)
 
 
-def make_batch(cfg, dims, seed: int = 0, device=None) -> dict:
-    dev = resolve_device(device)
+def make_batch(cfg, dims, seed: int = 0, device=None,
+               abstract: bool = False) -> dict:
     n = dims["n"]
+    if abstract:
+        batch = gc.abstract_graph_arrays(dims)
+        batch["node_feat"] = meta((n, cfg.d_in), torch.float32)
+        batch["targets"] = meta((n, cfg.d_out), torch.float32)
+        return batch
+    dev = resolve_device(device)
     batch = gc.upload(gc.graph_arrays(dims, seed), dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     batch["node_feat"] = gc.random_array((n, cfg.d_in), gen)
@@ -44,6 +51,13 @@ def model_flops(cfg, dims) -> float:
 
 def cells():
     return gc.gnn_cells()
+
+
+def build(shape: str, multi_pod: bool):
+    dims = gc.GNN_SHAPES[shape]
+    cfg = full_config(d_in=dims["d_feat"])
+    return gc.build_gnn_plan(cfg, pna.init_params, pna.loss_fn, make_batch,
+                             shape, multi_pod, model_flops)
 
 
 def smoke_run(seed: int = 0, device=None):

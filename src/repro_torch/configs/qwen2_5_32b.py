@@ -1,9 +1,9 @@
 """qwen2.5-32b [hf:Qwen/Qwen2.5 family] (port of
 `repro.configs.qwen2_5_32b`): dense decoder, GQA (40Q/8KV), QKV bias,
 64L x d5120, d_ff 27648, vocab 152064. Its f32 weights (131 GB) do not fit
-one card; it runs here at smoke size. `build` (the dry-run plan) waits
-for the dry-run tooling."""
-from repro_torch.configs.lm_common import lm_cells, lm_smoke_run
+one card; it runs here at smoke size."""
+from repro_torch.configs.lm_common import build_lm_plan, lm_cells, \
+    lm_smoke_run
 from repro_torch.models.transformer import TransformerConfig
 
 NAME = "qwen2.5-32b"
@@ -25,6 +25,10 @@ def smoke_config():
 
 def cells():
     return lm_cells(full_config())
+
+
+def build(shape: str, multi_pod: bool):
+    return build_lm_plan(full_config(), shape, multi_pod)
 
 
 def smoke_run(seed: int = 0, device=None):

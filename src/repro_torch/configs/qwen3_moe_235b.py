@@ -7,15 +7,16 @@ smoke config runs anywhere.
 
 `cells` adds one extra cell to the four assigned: `train_4k_a2a`, the
 train_4k step with the all-to-all expert dispatch. `cell_config` gives a
-cell's model config and shape (the config part of the reference's
-`build`); the dry-run plan itself, with its bf16 AdamW moments and 16
-microbatches, waits for the dry-run tooling."""
+cell's model config and shape; `build` is its dry-run plan, with bf16
+AdamW moments and 16 microbatches at train_4k."""
 import dataclasses
 
 from repro_torch.configs.base import Cell
-from repro_torch.configs.lm_common import lm_cells, lm_smoke_run
+from repro_torch.configs.lm_common import build_lm_plan, lm_cells, \
+    lm_smoke_run
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optimizer import AdamWConfig
 
 NAME = "qwen3-moe-235b-a22b"
 FAMILY = "lm"
@@ -51,6 +52,13 @@ def cell_config(shape: str) -> tuple[TransformerConfig, str]:
                                                                impl="a2a"))
         shape = "train_4k"
     return cfg, shape
+
+
+def build(shape: str, multi_pod: bool):
+    opt = AdamWConfig(m_dtype="bfloat16", v_dtype="bfloat16")
+    cfg, shape = cell_config(shape)
+    return build_lm_plan(cfg, shape, multi_pod, opt_cfg=opt,
+                         num_microbatches=16 if shape == "train_4k" else None)
 
 
 def smoke_run(seed: int = 0, device=None):

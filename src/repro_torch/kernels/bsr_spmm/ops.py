@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
 
 __all__ = ["bsr_spmm", "bsr_spmm_as", "BLOCK", "TC_MIN_BT", "VARIANTS",
@@ -129,6 +129,10 @@ def _launch(block_cols: torch.Tensor, values: torch.Tensor,
         raise RuntimeError(f"bsr_spmm: kernel launch failed with CUDA error "
                            f"{err}")
     _LAUNCHES[kind] += 1
+    if cost.active():
+        cost.report("bsr_spmm", lambda: (
+            2 * int(torch.count_nonzero(values)) * bt,
+            4 * (block_cols.numel() + values.numel() + 2 * x.numel())))
     return y if xk is x else y[:, :bt].contiguous()
 
 

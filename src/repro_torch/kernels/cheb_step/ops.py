@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.cheb_step.ref import cheb_step_ref
 
 __all__ = ["cheb_step", "launches", "reset_launches"]
@@ -77,6 +77,9 @@ def _launch(y, t, acc, ck):
         raise RuntimeError(f"cheb_step: kernel launch failed with CUDA error "
                            f"{err}")
     _LAUNCHES += 1
+    if cost.active():
+        cost.report("cheb_step", lambda: (3 * y.numel(),
+                                          5 * 4 * y.numel() + 4))
     return t_out, acc_out
 
 

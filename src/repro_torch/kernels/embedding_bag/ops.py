@@ -11,7 +11,8 @@ tensor launches the CUDA kernel or raises -- there is no fallback on the
 card. Both kernels are bound by memory: the lookup by the random row
 reads and the one write of each output row, the backward by the read of
 the output gradient and the one write of each touched row. Each has its
-own launch counter.
+own launch counter and reports its FLOPs and those bytes to
+`kernels.cost` while a collector is open.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, cost
 from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward_ref,
                                                    embedding_bag_ref)
 
@@ -119,7 +120,28 @@ def _launch(ids: torch.Tensor, table: torch.Tensor,
         raise RuntimeError(f"embedding_bag: kernel launch failed with CUDA "
                            f"error {err}")
     _LAUNCHES += 1
+    if cost.active():
+        cost.report("embedding_bag", lambda: _lookup_cost(ids, out))
     return out
+
+
+def _distinct(ids: torch.Tensor) -> int:
+    return int(torch.unique(ids).numel())
+
+
+def _lookup_cost(ids: torch.Tensor, out: torch.Tensor) -> tuple[int, int]:
+    """(flops, bytes) of one lookup: 2 per id and column; each distinct
+    row read once, the ids read and the output written once."""
+    dim = out.shape[1]
+    return (2 * ids.numel() * dim,
+            4 * _distinct(ids) * dim + 4 * (out.numel() + ids.numel()))
+
+
+def _backward_cost(ids: torch.Tensor, dim: int) -> tuple[int, int]:
+    """(flops, bytes) of one backward: 2 per id and column; grad_out and
+    the ids read once, each touched row written once."""
+    n = ids.numel()
+    return 2 * n * dim, 4 * n * dim + 4 * n + 4 * _distinct(ids) * dim
 
 
 def _bwd_fn():
@@ -177,6 +199,9 @@ def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
         raise RuntimeError(f"embedding_bag backward: kernel launch failed "
                            f"with CUDA error {err}")
     _BWD_LAUNCHES += 1
+    if cost.active():
+        cost.report("embedding_bag_backward",
+                    lambda: _backward_cost(ids, dim))
     return grad
 
 

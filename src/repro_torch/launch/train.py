@@ -10,9 +10,11 @@ not know. Parameters come from
 generator seed 0 (`--smoke`: the arch's reduced config, else its full
 config), AdamW (`--lr`) takes one step per batch of `--global-batch`
 sequences of `--seq-len` + 1 tokens (`token_batch`, deterministic in the
-step), one microbatch per step. The reference builds a TPU mesh here
-(`make_elastic_mesh`); on one card the launcher prints the device
-instead. The step updates the state in place (donate=True): the same
+step), one microbatch per step. It prints the device and, as the
+reference does, the mesh of `launch.mesh.make_elastic_mesh()` over the
+ranks present ("mesh: (1, 1) over 1 device(s)" on one card, which
+starts a single-rank process group); the step itself runs unsharded,
+as the reference's does. The step updates the state in place (donate=True): the same
 numbers as the reference's donate=False, without a second copy of the
 parameters and moments on the card.
 
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.configs.registry import get
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_elastic_mesh
 from repro_torch.models import transformer as tf
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.data import TokenPipelineConfig, token_batch
@@ -43,8 +46,9 @@ __all__ = ["main"]
 
 
 def main(argv=None) -> dict:
-    """Run the launcher; returns {'device', 'start_step', 'losses',
-    'step_s', 'params', 'opt'} for callers that drive it in-process."""
+    """Run the launcher; returns {'device', 'mesh', 'start_step',
+    'losses', 'step_s', 'params', 'opt'} for callers that drive it
+    in-process ('mesh': the elastic mesh's shape)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     help="an arch of configs/registry.py")
@@ -70,6 +74,8 @@ def main(argv=None) -> dict:
     dev = resolve_device(args.device)
     name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "host"
     print(f"device: {dev} ({name})")
+    mesh = make_elastic_mesh(device=dev)
+    print(f"mesh: {tuple(mesh.shape)} over {mesh.size()} device(s)")
 
     opt_cfg = AdamWConfig(lr=args.lr)
     start_step = 0
@@ -111,7 +117,8 @@ def main(argv=None) -> dict:
                   metadata={"data_step": start_step + args.steps - 1})
         ckpt.prune(args.ckpt_dir, keep=3)
     print("done")
-    return {"device": str(dev), "start_step": start_step, "losses": losses,
+    return {"device": str(dev), "mesh": tuple(mesh.shape),
+            "start_step": start_step, "losses": losses,
             "step_s": step_s, "params": params, "opt": opt}
 
 

@@ -5,15 +5,27 @@ The global batch splits into M microbatches taken one after another;
 gradients accumulate in float32, each leaf's added into its accumulator
 as soon as the backward has it (a hook after the leaf's gradient is
 accumulated), so the microbatch's own gradients never exist all at once.
-The reference's `grad_specs` and `micro_unroll` pin gradients to a TPU
-mesh and unroll its scan; on one card they mean nothing and wait for the
-sharding slice.
+
+Under a mesh of more than one rank (`distributed.use_mesh`) each rank
+feeds the step its own data shard, and the step takes the data-parallel
+mean: every gradient leaf and the loss are summed over all the mesh's
+ranks (one all-reduce each, counted by `core.distributed` under tag
+"train") and divided by their count, so every rank applies the gradient
+the reference's GSPMD step applies for the whole batch. The mean runs
+over data x model, not over data alone: the ranks of a "model" group
+hold the same tokens, and with the all-to-all MoE each holds the
+gradient of its own expert slice only (zero elsewhere), so the sum over
+the group assembles the experts and the division by data x model is the
+reference's mean over the per-shard aux estimates. The reference's
+`grad_specs` pin gradients to an FSDP layout; the port keeps every
+gradient whole on each rank, so they are accepted and change nothing.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils import _pytree as pytree
 
+from repro_torch.core import distributed as cdist
 from repro_torch.distributed.sharding import current_mesh
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
@@ -46,21 +58,26 @@ def _backward(loss_fn, xs, spec, batch) -> torch.Tensor:
     return loss.detach()
 
 
-def _refuse_multi_rank_mesh() -> None:
-    """Under a mesh of more than one rank (`distributed.use_mesh`) each
-    rank's gradient covers only its own data shard and expert slice, and
-    the port takes no data-parallel mean of them yet: AdamW on each
-    rank's own gradient would drive the replicated weights apart."""
+def _mesh_mean(grads: list, loss: torch.Tensor) -> torch.Tensor:
+    """Under a mesh of more than one rank: every gradient leaf and the loss
+    summed over the mesh's ranks and divided by their count, in place;
+    returns the mean loss. Without one, the loss as it is."""
     mesh = current_mesh()
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            f"repro_torch: a train step under a mesh of {mesh.size()} ranks "
-            f"needs the data-parallel mean of the ranks' gradients, which "
-            f"the port does not take yet; train at world size 1")
+    if mesh is None or mesh.size() == 1:
+        return loss
+    group, _, n = cdist.flat_rank(mesh)
+    for g in grads:
+        cdist.all_reduce(g, group, torch.distributed.ReduceOp.SUM,
+                         tag="train", site="grad_mean")
+        g.div_(n)
+    loss = loss.detach().clone()
+    cdist.all_reduce(loss, group, torch.distributed.ReduceOp.SUM,
+                     tag="train", site="loss_mean")
+    return loss / n
 
 
 def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
-                    donate: bool = True):
+                    donate: bool = True, grad_specs=None):
     """loss_fn(params, microbatch) -> scalar. Returns
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
     with metrics = {"loss", "grad_norm"} (0-dim tensors).
@@ -70,12 +87,13 @@ def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
     donate=False leaves them untouched and returns new tensors (a step can
     then be replayed from the same state). Both give the same bits.
 
-    Raises:
-        NotImplementedError: the step is called under a mesh of more than
-            one rank (`_refuse_multi_rank_mesh`)."""
+    Under a mesh of more than one rank, `batch` is this rank's shard and
+    the step applies the mean of the ranks' gradients (`_mesh_mean`);
+    metrics then hold the mean loss. `grad_specs` is the reference's and
+    changes nothing here."""
+    del grad_specs
 
     def train_step(params, opt_state, batch):
-        _refuse_multi_rank_mesh()
         leaves, spec, xs = _grad_leaves(params)
         if num_microbatches == 1:
             loss = _backward(loss_fn, xs, spec, batch)
@@ -103,6 +121,7 @@ def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
                 g.div_(num_microbatches)
             loss = loss / num_microbatches
         del xs
+        loss = _mesh_mean(grads, loss)
         params, opt_state, metrics = adamw_update(
             pytree.tree_unflatten(grads, spec), opt_state, params, opt_cfg,
             in_place=donate)

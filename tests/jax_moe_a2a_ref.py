@@ -12,7 +12,12 @@ For each ("data", "model") mesh of the worker's (MESHES) and each case:
     the weights (one global loss each);
   * the smoke-granite `loss_fn` (impl "a2a", capacity factor 8) under
     `with mesh:`: the loss and `jax.grad`, and whether its jaxpr holds an
-    all_to_all (so the reference did not fall back to the dense path).
+    all_to_all (so the reference did not fall back to the dense path);
+    one `make_train_step` step (AdamW defaults) under the mesh on the
+    whole batch: new parameters, m, v, loss and grad norm.
+Once, without a mesh: the same step of the dense smoke LM (smoke danube)
+on the whole batch, the single-device step the port's data-parallel
+step is held to.
 """
 import os
 import sys
@@ -24,10 +29,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import Mesh, PartitionSpec as P  # noqa: E402
 
-from repro.configs import granite_moe_3b  # noqa: E402
+from repro.configs import granite_moe_3b, h2o_danube_1_8b  # noqa: E402
 from repro.distributed.sharding import shard_map_compat  # noqa: E402
 from repro.models import transformer as tf  # noqa: E402
 from repro.models.moe import moe_apply_a2a  # noqa: E402
+from repro.train.optimizer import AdamWConfig, adamw_init  # noqa: E402
+from repro.train.train_loop import make_train_step  # noqa: E402
 
 import torch_moe_a2a_worker as W  # noqa: E402
 
@@ -94,6 +101,21 @@ def lm_case(mesh, shape, inputs, out):
     out[f"{key}/all_to_all"] = np.asarray("all_to_all" in text)
     for path, g in W._flat(grads):
         out[f"{key}/grad/{path}"] = np.asarray(g)
+    with mesh:
+        train_step(params, batch, cfg, f"{key}/train", out)
+
+
+def train_step(params, batch, cfg, key, out):
+    """One AdamW step (defaults, new arrays) on the whole batch."""
+    opt_cfg = AdamWConfig()
+    step = make_train_step(lambda p, b: tf.loss_fn(p, b, cfg), opt_cfg,
+                           donate=False)
+    new, opt, metrics = step(params, adamw_init(params, opt_cfg), batch)
+    out[f"{key}/loss"] = np.asarray(metrics["loss"])
+    out[f"{key}/grad_norm"] = np.asarray(metrics["grad_norm"])
+    for name, tree in (("params", new), ("m", opt["m"]), ("v", opt["v"])):
+        for path, leaf in W._flat(tree):
+            out[f"{key}/{name}/{path}"] = np.asarray(leaf)
 
 
 def main(inputs_path: str, out_path: str) -> int:
@@ -106,6 +128,10 @@ def main(inputs_path: str, out_path: str) -> int:
             for case in W.CASES:
                 moe_case(mesh, shape, case, inputs, out)
             lm_case(mesh, shape, inputs, out)
+    cfg = W.dense_config(h2o_danube_1_8b)
+    train_step(jax.tree.map(jnp.asarray, W.unflatten(inputs, "dense/params/")),
+               {"tokens": jnp.asarray(inputs["lm/tokens"])}, cfg,
+               "dense/train", out)
     np.savez(out_path, **out)
     return 0
 

@@ -842,3 +842,43 @@ class TestMoeA2AOnCard:
             torch.use_deterministic_algorithms(False)
         assert torch.equal(l1, l2)
         assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+
+@pytest.mark.gpu
+class TestDryRunOnCard:
+    """launch/dryrun.py's card mesh on the card (full width)."""
+
+    def test_dlrm_serve_p99_runs_through_embedding_bag(self, cuda):
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell("dlrm-rm2", "serve_p99", mesh="card",
+                              verbose=False)
+        assert rec["status"] == "ok" and rec["mesh"] == "card"
+        assert rec["launches"]["embedding_bag"] > 0
+        assert rec["kernels"]["embedding_bag"]["bytes"] > 0
+        assert rec["cost"]["flops"] > 0 and rec["cost"]["bytes_accessed"] > 0
+        assert rec["memory"]["peak_per_device"] >= \
+            rec["memory"]["argument_bytes"]
+        step_s = rec["step_ms"]["median"] * 1e-3
+        rf = rec["roofline"]
+        assert max(rf["compute_s"], rf["memory_s"], rf["collective_s"]) \
+            <= 1.05 * step_s
+        assert "," in rec["device"]          # nvidia-smi's name, limit
+
+    def test_matmul_plan_counts_exactly_on_card(self, cuda):
+        from repro_torch.configs.base import DryRunPlan, meta
+        from repro_torch.launch import dryrun
+        m, k, n = 512, 256, 128
+
+        def make_args(seed=0, device=None):
+            gen = torch.Generator(device=device).manual_seed(seed)
+            return (torch.randn(m, k, generator=gen, device=device),
+                    torch.randn(k, n, generator=gen, device=device))
+        plan = DryRunPlan(step=torch.matmul,
+                          abstract_args=(meta((m, k), torch.float32),
+                                         meta((k, n), torch.float32)),
+                          in_specs=(None, None),
+                          static={"make_args": make_args,
+                                  "compute_dtype": "float32"})
+        rec = dryrun.run_plan(plan, {"arch": "mm"}, verbose=False)
+        assert rec["cost"]["flops"] == 2 * m * n * k
+        assert rec["cost"]["bytes_accessed"] == (m * k + k * n + m * n) * 4

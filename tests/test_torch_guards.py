@@ -79,7 +79,10 @@ def test_fresh_import_leaves_jax_and_reference_out():
             "repro_torch.configs.qwen3_moe_235b, "
             "repro_torch.launch.train, repro_torch.train.grad_compress, "
             "repro_torch.distributed, repro_torch.distributed.sharding, "
-            "repro_torch.configs.base, repro_torch.configs.registry\n"
+            "repro_torch.configs.base, repro_torch.configs.registry, "
+            "repro_torch.launch.mesh, repro_torch.launch.analysis, "
+            "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
+            "repro_torch.kernels.cost\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -12,13 +12,24 @@ on the first test that needs one.
 
 The reference's gradient is that of one global loss: the mean over
 devices of sum(y^2), or of the data x model mean of the aux estimate
-(and the smoke model's mean loss over the whole batch). The port's is
-assembled as a data-parallel mean: each rank's gradient with respect to
-the full-shape x and weights (zero outside its data shard and expert
-slice), averaged over the ranks.
+(and the smoke model's mean loss over the whole batch). The port's is a
+data-parallel mean: each rank's gradient with respect to the full-shape
+x and weights (zero outside its data shard and expert slice), averaged
+over the ranks; `make_train_step` takes that mean itself, so one step
+under the mesh equals the reference's step (its new parameters and
+AdamW moments). A dense smoke LM (smoke danube) takes the same step
+under the (2, 1), (4, 1) and (2, 2) meshes against the reference's
+single-device step on the whole batch.
 
 Tolerances: f32 outputs and aux rtol 1e-5 / atol 1e-6; gradients rtol
-1e-4 / atol 1e-6. Cases: capacity factor 8 (nothing drops) and a router
+1e-4 / atol 1e-6; a step's loss and grad norm rtol 1e-5; its m = 0.1 g
+and v = 0.05 g^2 at the gradients' parity (m rtol 1e-4 / atol 1e-7, v
+rtol 2e-4 / atol 1e-10); its parameters rtol 1e-5 / atol 1e-7 where the
+reference's |g| is 0 or >= 1e-6, and within lr of the reference where
+0 < |g| < 1e-6, a set held to at most 2% of each leaf: AdamW's first
+step moves a parameter by lr g / (|g| + eps), eps = 1e-8, so where |g|
+is within the gradients' atol of 0 the update's size is not determined
+by the gradient's parity. Cases: capacity factor 8 (nothing drops) and a router
 pulled towards one expert at capacity factor 0.5, where assignments drop
 at both stages on every mesh.
 """
@@ -37,6 +48,7 @@ import torch
 import jax
 
 from repro.configs import granite_moe_3b as ref_granite
+from repro.configs import h2o_danube_1_8b as ref_danube
 from repro.models import transformer as RT
 
 import torch_moe_a2a_worker as W
@@ -53,6 +65,12 @@ MESHES = [shape for shapes in W.MESHES.values() for shape in shapes]
 MESH_IDS = [f"{d}x{m}" for d, m in MESHES]
 F32 = dict(rtol=1e-5, atol=1e-6)
 GRAD = dict(rtol=1e-4, atol=1e-6)
+STEP = {"m": dict(rtol=1e-4, atol=1e-7), "v": dict(rtol=2e-4, atol=1e-10)}
+PARAMS = dict(rtol=1e-5, atol=1e-7)
+LR = 3e-4                 # AdamWConfig's default, the steps' lr
+G_STABLE = 1e-6           # |g| from which AdamW's update is stable
+TINY_SHARE = 0.02         # most of a leaf held below G_STABLE (seen: 1.1%)
+DP_SHAPES = [shape for shapes in W.DP_MESHES.values() for shape in shapes]
 TIMEOUT = 600.0
 
 
@@ -106,6 +124,10 @@ def make_inputs(path: Path) -> dict:
         out[f"lm/params/{key}"] = np.asarray(v)
     out["lm/tokens"] = np.random.default_rng(5).integers(
         0, cfg.vocab, (W.LM_BATCH, W.LM_SEQ + 1)).astype(np.int32)
+    dense = W.dense_config(ref_danube)
+    assert dense.vocab == cfg.vocab
+    for key, v in W._flat(RT.init_params(jax.random.PRNGKey(1), dense)):
+        out[f"dense/params/{key}"] = np.asarray(v)
     np.savez(path, **out)
     return out
 
@@ -138,7 +160,7 @@ def runs(tmp_path_factory):
     cache = {}
 
     def get(shape):
-        ws = int(np.prod(shape))
+        ws = int(np.prod([d for d in shape if d != "dense"]))
         if ws not in cache:
             if ws == 1:
                 tdist.init_process_group("cpu")
@@ -291,20 +313,73 @@ class TestTransformerA2A:
             assert calls["moe/return_grad/all_to_all/model"] == n_layers
 
 
-@pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
-def test_train_step_refuses_a_mesh_of_many_ranks(runs, shape):
-    """make_train_step under a mesh of more than one rank raises before any
-    trip (nothing takes the mean of the ranks' gradients, so AdamW would
-    drive the replicated weights apart); at world size 1 it takes its
-    step through the a2a path."""
-    for r in runs(shape):
-        train = r["train"]
+def _check_step(res: list, ref: dict, key: str) -> None:
+    """Every rank's step against the reference's step stored under key:
+    parameters, m and v leaf by leaf, loss and grad norm."""
+    for r in res:
+        np.testing.assert_allclose(r["loss"], ref[f"{key}/loss"], rtol=1e-5)
+        np.testing.assert_allclose(r["grad_norm"], ref[f"{key}/grad_norm"],
+                                   rtol=1e-5)
+        for part, tol in STEP.items():
+            for leaf, got in r[part].items():
+                np.testing.assert_allclose(got, ref[f"{key}/{part}/{leaf}"],
+                                           err_msg=f"{part}/{leaf}", **tol)
+        for leaf, got in r["params"].items():
+            want = ref[f"{key}/params/{leaf}"]
+            m_ref = np.abs(ref[f"{key}/m/{leaf}"])
+            tiny = (m_ref > 0) & (m_ref < 0.1 * G_STABLE)
+            assert tiny.mean() <= TINY_SHARE, (leaf, tiny.mean())
+            np.testing.assert_allclose(got[~tiny], want[~tiny],
+                                       err_msg=f"params/{leaf}", **PARAMS)
+            assert np.all(np.abs(got - want)[tiny] <= LR), leaf
+
+
+def _check_mean_trips(res: list, shape) -> None:
+    """At more than one rank: one all-reduce per gradient leaf and one of
+    the loss, over the whole mesh; at one rank none."""
+    n_leaves = len(res[0]["params"])
+    for r in res:
+        calls = {k: v["calls"] for k, v in r["trips"].items()
+                 if k.startswith("train/")}
         if int(np.prod(shape)) > 1:
-            assert train["refused"] and "data-parallel mean" in \
-                train["message"] and train["trips"] == {}
+            assert calls == {"train/grad_mean/all_reduce/world": n_leaves,
+                             "train/loss_mean/all_reduce/world": 1}, calls
         else:
-            assert not train["refused"] and np.isfinite(train["loss"])
-            assert train["trips"]["moe/return/all_to_all/model"]["calls"] > 0
+            assert calls == {}
+
+
+@pytest.mark.parametrize("shape", MESHES, ids=MESH_IDS)
+def test_train_step_matches_reference(runs, shape):
+    """make_train_step under the mesh (smoke granite, impl "a2a") takes
+    the data-parallel mean of the ranks' gradients and losses: every
+    rank's step equals the reference's GSPMD step on the whole batch, and
+    the step went through the a2a path."""
+    res = [r["train"] for r in runs(shape)]
+    _check_step(res, runs.ref(), _key(shape, "lm", "train"))
+    _check_mean_trips(res, shape)
+    for r in res:
+        assert r["trips"]["moe/return/all_to_all/model"]["calls"] > 0
+
+
+@pytest.mark.parametrize("shape", DP_SHAPES,
+                         ids=[f"{d}x{m}" for d, m in DP_SHAPES])
+class TestDenseDataParallel:
+    def test_step_matches_single_device_reference(self, runs, shape):
+        """A dense smoke LM, each rank on its data shard: the step equals
+        the reference's single-device step on the whole batch."""
+        res = runs(("dense",) + tuple(shape))
+        _check_step(res, runs.ref(), "dense/train")
+
+    def test_mean_is_one_all_reduce_per_leaf(self, runs, shape):
+        res = runs(("dense",) + tuple(shape))
+        _check_mean_trips(res, shape)
+
+    def test_every_rank_holds_the_same_state(self, runs, shape):
+        res = runs(("dense",) + tuple(shape))
+        for r in res[1:]:
+            for part in ("params", "m", "v"):
+                for leaf, v in r[part].items():
+                    np.testing.assert_array_equal(v, res[0][part][leaf])
 
 
 @pytest.mark.parametrize("shape", [s for s in MESHES if s[1] > 1],

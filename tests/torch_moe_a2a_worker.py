@@ -8,9 +8,13 @@ environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT):
 Each rank builds the ("data", "model") meshes of its world size
 (`MESHES`), runs the same cases on its own shard (SPMD) and pickles what
 it saw to OUT_DIR/rank<r>.pkl: its outputs, aux estimates, dropped
-assignments, trip counts and its own gradients, which the test assembles
-as a data-parallel mean would and holds against the JAX package, and
-whether `make_train_step` under the mesh refused to run.
+assignments, trip counts and its own gradients (which the test averages
+over the ranks and holds against the JAX package), and one
+`make_train_step` step under the mesh, which takes the data-parallel
+mean of the ranks' gradients itself (its new parameters and moments,
+loss, grad norm and trips). On the meshes of `DP_MESHES` each rank also
+takes one step of a dense smoke LM on its data shard, held against the
+reference's single-device step on the whole batch.
 `battery(mesh, inputs)` also runs in-process at world size 1. The case
 constants are shared with tests/jax_moe_a2a_ref.py. Imports no jax.
 """
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import interop
-from repro_torch.configs import granite_moe_3b
+from repro_torch.configs import granite_moe_3b, h2o_danube_1_8b
 from repro_torch.core import distributed as dist_mod
 from repro_torch.core.distributed import collective_counts, flat_rank, \
     init_mesh, reset_collective_counts
@@ -37,7 +41,10 @@ from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import make_train_step
 
 CPU = "cpu"
-MESHES = {1: [(1, 1)], 2: [(1, 2)], 4: [(1, 4)], 8: [(2, 4), (1, 8)]}
+MESHES = {1: [(1, 1)], 2: [(1, 2)], 4: [(1, 4), (2, 2)],
+          8: [(2, 4), (1, 8)]}
+# meshes of the dense data-parallel step (smoke danube, no MoE)
+DP_MESHES = {2: [(2, 1)], 4: [(4, 1), (2, 2)]}
 D_MODEL, D_FF, N_EXPERTS, TOP_K, N_TOKENS = 16, 8, 8, 2, 32
 # "nodrop": room for every assignment at both stages; "drop": a router
 # pulled towards expert 0 at capacity factor 0.5, so the send buffers and
@@ -96,6 +103,12 @@ def lm_config(reference_module=granite_moe_3b):
     cfg = reference_module.smoke_config()
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, impl="a2a", capacity_factor=8.0))
+
+
+def dense_config(reference_module=h2o_danube_1_8b):
+    """Smoke danube (f32, window 8): the dense LM of the data-parallel
+    step; the same fields in both packages."""
+    return reference_module.smoke_config()
 
 
 def unflatten(flat: dict, prefix: str) -> dict:
@@ -177,27 +190,32 @@ def lm_case(mesh, inputs: dict) -> dict:
             "grads": {k: _np(g) for (k, _), g in zip(flat, grads)}}
 
 
-def train_case(mesh, inputs: dict) -> dict:
-    """`make_train_step` on smoke granite (impl "a2a") called under the
-    mesh: refused (NotImplementedError) where the mesh spans more than one
-    rank, since nothing takes the mean of the ranks' gradients; one step
-    with a finite loss at world size 1."""
-    cfg = lm_config()
-    params = interop.lm_params(unflatten(inputs, "lm/params/"), device=CPU)
+def step_case(mesh, inputs: dict, prefix: str, cfg) -> dict:
+    """One `make_train_step` step (AdamW defaults, new tensors) from the
+    inputs' parameters under the mesh, on this rank's data shard of the
+    token batch: the step averages the ranks' gradients and losses. Its
+    new parameters, m and v (flat numpy), loss, grad norm and trips."""
+    params = interop.lm_params(unflatten(inputs, f"{prefix}/params/"),
+                               device=CPU)
     opt_cfg = AdamWConfig()
     step = make_train_step(lambda p, b: PT.loss_fn(p, b, cfg), opt_cfg,
                            donate=False)
     batch = {"tokens": data_shard(torch.from_numpy(inputs["lm/tokens"]),
                                   mesh)}
     reset_collective_counts()
-    try:
-        with use_mesh(mesh):
-            _, _, metrics = step(params, adamw_init(params, opt_cfg), batch)
-    except NotImplementedError as e:
-        return {"refused": True, "message": str(e),
-                "trips": collective_counts()}
-    return {"refused": False, "loss": float(metrics["loss"]),
+    with use_mesh(mesh):
+        new, opt, metrics = step(params, adamw_init(params, opt_cfg), batch)
+    return {"loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]),
+            "params": {k: _np(v) for k, v in _flat(new)},
+            "m": {k: _np(v) for k, v in _flat(opt["m"])},
+            "v": {k: _np(v) for k, v in _flat(opt["v"])},
             "trips": collective_counts()}
+
+
+def train_case(mesh, inputs: dict) -> dict:
+    """`step_case` on smoke granite (impl "a2a", capacity 8)."""
+    return step_case(mesh, inputs, "lm", lm_config())
 
 
 def _flat(tree, prefix=""):
@@ -243,6 +261,9 @@ def main(inputs_path: str, out_dir: str) -> int:
     res = {}
     for shape in MESHES[ws]:
         res[shape] = battery(mesh_of(shape), inputs)
+    for shape in DP_MESHES.get(ws, []):
+        res[("dense",) + shape] = step_case(mesh_of(shape), inputs, "dense",
+                                            dense_config())
     with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
         pickle.dump(res, f)
     torch.distributed.barrier()
