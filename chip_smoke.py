@@ -220,6 +220,28 @@ package. Phases, each of which must pass:
        per K-b cell;
      - K-d (in slice I3): the training launcher prints its elastic mesh,
        "mesh: (1, 1) over 1 device(s)".
+ 14. slice L, the static analysis and the examples (no kernel of its own;
+     `analysis/{sanitize,retrace}.py`, `launch/{quickstart,serve_pagerank,
+     serve_lm,distributed_pagerank}.py`):
+     - L-a (right after slice A, on its service): a warm second drain of
+       L_QUERIES fresh queries through `full_config()` under
+       `sanitize.applied({"debug_nans": True, "sync_debug_mode": "warn"})`:
+       no NaN reported, answers within 2 tol of the float64 solve,
+       bsr_spmm and cheb_step launched, a deliberate `.item()` in the
+       block reported by the sync mode; the synchronizing operations per
+       tick with their top call sites, the ops the NaN mode checked and
+       the drain's time beside slice A's;
+     - L-b: slice A's drain and L-a's inside `RetraceGate()` (zero
+       events), slice H's ticks after each engine's capture inside the
+       gate (zero events; H1 and H2), and a fresh smoke-size danube
+       engine's first tick inside a gate raises `RetraceError` naming a
+       NEW capture signature;
+     - L-c: `python -m repro_torch.analysis --strict` exits 0;
+     - L-d: the four examples on the card: quickstart (CPAA max rel err vs
+       the dense solve <= 1e-4), serve_pagerank (24 answers, the repeat
+       cached, one invalidation round, the re-query on epoch 1), serve_lm
+       (every request drained) and distributed_pagerank at NCCL world size
+       1 (1D and 2D rel err <= 1e-5 vs the single-device solve).
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -576,7 +598,7 @@ def oracle_check(svc, results, queries, c: float, tol: float,
 
 
 def phase_slice_a() -> dict:
-    import torch
+    from repro_torch.analysis.retrace import RetraceGate
     from repro_torch.configs.pagerank_serve import full_config, make_service
     from repro_torch.core.engine import CooEngine, FusedBlockEllEngine
     cfg = full_config()
@@ -593,8 +615,11 @@ def phase_slice_a() -> dict:
     queries = seeded_queries(svc, 256, seed=0, top_k=8)
     repeats = repeats_of(queries, len(queries) // 10)
     reset_counts()
-    results, st, secs = drive(svc, queries, repeats)
+    with RetraceGate() as gate:         # L-b: the PPR path compiles nothing
+        results, st, secs = drive(svc, queries, repeats)
     counts = read_counts()
+    log(f"L-b: slice A's drain under RetraceGate: {len(gate.events)} "
+        "compile events")
     log(f"slice A: {len(results)} answers, stats {st}")
     log(f"slice A launches: {counts}; drains {secs[0]:.3f} s + "
         f"{secs[1]:.4f} s")
@@ -609,9 +634,8 @@ def phase_slice_a() -> dict:
     err = oracle_check(svc, results, queries, cfg.c, cfg.tol, per_graph=4)
     log(f"slice A: max |service - float64 oracle| {err:.3e} "
         f"(bound 2 tol = {2 * cfg.tol:.0e})")
-    del svc
-    torch.cuda.empty_cache()
-    return {"launches": counts, "oracle_err": err, "stats": st}
+    return {"launches": counts, "oracle_err": err, "stats": st, "svc": svc,
+            "cfg": cfg, "drain_s": secs[0], "n_queries": len(queries)}
 
 
 def personalization(svc, queries, b_pad: int):
@@ -2606,31 +2630,43 @@ def lm_drain(eng, reqs) -> dict:
     """run_until_drained's loop with timing: host ms per submit (prefill
     to the first token, which the host reads), CUDA-event ms per tick and
     whether every slot was busy, the drain's wall time, and whether every
-    logit was finite (accumulated on the device, read once)."""
+    logit was finite (accumulated on the device, read once). Once the
+    engine has captured its decode graph, the rest of the drain runs inside
+    `RetraceGate()` (L-b: replays compile nothing)."""
+    import contextlib
     import torch
+    from repro_torch.analysis.retrace import RetraceGate
+    gate, gated = None, 0
     pending = list(reqs)
     prefill_ms, tick_ms, full = {}, [], []
     finite = torch.ones((), dtype=torch.bool, device=eng.device)
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    while pending or eng.active():
-        while pending:
-            s0 = time.perf_counter()
-            if not eng.submit(pending[0]):
-                break
-            prefill_ms[pending.pop(0).rid] = (time.perf_counter() - s0) * 1e3
-            finite &= torch.isfinite(eng.last_prefill_logits).all()
-        full.append(eng.active() == eng.max_batch)
-        ev0.record()
-        eng.tick()
-        ev1.record()
-        ev1.synchronize()
-        tick_ms.append(ev0.elapsed_time(ev1))
-        finite &= torch.isfinite(eng.last_logits).all()
-    wall = time.perf_counter() - t0
+    # leaving the stack exits the gate, which raises RetraceError on events
+    with contextlib.ExitStack() as stack:
+        t0 = time.perf_counter()
+        while pending or eng.active():
+            while pending:
+                s0 = time.perf_counter()
+                if not eng.submit(pending[0]):
+                    break
+                prefill_ms[pending.pop(0).rid] = \
+                    (time.perf_counter() - s0) * 1e3
+                finite &= torch.isfinite(eng.last_prefill_logits).all()
+            full.append(eng.active() == eng.max_batch)
+            ev0.record()
+            eng.tick()
+            ev1.record()
+            ev1.synchronize()
+            tick_ms.append(ev0.elapsed_time(ev1))
+            finite &= torch.isfinite(eng.last_logits).all()
+            if gate is not None:
+                gated += 1
+            elif eng._graph is not None:
+                gate = stack.enter_context(RetraceGate())
+        wall = time.perf_counter() - t0
     return {"prefill_ms": prefill_ms, "tick_ms": tick_ms, "full": full,
-            "wall_s": wall, "finite": bool(finite)}
+            "wall_s": wall, "finite": bool(finite), "gated_ticks": gated}
 
 
 def check_finished(reqs, max_len: int, label: str) -> None:
@@ -2684,6 +2720,9 @@ def lm_report(label: str, cfg, eng, reqs, run: dict, bound: dict) -> dict:
         + (f"; {H1_LONG_LEN}-token prompts "
            f"{', '.join(f'{x:.3f}' for x in long_)}" if long_ else "")
         + f"; padding ids emitted {pad} of {tokens} tokens")
+    if run["gated_ticks"]:
+        log(f"L-b: {label}'s {run['gated_ticks']} ticks after its CUDA "
+            "graph capture ran under RetraceGate: 0 compile events")
     return {"tick_ms": tick, "tick_range": [min(full_ms), max(full_ms)],
             "ticks": len(run["tick_ms"]), "full_ticks": len(full_ms),
             "bound_ms": bound["ms"], "tok_s": tokens / run["wall_s"],
@@ -4243,6 +4282,178 @@ def phase_slice_k() -> dict:
             "seconds": secs}
 
 
+# ---------------------------------------------------------------- slice L --
+L_QUERIES = 128        # L-a's warm second drain of slice A's service
+# the sync debug mode's warning at a synchronizing operation (setting the
+# mode also warns once that it is a prototype: that one is not counted)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def sync_warnings(seen) -> list:
+    return [w for w in seen if SYNC_WARNING in str(w.message)]
+
+
+def sync_sites(seen, top: int = 5) -> list:
+    """The sync debug mode's warnings by call site (file:line of the
+    Python frame that ran the synchronizing operation), most first."""
+    from collections import Counter
+    sites = Counter(f"{Path(w.filename).name}:{w.lineno}"
+                    for w in sync_warnings(seen))
+    return sites.most_common(top)
+
+
+def phase_slice_l_sanitize(svc, cfg, a_drain_s: float,
+                           a_queries: int) -> dict:
+    """L-a and L-b on slice A's service: a warm second drain of L_QUERIES
+    fresh queries under the NaN mode and the sync debug mode, inside
+    RetraceGate; then a deliberate `.item()` in the block."""
+    import warnings
+    import torch
+    from repro_torch.analysis import sanitize
+    from repro_torch.analysis.retrace import RetraceGate
+    queries = seeded_queries(svc, L_QUERIES, seed=1, top_k=8)
+    t0 = time.perf_counter()
+    with sanitize.applied({"debug_nans": True}):    # first use: imports
+        torch.ones(1, device="cuda").add_(1)
+    first_s = time.perf_counter() - t0
+    ticks0 = svc.stats["ticks"]
+    reset_counts()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        with RetraceGate() as gate:
+            with sanitize.applied({"debug_nans": True,
+                                   "sync_debug_mode": "warn"}) as ctx:
+                for q in queries:
+                    svc.submit(q)
+                results = svc.run_until_drained()
+                torch.cuda.synchronize()
+                drain_s = time.perf_counter() - t0
+                drain_warn = list(seen)
+                torch.ones((), device="cuda").item()  # must be reported
+                item_warn = [w for w in sync_warnings(seen[len(drain_warn):])
+                             if Path(w.filename).name == "chip_smoke.py"]
+    counts = read_counts()
+    ticks = svc.stats["ticks"] - ticks0
+    log(f"L-a: {len(results)} answers in {ticks} ticks under the NaN mode "
+        f"({len(ctx.nan_mode.names):,} CUDA op outputs checked on the "
+        "device, flags read once at exit: no NaN) and sync debug mode "
+        f"\"warn\"; drain {drain_s:.3f} s for {len(queries)} queries (slice "
+        f"A's cold drain without the modes: {a_drain_s:.3f} s for "
+        f"{a_queries}; the NaN mode's first entry, outside the timing: "
+        f"{first_s:.3f} s); launches {counts}")
+    syncs = sync_warnings(drain_warn)
+    log(f"L-a: synchronizing operations during the drain: {len(syncs)} "
+        f"({len(syncs) / max(ticks, 1):.2f} per tick); top call sites "
+        f"{sync_sites(drain_warn)}")
+    if syncs:
+        log(f"L-a: first sync warning: {str(syncs[0].message)[:160]}")
+    log(f"L-a: the deliberate .item() was reported {len(item_warn)} time(s)"
+        f" at {sync_sites(item_warn)}")
+    log(f"L-b: L-a's drain under RetraceGate: {len(gate.events)} compile "
+        "events")
+    check(len(results) == len(queries), "L-a: not every query answered")
+    check(counts["bsr_spmm"] > 0 and counts["cheb_step"] > 0,
+          f"L-a: a kernel of the path was not launched: {counts}")
+    check(item_warn, "L-a: the sync debug mode did not report .item()")
+    err = oracle_check(svc, results, queries, cfg.c, cfg.tol, per_graph=2)
+    log(f"L-a: max |service - float64 oracle| {err:.3e} (bound 2 tol = "
+        f"{2 * cfg.tol:.0e})")
+    return {"launches": counts, "oracle_err": err, "ticks": ticks,
+            "syncs": len(syncs), "drain_s": drain_s, "first_s": first_s,
+            "nan_ops": len(ctx.nan_mode.names)}
+
+
+def phase_slice_l_gate() -> None:
+    """L-b: a fresh smoke-size danube engine's first tick (its CUDA graph
+    capture) inside RetraceGate raises RetraceError naming a NEW
+    signature."""
+    import torch
+    from repro_torch.analysis.retrace import RetraceError, RetraceGate
+    from repro_torch.configs import h2o_danube_1_8b
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import ServeEngine
+    cfg = h2o_danube_1_8b.smoke_config()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    eng = ServeEngine(params, cfg, 3, 64, device="cuda")
+    for r in lm_requests(cfg.vocab, 3, seed=0, max_new=4):
+        check(eng.submit(r), "L-b: submit failed")
+    try:
+        with RetraceGate():
+            eng.tick()
+    except RetraceError as e:
+        msg = str(e)
+    else:
+        msg = ""
+    log("L-b: a fresh engine's first tick inside RetraceGate: "
+        + (msg.replace("\n", " | ") if msg else "no RetraceError"))
+    check("ServeEngine._decode_core" in msg and "NEW signature" in msg,
+          "L-b: the gate did not trip on a fresh capture")
+
+
+def phase_slice_l_lint() -> None:
+    """L-c: torchlint over the port, strict, exits 0."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                          "--strict"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    last = (out.stdout.strip().splitlines() or [""])[-1]
+    log(f"L-c: python -m repro_torch.analysis --strict: exit "
+        f"{out.returncode}; {last}")
+    check(out.returncode == 0, f"L-c: torchlint failed:\n{out.stdout}"
+          f"{out.stderr}")
+
+
+def phase_slice_l_examples() -> dict:
+    """L-d: the four examples on the card, in this process (their launches
+    are counted)."""
+    from repro_torch.launch import (distributed_pagerank, quickstart,
+                                    serve_lm, serve_pagerank)
+
+    def tagged(tag):
+        return lambda msg: log(f"  [{tag}] {msg}")
+
+    t0 = time.perf_counter()
+    reset_counts()
+    q = quickstart.run("cuda", log=tagged("quickstart"))
+    check(q["errors"]["cpaa"] <= 1e-4,
+          f"L-d quickstart: CPAA max rel err {q['errors']['cpaa']:.3e}")
+    sp = serve_pagerank.run("cuda", log=tagged("serve_pagerank"))
+    check(len(sp["results"]) == len(sp["queries"]) == 24,
+          "L-d serve_pagerank: not every query answered")
+    check(sp["again"] is not None and sp["again"].cached,
+          "L-d serve_pagerank: the repeat was not cached")
+    check(sp["stats"]["updates"] == 1 and sp["epoch"] == 1
+          and sp["cache"]["invalidations"] > 0 and sp["fresh"].epoch == 1
+          and not sp["fresh"].cached,
+          f"L-d serve_pagerank: no invalidation round: {sp['stats']}")
+    lm = serve_lm.run("cuda", log=tagged("serve_lm"))
+    check(all(r.done for r in lm["requests"]),
+          "L-d serve_lm: a request did not drain")
+    dp = distributed_pagerank.run("cuda", log=tagged("distributed"))
+    check(dp["world_size"] == 1 and dp["err_1d"] <= 1e-5
+          and dp["err_2d"] <= 1e-5,
+          f"L-d distributed: 1D {dp['err_1d']:.3e}, 2D {dp['err_2d']:.3e}")
+    counts = read_counts()
+    log(f"L-d: four examples in {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}")
+    return {"launches": counts, "cpaa_err": q["errors"]["cpaa"],
+            "err_1d": dp["err_1d"], "err_2d": dp["err_2d"]}
+
+
+def phase_slice_l() -> dict:
+    """Slice L's phases after slice K (L-a runs after slice A, and the
+    gates over slice H's ticks inside slice H)."""
+    t0 = time.perf_counter()
+    phase_slice_l_gate()
+    phase_slice_l_lint()
+    d = phase_slice_l_examples()
+    log(f"[{CARD}] slice L (gate, lint, examples): "
+        f"{time.perf_counter() - t0:.1f} s")
+    return d
+
+
 def token_batch_row(cfg, dev):
     """The first sequence of I2's batch 0, [1, I1_SEQ + 1]."""
     from repro_torch.train.data import TokenPipelineConfig, token_batch
@@ -4347,6 +4558,9 @@ def main() -> int:
     kerr = phase_kernels()
     eb_bwd = phase_backward_kernel()
     a = phase_slice_a()
+    l_a = phase_slice_l_sanitize(a.pop("svc"), a.pop("cfg"), a["drain_s"],
+                                 a["n_queries"])
+    torch.cuda.empty_cache()
     b = phase_slice_b()
     d_paper = phase_slice_d_paper_refresh(b.pop("svc"))
     torch.cuda.empty_cache()
@@ -4388,6 +4602,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     k = phase_slice_k()["launches"]
     torch.cuda.empty_cache()
+    l_d = phase_slice_l()
+    l = add_counts(l_a["launches"], l_d["launches"])
+    check(l["bsr_spmm"] > 0 and l["cheb_step"] > 0,
+          f"slice L: a kernel of its path was not launched: {l}")
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
@@ -4398,7 +4616,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
          "replaces": "src/repro/kernels/bsr_spmm/bsr_spmm.py:42",
          "launches": a["launches"]["bsr_spmm"] + b["launches"]["bsr_spmm"]
-         + d["bsr_spmm"] + e["bsr_spmm"] + g["bsr_spmm"] + k["bsr_spmm"],
+         + d["bsr_spmm"] + e["bsr_spmm"] + g["bsr_spmm"] + k["bsr_spmm"]
+         + l["bsr_spmm"],
          "launches_by_path": {"slice_a": a["launches"]["bsr_spmm"],
                               "slice_b": b["launches"]["bsr_spmm"],
                               "slice_d": d["bsr_spmm"],
@@ -4406,13 +4625,15 @@ def main() -> int:
                               "slice_g": g["bsr_spmm"],
                               "slice_h": h["bsr_spmm"],
                               "slice_j": j["bsr_spmm"],
-                              "slice_k": k["bsr_spmm"]},
+                              "slice_k": k["bsr_spmm"],
+                              "slice_l": l["bsr_spmm"]},
          "launches_by_variant": {
              k: a["launches"]["bsr_spmm_variants"][k]
              + b["launches"]["bsr_spmm_variants"][k]
              + d["bsr_spmm_variants"].get(k, 0)
              + e["bsr_spmm_variants"].get(k, 0)
              + g["bsr_spmm_variants"].get(k, 0)
+             + l["bsr_spmm_variants"].get(k, 0)
              for k in a["launches"]["bsr_spmm_variants"]},
          "slice_e_by_variant": e["bsr_spmm_variants"],
          "max_abs_err": max(kerr["bsr_spmm"], b["bsr"]["err"]),
@@ -4423,7 +4644,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/cheb_step/csrc/cheb_step.cu",
          "replaces": "src/repro/kernels/cheb_step/cheb_step.py:40",
          "launches": a["launches"]["cheb_step"] + b["launches"]["cheb_step"]
-         + d["cheb_step"] + e["cheb_step"] + g["cheb_step"] + k["cheb_step"],
+         + d["cheb_step"] + e["cheb_step"] + g["cheb_step"] + k["cheb_step"]
+         + l["cheb_step"],
          "launches_by_path": {"slice_a": a["launches"]["cheb_step"],
                               "slice_b": b["launches"]["cheb_step"],
                               "slice_d": d["cheb_step"],
@@ -4431,7 +4653,8 @@ def main() -> int:
                               "slice_g": g["cheb_step"],
                               "slice_h": h["cheb_step"],
                               "slice_j": j["cheb_step"],
-                              "slice_k": k["cheb_step"]},
+                              "slice_k": k["cheb_step"],
+                              "slice_l": l["cheb_step"]},
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},
@@ -4446,7 +4669,8 @@ def main() -> int:
                               "slice_h": h["embedding_bag"],
                               "slice_i": i["embedding_bag"],
                               "slice_j": j["embedding_bag"],
-                              "slice_k": k["embedding_bag"]},
+                              "slice_k": k["embedding_bag"],
+                              "slice_l": l["embedding_bag"]},
          "max_abs_err": c["err"],
          "ms": c["eb"]["ms"], "plain_ms": c["eb"]["plain_ms"],
          "bound_ms": eb_b, "bound_by": eb_by,
@@ -4459,7 +4683,8 @@ def main() -> int:
          + k["embedding_bag_backward"],
          "launches_by_path": {"slice_i": i["embedding_bag_backward"],
                               "slice_j": j["embedding_bag_backward"],
-                              "slice_k": k["embedding_bag_backward"]},
+                              "slice_k": k["embedding_bag_backward"],
+                              "slice_l": l["embedding_bag_backward"]},
          "max_abs_err": eb_bwd["err"],
          "ms": eb_bwd["ms"], "split_ms": eb_bwd["split_ms"],
          "plain_ms": eb_bwd["plain_ms"],

@@ -194,9 +194,11 @@ def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
     eng = as_engine(dg)
     t_prev = eng.to_internal(p)         # T_0(P) p
     dtype, dev = t_prev.dtype, t_prev.device
-    c = torch.tensor(c, dtype=dtype, device=dev)
-    tol = torch.tensor(tol, dtype=dtype, device=dev)
-    tiny = torch.tensor(torch.finfo(dtype).tiny, dtype=dtype, device=dev)
+    # device scalars by a fill, not torch.tensor: a copy from host memory
+    # would wait for the stream (under async dispatch, the batch in flight)
+    c = torch.full((), c, dtype=dtype, device=dev)
+    tol = torch.full((), tol, dtype=dtype, device=dev)
+    tiny = torch.full((), torch.finfo(dtype).tiny, dtype=dtype, device=dev)
     sq = torch.sqrt(1.0 - c * c)
     beta = (1.0 - sq) / c
     c0 = 2.0 / sq
@@ -218,7 +220,9 @@ def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
     snap = colnorm(acc)
     zero = torch.zeros((), dtype=dtype, device=dev)
     k = 1
-    # one host sync per chunk: the while condition's any(active)
+    # one host sync per chunk: the while condition's any(active), the
+    # counterpart of the reference's lax.while_loop condition
+    # torchlint: disable=TL001 -- the loop's one host read per chunk
     while k < max_rounds and bool(active.any()):
         mask = active if t_prev.ndim == 1 else active[None, :]
         for _ in range(chunk):
@@ -283,7 +287,7 @@ def power_refine(dg, x0: torch.Tensor, p: torch.Tensor, c,
     eng = as_engine(dg)
     x = eng.to_internal(x0)
     pp = _normalize(eng.to_internal(p), eng.colsum)   # unit restart mass
-    c = torch.tensor(c, dtype=x.dtype, device=x.device)
+    c = torch.full((), c, dtype=x.dtype, device=x.device)   # no host copy
     for _ in range(rounds):
         x = (c * eng.apply(x) + (1.0 - c) * pp).to(x.dtype)
     return _normalize(eng.from_internal(x))

@@ -25,6 +25,8 @@ import threading
 import time
 from pathlib import Path
 
+from repro_torch.compile_log import record_compile
+
 __all__ = ["NVCC_FLAGS", "build_dir", "sources", "build_all", "library",
            "library_path", "build_log"]
 
@@ -70,7 +72,9 @@ def build_all(names=None) -> dict[str, float]:
 
     Returns {name: seconds} for the libraries built by this call (an
     up-to-date library on disk is loaded without a rebuild and reported
-    as 0.0). Raises RuntimeError with nvcc's output if a build fails.
+    as 0.0). Each nvcc run is logged as (name, "build") in
+    `repro_torch.compile_log`. Raises RuntimeError with nvcc's output
+    if a build fails.
     """
     srcs = sources()
     names = list(srcs) if names is None else list(names)
@@ -88,6 +92,7 @@ def build_all(names=None) -> dict[str, float]:
                 secs[name] = 0.0
                 continue
             tmp = tgt.with_suffix(f".{os.getpid()}.tmp.so")
+            record_compile(name, "build")
             procs[name] = (subprocess.Popen(
                 [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),

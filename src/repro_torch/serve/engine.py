@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.compile_log import record_compile
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.models.layers import (decode_attention, decode_mask,
@@ -121,10 +122,14 @@ class ServeEngine:
     def _capture(self, tokens: np.ndarray, lengths: np.ndarray):
         """Record `_decode_core` over static input buffers in a CUDA graph.
         The warm-up runs take this tick's inputs, so the KV rows they
-        write are the ones the replay writes again; they count no drops."""
+        write are the ones the replay writes again; they count no drops.
+        The capture is logged in `repro_torch.compile_log`."""
         # every tensor the graph reads outlives it: these are attributes
         self._tok_in = torch.from_numpy(tokens).to(self.device)
         self._len_in = torch.from_numpy(lengths).to(self.device)
+        record_compile(f"ServeEngine._decode_core {self.cfg.name}",
+                       f"{list(self._tok_in.shape)} {self._tok_in.dtype}; "
+                       f"{list(self._len_in.shape)} {self._len_in.dtype}")
         self._bidx = torch.arange(self.max_batch, device=self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))

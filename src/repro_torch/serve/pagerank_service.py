@@ -915,7 +915,10 @@ class PageRankService:
         mass and are discarded."""
         dev = self.registry.device
         p = torch.zeros((n, b_pad), dtype=self.registry.dtype, device=dev)
-        p[_to_device_async(rows, dev), _to_device_async(cidx, dev)] = 1.0
+        # the value as a device tensor: a Python number assigned through
+        # tensor indices is copied from the host, which waits for the stream
+        p[_to_device_async(rows, dev), _to_device_async(cidx, dev)] = \
+            torch.ones((), dtype=p.dtype, device=dev)
         p[:, n_reps:] = 1.0
         return p
 

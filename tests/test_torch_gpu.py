@@ -31,6 +31,11 @@ def cuda():
     return torch.device("cuda")
 
 
+def tpr_file() -> str:
+    from repro_torch.core import pagerank
+    return pagerank.__file__
+
+
 def _tiles(block: int, seed: int):
     g = generators.erdos_renyi(max(3 * block, 200), 5.0, seed=seed)
     return build_block_ell(g, block=block)
@@ -882,3 +887,118 @@ class TestDryRunOnCard:
         rec = dryrun.run_plan(plan, {"arch": "mm"}, verbose=False)
         assert rec["cost"]["flops"] == 2 * m * n * k
         assert rec["cost"]["bytes_accessed"] == (m * k + k * n + m * n) * 4
+
+
+@pytest.mark.gpu
+class TestAnalysisOnCard:
+    """The runtime tier on the card: the compile log of a CUDA graph
+    capture and of an nvcc build, RetraceGate quiet over replayed ticks and
+    tripping on a fresh engine's capture, the sync debug mode reporting a
+    deliberate `.item()`, and the NaN mode's device-side flags."""
+
+    def _engine(self, cuda, max_batch):
+        from repro_torch.configs import h2o_danube_1_8b
+        from repro_torch.models import transformer as tf
+        from repro_torch.serve.engine import Request, ServeEngine
+        cfg = h2o_danube_1_8b.smoke_config()
+        params = tf.init_params(torch.Generator(device=cuda).manual_seed(0),
+                                cfg)
+        eng = ServeEngine(params, cfg, max_batch=max_batch, max_len=32,
+                          device=cuda)
+        for i in range(max_batch):
+            assert eng.submit(Request(rid=i, prompt=np.arange(
+                3 + i, dtype=np.int32), max_new_tokens=8))
+        return cfg, eng
+
+    def test_capture_logged_once(self, cuda):
+        from repro_torch.compile_log import compile_log
+        cfg, eng = self._engine(cuda, 4)
+        mark = len(compile_log())
+        for _ in range(4):
+            eng.tick()
+        assert compile_log()[mark:] == [
+            (f"ServeEngine._decode_core {cfg.name}",
+             "[4, 1] torch.int64; [4] torch.int32")]
+
+    def test_gate_quiet_on_replays_and_trips_on_a_fresh_capture(self, cuda):
+        from repro_torch.analysis.retrace import RetraceError, RetraceGate
+        _, eng = self._engine(cuda, 4)
+        eng.tick()                                  # captures
+        with RetraceGate() as gate:
+            for _ in range(3):
+                eng.tick()
+        assert gate.events == []
+        _, fresh = self._engine(cuda, 3)
+        with pytest.raises(RetraceError) as ei:
+            with RetraceGate():
+                fresh.tick()
+        msg = str(ei.value)
+        assert "ServeEngine._decode_core" in msg and "NEW signature" in msg
+
+    def test_nvcc_build_logged(self, cuda, tmp_path, monkeypatch):
+        from repro_torch.analysis.retrace import RetraceError, RetraceGate
+        from repro_torch.kernels import _build
+        monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+        monkeypatch.delitem(_build._LIBS, "cheb_step", raising=False)
+        with pytest.raises(RetraceError, match="cheb_step: build"):
+            with RetraceGate():
+                _build.build_all(["cheb_step"])
+        assert list(tmp_path.glob("cheb_step-*.so"))
+
+    def test_sync_debug_mode_reports_item(self, cuda):
+        import warnings
+        from repro_torch.analysis import sanitize
+        x = torch.ones(8, device=cuda)
+
+        def syncs(seen):
+            return [w for w in seen if "called a synchronizing CUDA "
+                    "operation" in str(w.message)]
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            with sanitize.applied({"sync_debug_mode": "warn"}):
+                y = x * 2                           # no sync
+                quiet = len(syncs(seen))
+                y.sum().item()                      # a sync
+        assert quiet == 0 and len(syncs(seen)) == 1
+        assert torch.cuda.get_sync_debug_mode() == 0
+
+    @pytest.mark.parametrize("adaptive", [False, True])
+    def test_warm_tick_synchronizes_only_where_marked(self, cuda, adaptive):
+        """A warm tick (sync dispatch) synchronizes at `_harvest`'s event
+        (explicit, not reported) and, adaptive, at the loop's per-chunk
+        read (the line TL001's marker covers); nothing else."""
+        import warnings
+        from repro_torch.analysis import sanitize
+        from repro_torch.serve import (GraphRegistry, PageRankService,
+                                       PPRQuery)
+        reg = GraphRegistry(device=cuda)
+        reg.register("g", generators.tri_mesh(40, 50))
+        svc = PageRankService(reg, max_batch=8, adaptive=adaptive)
+        svc.query("g", seeds=(0,), top_k=5)
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            with sanitize.applied({"sync_debug_mode": "warn"}):
+                for i in range(3):
+                    svc.submit(PPRQuery(qid=i, graph="g", seeds=(i + 1,),
+                                        top_k=5))
+                out = svc.run_until_drained()
+        assert len(out) == 3
+        sites = {(w.filename.rsplit("/", 1)[-1], w.lineno) for w in seen
+                 if "called a synchronizing CUDA operation" in
+                 str(w.message)}
+        if not adaptive:
+            assert sites == set()
+        else:
+            src = open(tpr_file()).read().splitlines()
+            assert sites and all(
+                f == "pagerank.py" and "bool(active.any())" in src[n - 1]
+                for f, n in sites), sites
+
+    def test_nan_mode_flags_on_the_card(self, cuda):
+        from repro_torch.analysis import sanitize
+        with sanitize.applied({"debug_nans": True}) as ctx:
+            y = torch.ones(4, device=cuda) / 2
+        assert len(ctx.nan_mode.names) >= 1 and float(y.sum()) == 2.0
+        with pytest.raises(FloatingPointError, match="aten.div"):
+            with sanitize.applied({"debug_nans": True}):
+                torch.zeros(4, device=cuda) / torch.zeros(4, device=cuda)

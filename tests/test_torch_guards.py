@@ -82,7 +82,13 @@ def test_fresh_import_leaves_jax_and_reference_out():
             "repro_torch.configs.base, repro_torch.configs.registry, "
             "repro_torch.launch.mesh, repro_torch.launch.analysis, "
             "repro_torch.launch.dryrun, repro_torch.launch.roofline, "
-            "repro_torch.kernels.cost\n"
+            "repro_torch.kernels.cost, repro_torch.analysis, "
+            "repro_torch.analysis.runner, repro_torch.analysis.sanitize, "
+            "repro_torch.analysis.retrace, repro_torch.compile_log, "
+            "repro_torch.analysis.pytest_plugin, "
+            "repro_torch.launch.quickstart, "
+            "repro_torch.launch.serve_pagerank, repro_torch.launch.serve_lm, "
+            "repro_torch.launch.distributed_pagerank\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\n"

@@ -263,3 +263,148 @@ class TestPowerRefine:
         x0 = torch.full((dt.n,), 1.0 / dt.n)
         got = tpr.power_refine(dt, x0, torch.from_numpy(p), 0.85, 120)
         assert float((got - want).abs().sum()) <= L1
+
+
+# ---- tests/test_adaptive.py's cap, masking and service cases on the port,
+# beside the reference (the loop whose per-chunk host read TL001 marks)
+
+def _seed_batch(n, b=4, seed=3):
+    rng = np.random.default_rng(seed)
+    p = np.zeros((n, b), np.float32)
+    for j in range(b):
+        p[rng.choice(n, rng.integers(1, 4), replace=False), j] = 1.0
+    return p
+
+
+def _caveman_pair():
+    gj, gt = jgen.caveman(12, 16, seed=0), generators.caveman(12, 16, seed=0)
+    return gt, jops.device_graph(gj), ops.device_graph(gt, device="cpu")
+
+
+class TestAprioriCap:
+    @pytest.mark.parametrize("c,tol", [(0.5, 1e-8), (0.85, 1e-4),
+                                       (0.85, 1e-8), (0.95, 1e-6)])
+    def test_never_exceeds_the_formula8_bound(self, c, tol):
+        g = generators.tri_mesh(9, 11)
+        dt = ops.device_graph(g, device="cpu")
+        dj = jops.device_graph(jgen.tri_mesh(9, 11))
+        sched = make_schedule(c, tol)
+        for p in (None, _seed_batch(g.n)):
+            res = tpr.cpaa_adaptive(
+                dt, c, tol, p=None if p is None else torch.from_numpy(p))
+            ref = jpr.cpaa_adaptive(
+                dj, c, tol, p=None if p is None else jnp.asarray(p))
+            assert res.rounds_bound == ref.rounds_bound == sched.rounds
+            assert res.iterations <= sched.rounds
+            assert int(np.max(res.column_rounds)) <= sched.rounds
+            _assert_l1_per_column(ref.pi, res.pi.numpy())
+
+    def test_broad_personalization_exits_early(self):
+        """The degree prior is near-stationary on an undirected graph, so
+        the residual exit fires well under the bound (4 of 12 rounds), at
+        the reference's round."""
+        g, dj, dt = _caveman_pair()
+        deg = np.maximum(g.deg.astype(float), 1.0)
+        pdeg = (deg / deg.sum()).astype(np.float32)
+        res = tpr.cpaa_adaptive(dt, 0.85, 1e-3, p=torch.from_numpy(pdeg))
+        ref = jpr.cpaa_adaptive(dj, 0.85, 1e-3, p=jnp.asarray(pdeg))
+        assert res.iterations < res.rounds_bound
+        assert res.iterations == ref.iterations
+        truth = tpr.true_pagerank_dense(g, 0.85, p=pdeg)
+        assert np.abs(res.pi.numpy().astype(float) - truth).sum() <= 1e-3
+
+
+class TestPerColumnMasking:
+    def test_mixed_batch_converges_per_column(self):
+        """An easy (uniform) column freezes before a hard (single-seed)
+        one; a column that exited early is within tol of the oracle, and
+        every column within tol of the fixed-round solve; the column
+        rounds are the reference's."""
+        tol = 1e-5
+        g, dj, dt = _caveman_pair()
+        n = g.n
+        p = np.zeros((n, 3), np.float32)
+        p[:, 0] = 1.0 / n
+        p[3, 1] = 1.0
+        p[[5, n - 1], 2] = 0.5
+        res = tpr.cpaa_adaptive(dt, 0.85, tol, p=torch.from_numpy(p))
+        ref = jpr.cpaa_adaptive(dj, 0.85, tol, p=jnp.asarray(p))
+        assert res.column_rounds[0] < res.column_rounds[1]
+        np.testing.assert_array_equal(res.column_rounds,
+                                      np.asarray(ref.column_rounds))
+        oracle = tpr.true_pagerank_dense(g, 0.85, p=p)
+        fixed = tpr.cpaa(dt, 0.85, tol,
+                         p=torch.from_numpy(p)).pi.numpy().astype(float)
+        pi = res.pi.numpy().astype(float)
+        for j in range(3):
+            if res.column_rounds[j] < res.rounds_bound:   # early exit
+                assert np.abs(pi[:, j] - oracle[:, j]).sum() <= tol
+            assert np.abs(pi[:, j] - fixed[:, j]).sum() <= tol
+
+    def test_batched_equals_columnwise_singles(self):
+        g = generators.powerlaw_ba(120, 3, seed=2)
+        dt = ops.device_graph(g, device="cpu")
+        p = _seed_batch(g.n, b=5, seed=11)
+        batched = tpr.cpaa_adaptive(dt, 0.85, 1e-6,
+                                    p=torch.from_numpy(p)).pi.numpy()
+        for j in range(p.shape[1]):
+            single = tpr.cpaa_adaptive(
+                dt, 0.85, 1e-6, p=torch.from_numpy(p[:, j])).pi.numpy()
+            np.testing.assert_allclose(batched[:, j], single,
+                                       rtol=1e-5, atol=1e-8)
+
+
+class TestAdaptiveService:
+    @staticmethod
+    def _service(g, **kw):
+        from repro_torch.serve import GraphRegistry, PageRankService
+        reg = GraphRegistry(device="cpu")
+        reg.register("g", g)
+        return PageRankService(reg, max_batch=8, cache_capacity=64,
+                               max_top_k=8, adaptive=True, **kw)
+
+    def test_adaptive_tick_matches_oracle(self):
+        g = generators.tri_mesh(8, 9)
+        svc = self._service(g)
+        seeds = (3, 40)
+        res = svc.query("g", seeds, tol=1e-8, top_k=8)
+        p = np.zeros(g.n)
+        p[list(seeds)] = 0.5
+        oracle = tpr.true_pagerank_dense(g, 0.85, p=p)
+        assert set(res.indices.tolist()) == \
+            set(np.argsort(-oracle, kind="stable")[:8].tolist())
+        np.testing.assert_allclose(res.scores, oracle[res.indices],
+                                   rtol=1e-4, atol=1e-6)
+        assert 0 < svc.stats["rounds_used"] <= svc.stats["rounds_bound"]
+
+    def test_registry_adaptive_schedule_cached_and_capped(self):
+        from repro_torch.serve import GraphRegistry
+        reg = GraphRegistry(device="cpu")
+        plan = reg.adaptive_schedule(0.85, 1e-4)
+        assert plan is reg.adaptive_schedule(0.85, 1e-4)   # cache hit
+        sched, _ = reg.schedule(0.85, 1e-4)
+        assert plan.max_rounds == sched.rounds
+        assert reg.adaptive_schedule(0.85, 1e-4, chunk=2).chunk == 2
+
+    def test_per_tick_rounds_drop_on_broad_queries(self):
+        """A broad seed set converges before the bound, and the tick's
+        round telemetry shows it, as the reference's does."""
+        from repro.serve import GraphRegistry as JRegistry
+        from repro.serve import PageRankService as JService
+        from repro.serve import PPRQuery as JQuery
+        from repro_torch.serve import PPRQuery
+        g = generators.caveman(12, 16, seed=0)
+        svc = self._service(g)
+        svc.submit(PPRQuery(qid=0, graph="g", seeds=tuple(range(g.n)),
+                            tol=1e-3, top_k=4))
+        svc.run_until_drained()
+        jreg = JRegistry()
+        jreg.register("g", jgen.caveman(12, 16, seed=0))
+        jsvc = JService(jreg, max_batch=8, cache_capacity=64, max_top_k=8,
+                        adaptive=True)
+        jsvc.submit(JQuery(qid=0, graph="g", seeds=tuple(range(g.n)),
+                           tol=1e-3, top_k=4))
+        jsvc.run_until_drained()
+        assert svc.stats["rounds_used"] < svc.stats["rounds_bound"]
+        assert svc.stats["rounds_used"] == jsvc.stats["rounds_used"]
+        assert svc.stats["rounds_bound"] == jsvc.stats["rounds_bound"]
