@@ -202,8 +202,9 @@ package. Phases, each of which must pass:
  13. slice K, the dry-run tooling (`launch/{dryrun,analysis,roofline,
      mesh}.py`; no kernel of its own), TF32 off:
      - K-a: every registry cell, single-pod and multi-pod, through the
-       dry-run's abstract pass under the production mesh (a skip naming
-       this world's size, per-device argument bytes from the specs) and
+       dry-run's abstract pass under the production mesh (the plan's
+       per-device argument bytes from the specs; the GNN and cpaa cells a
+       skip naming the next slice) and
        the card's (1, 1) mesh (a skip only for "does not fit", naming
        both byte counts): every plan on meta tensors, no error, the fit
        table printed; qwen2.5-32b, qwen3-moe-235b-a22b and deepseek-7b's
@@ -242,6 +243,32 @@ package. Phases, each of which must pass:
        cached, one invalidation round, the re-query on epoch 1), serve_lm
        (every request drained) and distributed_pagerank at NCCL world size
        1 (1D and 2D rel err <= 1e-5 vs the single-device solve).
+ 15. slice M, tensor and FSDP parallelism under the reference's sharding
+     plans (`distributed/{sharding,parallel}.py`, the sharded models, the
+     window variants of both embedding_bag kernels):
+     - M-a: the production dry-run (`run_cell(...,
+       mesh="production")`) of every dlrm-rm2, h2o-danube-1.8b and
+       granite-moe-3b-a800m cell on the (16, 16) and (2, 16, 16) meshes
+       of a fake world in this process, on meta tensors: each ok (or its
+       cell's own skip), argument bytes equal to `per_device_bytes`;
+       prints per-device argument, peak temp and total bytes, the fit on
+       this card, the compute / memory / collective terms and the
+       collective bytes by axis (the LM train and prefill counts from the
+       reference's probe extrapolation);
+     - M-b: rank 0 and rank 255 of the (16, 16) mesh on the card with real
+       local shards and collectives that move nothing: DLRM-RM2
+       train_batch (one step after a warm-up, CUDA events, one rank's
+       device work and no collective time), both window kernels launched
+       in the step and held at the rank's window of the real 8.64 GB
+       table (lookup bitwise, ids outside giving 0; backward <= 1e-4 of
+       sum |terms| vs float64, unread rows 0, bitwise again; their
+       device time, queued behind a spin kernel, beside their plain
+       versions and bounds); danube train_4k's rank 0, one step and its
+       own peak memory;
+     - M-c: a (1, 1) NCCL mesh at world size 1, deterministic algorithms
+       on: one sharded DLRM-RM2 step (full table, batch 8,192) and one
+       sharded danube step (full width, 2 layers, 1 x 512, f32) give the
+       unsharded step's loss to rel <= 1e-6.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -321,6 +348,9 @@ def read_counts() -> dict:
     return {"bsr_spmm": bsr_ops.launches(), "cheb_step": cheb_ops.launches(),
             "embedding_bag": eb_ops.launches(),
             "embedding_bag_backward": eb_ops.backward_launches(),
+            "embedding_bag_window": eb_ops.window_launches(),
+            "embedding_bag_window_backward":
+                eb_ops.window_backward_launches(),
             "bsr_spmm_variants": bsr_ops.launches_by_variant(),
             "applies": engine.apply_counts()}
 
@@ -3039,7 +3069,8 @@ def phase_slice_h() -> dict:
 I_DEVICE = "cuda"      # a CPU rehearsal at smoke widths patches this
 I_DIR = ROOT / "build" / "chip_smoke_i"     # gitignored scratch of slice I
 I1_SEQ = 4_096         # train_4k's sequence length
-I1_MICRO = 8           # danube: 8 microbatches of 1 sequence (global 8)
+I1_MICRO = 4           # danube: 4 microbatches of 1 sequence (global 4;
+                       # 8 until slice M took the time)
 I2_MICRO = 4           # granite: 4 microbatches of 1 sequence (global 4)
 I2_LAYERS = None       # granite's depth (None: all 32)
 I_TIMED = 3            # timed steps after one warm-up, on 2 cycled batches
@@ -4121,8 +4152,9 @@ def _must_not_fit(arch: str, shape: str) -> bool:
 def phase_slice_k_abstract() -> dict:
     """K-a: every registry cell, single-pod and multi-pod, through the
     dry-run's abstract pass under both meshes: each plan not skipped by
-    its cell builds on meta tensors; the production mesh records a skip
-    naming this world's size; the card skips only what does not fit,
+    its cell builds on meta tensors; the production mesh's plan states
+    `per_device_bytes` (GNN and cpaa cells: a skip naming the next
+    slice; slice M runs the others); the card skips only what does not fit,
     naming both byte counts; no error. Prints the fit table; returns the
     card's skip records (single-pod) for K-c."""
     import torch
@@ -4135,9 +4167,8 @@ def phase_slice_k_abstract() -> dict:
     for arch, cell in all_cells():
         fit = {}
         for mp in (False, True):
-            prod, plan = dryrun.plan_cell(arch, cell.shape, mp,
-                                          "production")
-            card, _ = dryrun.plan_cell(arch, cell.shape, mp, "card")
+            prod, _ = dryrun.plan_cell(arch, cell.shape, mp, "production")
+            card, plan = dryrun.plan_cell(arch, cell.shape, mp, "card")
             if cell.skip_reason:
                 check(prod["status"] == card["status"] == "skipped"
                       and card["reason"] == cell.skip_reason,
@@ -4149,9 +4180,16 @@ def phase_slice_k_abstract() -> dict:
                       pytree.tree_leaves(plan.abstract_args)
                       if isinstance(x, torch.Tensor)),
                   f"K-a {arch} {cell.shape}: a plan leaf is not on meta")
-            check(prod["status"] == "skipped"
-                  and "this world has 1" in prod["reason"],
-                  f"K-a {arch} {cell.shape}: production {prod}")
+            if prod["status"] == "skipped":     # slice M runs the others
+                check("next slice" in prod["reason"],
+                      f"K-a {arch} {cell.shape}: production {prod}")
+                prod["memory"] = {"argument_bytes":
+                                  dryrun.per_device_bytes(plan, mp)}
+            else:
+                check(prod["status"] == "fits" and
+                      prod["memory"]["argument_bytes"] ==
+                      dryrun.per_device_bytes(plan, mp),
+                      f"K-a {arch} {cell.shape}: production {prod}")
             need = card["memory"]["argument_bytes"] + \
                 card["memory"]["stated_output_bytes"] + \
                 card["memory"]["stated_temp_bytes"]
@@ -4280,6 +4318,406 @@ def phase_slice_k() -> dict:
     log(f"[{CARD}] slice K: {secs:.1f} s")
     return {"abstract": a, "runs": b, "launches": b["launches"],
             "seconds": secs}
+
+
+# ---------------------------------------------------------------- slice M --
+# M-a: the production dry-run of these cells on both production meshes
+M_ARCHS = ("dlrm-rm2", "h2o-danube-1.8b", "granite-moe-3b-a800m")
+M_EB_BATCH = 65_536    # M-b: DLRM-RM2 train_batch (4,096 rows per rank)
+M_DANUBE_SHAPE = "train_4k"
+M_C_DLRM_BATCH = 8_192
+SPIN_CYCLES = 50_000_000   # M-b: ~25 ms of spin ahead of timed calls
+M_C_LAYERS = 2         # M-c: danube at full width, cut from 24 layers
+M_C_SEQ = 512
+M_C_TOL = 1e-6         # M-c: sharded step's loss vs unsharded, relative
+
+
+def phase_slice_m_dryrun() -> dict:
+    """M-a: every cell of M_ARCHS through `launch/dryrun.run_cell(...,
+    mesh="production")` on the (16, 16) and (2, 16, 16)
+    meshes of a fake world in this process: each ok (long_500k of a
+    full-attention arch keeps its own skip) with argument bytes equal to
+    `per_device_bytes` of the same plan. Prints per cell the per-device
+    argument, peak temp and total bytes, the fit on this card, the
+    compute / memory / collective terms and the collective bytes by
+    axis."""
+    import torch
+    from repro_torch.configs.registry import get
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    total = dryrun.device_bytes(torch.device("cuda"))
+    recs = []
+    for mp in (False, True):
+        for arch in M_ARCHS:
+            for cell in get(arch).cells():
+                rec = dryrun.run_cell(arch, cell.shape, mp, "production",
+                                      verbose=False)
+                if cell.skip_reason:
+                    check(rec["status"] == "skipped" and
+                          rec["reason"] == cell.skip_reason,
+                          f"M-a {arch} {cell.shape}: {rec}")
+                    continue
+                check(rec["status"] == "ok", f"M-a {arch} {cell.shape} "
+                      f"multi_pod={mp}: {rec}")
+                plan = get(arch).build(cell.shape, mp)
+                mem, rf = rec["memory"], rec["roofline"]
+                want = dryrun.per_device_bytes(plan, mp)
+                check(mem["argument_bytes"] == want,
+                      f"M-a {arch} {cell.shape}: argument bytes "
+                      f"{mem['argument_bytes']:,} != per_device_bytes "
+                      f"{want:,}")
+                fits = mem["peak_per_device"] <= total
+                axes = {a: {k: f"{v:.4g}" for k, v in per.items()}
+                        for a, per in rec["collectives_by_axis"].items()}
+                how = rec["cost_from"] if isinstance(rec["cost_from"], str) \
+                    else "probes L={L} M={M}".format(
+                        **rec["cost_from"]["probes"])
+                log(f"M-a {arch} {cell.shape} on {rec['chips']} ranks: "
+                    f"per device args {mem['argument_bytes']:,} B, peak "
+                    f"temp {mem['temp_bytes']:,} B, total "
+                    f"{mem['peak_per_device']:,} B "
+                    f"({'fits' if fits else 'does not fit'} the card's "
+                    f"{total:,}"
+                    f"{'; peak estimated' if mem['peak_estimated'] else ''}"
+                    f"); terms compute {rf['compute_s'] * 1e3:.3f}"
+                    f" / memory {rf['memory_s'] * 1e3:.3f} / collective "
+                    f"{rf['collective_s'] * 1e3:.3f} ms (H100 rates), "
+                    f"dominant {rf['dominant']}; collective bytes by axis "
+                    f"{axes}; counts from {how} in {rec['count_s']} s")
+                recs.append(rec)
+    secs = time.perf_counter() - t0
+    log(f"M-a: {len(recs)} production records in {secs:.1f} s (one "
+        f"process, a fake world of 256 / 512 ranks, meta tensors)")
+    return {"records": recs, "seconds": secs}
+
+
+def _window_bound(cost_fn) -> tuple[float, str]:
+    flops, nbytes = cost_fn()
+    from repro_torch.launch.mesh import PEAK_FLOPS_F32
+    return bound(nbytes / HBM_BYTES_PER_S * 1e3,
+                 flops / PEAK_FLOPS_F32 * 1e3)
+
+
+def m_window_check(ids, table, lo: int, label: str) -> dict:
+    """The window kernels at one rank's window of the real table, against
+    their plain versions on the same inputs (not counted on the path):
+    the lookup bitwise (bags of one row), an id outside the window giving
+    exactly 0; the backward within EB_BWD_TOL of the sum of |terms| of a
+    float64 plain window version, every window row no inside id reads
+    exactly 0, bitwise from launch to launch. Times both and their plain
+    versions."""
+    import torch
+    from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.embedding_bag.ref import (
+        embedding_bag_backward_window_ref, embedding_bag_window_ref)
+    n_local, dim = table.shape
+    inside = (ids >= lo) & (ids < lo + n_local)
+    got = eb_ops.embedding_bag_window(ids, table, lo)
+    want = embedding_bag_window_ref(ids, table, lo)
+    exact = bool(torch.equal(got, want))
+    zero_out = not bool(got[~inside[:, 0]].any())
+    g = torch.randn((ids.shape[0], dim), device=ids.device,
+                    generator=torch.Generator(device=ids.device)
+                    .manual_seed(7))
+    gb = eb_ops.embedding_bag_backward_window(ids, g, lo, n_local)
+    again = eb_ops.embedding_bag_backward_window(ids, g, lo, n_local)
+    w64 = embedding_bag_backward_window_ref(ids, g.double(), lo, n_local)
+    mag = embedding_bag_backward_window_ref(ids, g.double().abs(), lo,
+                                            n_local)
+    share = float(((gb.double() - w64).abs()
+                   / mag.clamp(min=1e-300)).max())
+    err_b = float((gb.double() - w64).abs().max())
+    read = torch.zeros(n_local, dtype=torch.bool, device=ids.device)
+    read[(ids[inside] - lo).long()] = True
+    zero_rows = not bool(gb[~read].any())
+    bitwise = bool(torch.equal(gb, again))
+    del w64, mag, again
+    # the kernels' device time (at a rank's 106,496 ids a call's host time
+    # hides them, `_device_ms`): the lookup's kernel; the backward's sort
+    # and its two passes into a gradient already zero (the wrapper's zero
+    # fill of the shard's n_local x D floats is left out), the sort alone
+    # beside. The plain versions and the whole calls between CUDA events.
+    ms = _device_ms(lambda: eb_ops._launch(ids, table, None, lo))
+    ms_b = _device_ms(lambda: eb_ops._launch_backward(ids, g, gb, None, lo))
+    sort_b = _device_ms(lambda: torch.sort(ids.reshape(-1), stable=True))
+    plain_ms = time_ms(lambda: embedding_bag_window_ref(ids, table, lo), 5)
+    plain_b = time_ms(lambda: embedding_bag_backward_window_ref(
+        ids, g, lo, n_local), 5)
+    call_ms = time_ms(lambda: eb_ops._launch(ids, table, None, lo), 20)
+    call_b = time_ms(lambda: eb_ops._launch_backward(ids, g, gb, None, lo),
+                     20)
+    fwd_b, fwd_by = _window_bound(
+        lambda: eb_ops._lookup_cost(ids, got, lo, n_local))
+    bwd_b, bwd_by = _window_bound(
+        lambda: eb_ops._backward_cost(ids, dim, lo, n_local))
+    n_in = int(inside.sum())
+    log(f"[{CARD}] M-b {label} window [{lo:,}, {lo + n_local:,}) of "
+        f"{ids.numel():,} ids ({n_in:,} inside): lookup bitwise vs plain "
+        f"{exact}, outside ids give 0 {zero_out}, device {ms:.4f} ms "
+        f"(plain {plain_ms:.4f}, bound {fwd_b:.4f} by {fwd_by}; the whole "
+        f"call {call_ms:.4f} ms between CUDA events); "
+        f"backward {share:.3e} of sum |terms| vs float64 (limit "
+        f"{EB_BWD_TOL:g}), max |err| {err_b:.3e}, unread rows 0 "
+        f"{zero_rows}, bitwise again {bitwise}, device {ms_b:.4f} ms "
+        f"(torch.sort alone {sort_b:.4f}; plain {plain_b:.4f}, bound "
+        f"{bwd_b:.4f} by {bwd_by}; the whole call {call_b:.4f} ms between "
+        f"CUDA events)")
+    check(exact and zero_out, f"M-b {label}: window lookup vs plain")
+    check(share <= EB_BWD_TOL and zero_rows and bitwise,
+          f"M-b {label}: window backward {share:.3e}, rows {zero_rows}, "
+          f"bitwise {bitwise}")
+    return {"fwd": {"ms": ms, "plain_ms": plain_ms, "bound_ms": fwd_b,
+                    "bound_by": fwd_by, "call_ms": call_ms,
+                    "err": 0.0 if exact else float(
+                        (got - want).abs().max())},
+            "bwd": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bwd_b,
+                    "bound_by": bwd_by, "call_ms": call_b,
+                    "sort_ms": sort_b, "err": err_b}}
+
+
+def _device_ms(fn, calls: int = 20) -> float:
+    """Device ms per call of `fn`: `calls` calls queued behind a spin
+    kernel (`torch.cuda._sleep`), so they run back to back on the card
+    however slow the host is, timed between CUDA events. Fails unless the
+    host queued them all before the spin ended."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    torch.cuda.synchronize()
+    spin_ms = ev[0].elapsed_time(ev[1])
+    check(host_ms < spin_ms, f"M-b: queuing {calls} calls took {host_ms:.2f}"
+          f" ms, longer than the {spin_ms:.2f} ms spin")
+    return ev[1].elapsed_time(ev[2]) / calls
+
+
+def _step_ms(step, *args) -> tuple[float, object]:
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = step(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def phase_slice_m_ranks() -> dict:
+    """M-b: rank 0 and rank 255 of the (16, 16) production mesh on the
+    card, on a fake world in this process (real local shards, collectives
+    that move nothing): DLRM-RM2 train_batch, whose row shard of the table
+    runs through both window kernels (their launches counted over one
+    step and checked at the rank's window, `m_window_check`), and
+    danube's train_4k on rank 0. The step's ms are one rank's device work
+    with no collective time."""
+    import torch
+    from functools import partial
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs import dlrm_rm2, h2o_danube_1_8b
+    from repro_torch.core import distributed as cdist
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = dlrm_rm2.full_config()
+    params = dlrm.init_params(cfg, seed=0, device=dev)
+    batch = dlrm_rm2.make_batch(cfg, M_EB_BATCH, seed=1, device=dev)
+    specs = sh.dlrm_param_specs(params, False)
+    opt_cfg = AdamWConfig(lr=1e-3)
+    launches, windows = {"embedding_bag_window": 0,
+                         "embedding_bag_window_backward": 0}, {}
+    for rank in (0, 255):
+        mesh = make_production_mesh(device=dev, fake=True, rank=rank)
+        try:
+            with sh.use_mesh(mesh, sharded=True):
+                local = sh.shard_tree(params, specs, mesh)
+                lo_b, hi_b, _ = sh.split(M_EB_BATCH, 16,
+                                         sh.axis_index(mesh, "data"))
+                mine = {k: v[lo_b:hi_b] for k, v in batch.items()}
+                opt = adamw_init(local, opt_cfg)
+                step = make_train_step(partial(dlrm.loss_fn, cfg=cfg),
+                                       opt_cfg, donate=True,
+                                       grad_specs=specs)
+                step(local, opt, mine)                       # warm-up
+                torch.cuda.synchronize()
+                reset_counts()
+                ms, (_, _, metrics) = _step_ms(step, local, opt, mine)
+                n = read_counts()
+                for k in launches:
+                    launches[k] += n[k]
+                check(n["embedding_bag_window"] >= 1 and
+                      n["embedding_bag_window_backward"] >= 1 and
+                      n["embedding_bag"] == n["embedding_bag_backward"] == 0,
+                      f"M-b DLRM rank {rank}: launches {n}")
+                loss = float(metrics["loss"])
+                m = sh.axis_index(mesh, "model")
+                lo = sh.split(cfg.padded_rows, 16, m)[0]
+                log(f"[{CARD}] M-b DLRM-RM2 train_batch rank {rank} (data "
+                    f"{sh.axis_index(mesh, 'data')}, model {m}): one step "
+                    f"{ms:.3f} ms (CUDA events; one rank's device work, no "
+                    f"collective time: the fake world moves nothing), "
+                    f"{hi_b - lo_b:,} rows, table rows [{lo:,}, "
+                    f"{lo + local['table'].shape[0]:,}), local loss "
+                    f"{loss:.6f}; launches {n['embedding_bag_window']} "
+                    f"window lookup, {n['embedding_bag_window_backward']} "
+                    f"window backward")
+                check(np.isfinite(loss), f"M-b DLRM rank {rank}: loss")
+                ids = mine["sparse_ids"].reshape(-1, cfg.bag_size)
+                windows[rank] = m_window_check(ids, local["table"], lo,
+                                               f"rank {rank}")
+                del local, opt, step
+        finally:
+            cdist.destroy_world()
+        torch.cuda.empty_cache()
+    del params, batch
+    torch.cuda.empty_cache()
+
+    dcfg = h2o_danube_1_8b.full_config()
+    from repro_torch.configs.lm_common import LM_SHAPES
+    info = LM_SHAPES[M_DANUBE_SHAPE]
+    mesh = make_production_mesh(device=dev, fake=True, rank=0)
+    try:
+        with sh.use_mesh(mesh, sharded=True):
+            pspecs = sh.lm_param_specs(dcfg, False)
+            whole = tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                                   dcfg)
+            local = sh.shard_tree(whole, pspecs, mesh)
+            del whole
+            rows = info["global_batch"] // 16
+            tokens = torch.randint(0, dcfg.vocab, (rows, info["seq"] + 1),
+                                   generator=torch.Generator(device=dev)
+                                   .manual_seed(1), device=dev,
+                                   dtype=torch.int32)
+            d_opt = AdamWConfig(lr=I_LR)
+            step = make_train_step(partial(tf.loss_fn, cfg=dcfg), d_opt,
+                                   num_microbatches=info["global_batch"]
+                                   // 32, donate=True, grad_specs=pspecs)
+            opt = adamw_init(local, d_opt)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)   # the step's own peak
+            ms, (_, _, metrics) = _step_ms(step, local, opt,
+                                           {"tokens": tokens})
+            loss = float(metrics["loss"])
+            args = sum(x.numel() * x.element_size()
+                       for x in pytree.tree_leaves((local, opt)))
+            log(f"[{CARD}] M-b danube {M_DANUBE_SHAPE} rank 0: one step "
+                f"(the first, no warm-up) {ms:.1f} ms (CUDA events; one "
+                f"rank's device work, no collective time) on {rows} x "
+                f"{info['seq'] + 1} tokens in {info['global_batch'] // 32} "
+                f"microbatches, local params + moments {args:,} B, peak "
+                f"allocated over the step (arguments included) "
+                f"{torch.cuda.max_memory_allocated(dev):,} B, "
+                f"loss {loss:.4f}")
+            check(np.isfinite(loss), "M-b danube: loss not finite")
+            del local, opt, step
+    finally:
+        cdist.destroy_world()
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] M-b: {secs:.1f} s; window launches {launches}")
+    return {"launches": launches, "windows": windows, "seconds": secs}
+
+
+def phase_slice_m_nccl() -> dict:
+    """M-c: the sharded path on a real (1, 1) NCCL mesh at world size 1,
+    deterministic algorithms on: one DLRM-RM2 step (full table, a batch of
+    M_C_DLRM_BATCH) and one danube step (full width, M_C_LAYERS layers,
+    one sequence of M_C_SEQ) give the unsharded step's loss within
+    M_C_TOL (relative)."""
+    import dataclasses
+    import torch
+    from functools import partial
+    from repro_torch.configs import dlrm_rm2, h2o_danube_1_8b
+    from repro_torch.core import distributed as cdist
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import dlrm
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.train_loop import make_train_step
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    mesh = cdist.init_mesh((1, 1), ("data", "model"), dev)
+    out = {}
+
+    def both(label, loss_fn, params, specs, batch, opt_cfg):
+        plain = make_train_step(loss_fn, opt_cfg, donate=False)
+        _, _, m0 = plain(params, adamw_init(params, opt_cfg), batch)
+        with sh.use_mesh(mesh, sharded=True):
+            local = sh.shard_tree(params, specs, mesh)
+            sharded = make_train_step(loss_fn, opt_cfg, donate=False,
+                                      grad_specs=specs)
+            _, _, m1 = sharded(local, adamw_init(local, opt_cfg), batch)
+        l0, l1 = float(m0["loss"]), float(m1["loss"])
+        g0, g1 = float(m0["grad_norm"]), float(m1["grad_norm"])
+        rel = abs(l1 - l0) / abs(l0)
+        log(f"[{CARD}] M-c {label}: sharded loss {l1:.9g} vs unsharded "
+            f"{l0:.9g} (rel {rel:.3e}, limit {M_C_TOL:g}); grad norm "
+            f"{g1:.9g} vs {g0:.9g}")
+        check(rel <= M_C_TOL, f"M-c {label}: loss rel {rel:.3e}")
+        out[label] = rel
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cfg = dlrm_rm2.full_config()
+        params = dlrm.init_params(cfg, seed=0, device=dev)
+        batch = dlrm_rm2.make_batch(cfg, M_C_DLRM_BATCH, seed=2, device=dev)
+        reset_counts()
+        both("DLRM-RM2", partial(dlrm.loss_fn, cfg=cfg), params,
+             sh.dlrm_param_specs(params, False), batch,
+             AdamWConfig(lr=1e-3))
+        n = read_counts()
+        check(n["embedding_bag_window"] >= 1 and n["embedding_bag"] >= 1,
+              f"M-c DLRM: launches {n}")
+        del params, batch
+        torch.cuda.empty_cache()
+        dcfg = dataclasses.replace(h2o_danube_1_8b.full_config(),
+                                   n_layers=M_C_LAYERS,
+                                   compute_dtype="float32")
+        whole = tf.init_params(torch.Generator(device=dev).manual_seed(0),
+                               dcfg)
+        tokens = torch.randint(0, dcfg.vocab, (1, M_C_SEQ + 1),
+                               generator=torch.Generator(device=dev)
+                               .manual_seed(3), device=dev,
+                               dtype=torch.int32)
+        both("danube", partial(tf.loss_fn, cfg=dcfg), whole,
+             sh.lm_param_specs(dcfg, False), {"tokens": tokens},
+             AdamWConfig(lr=I_LR))
+        del whole
+    finally:
+        torch.use_deterministic_algorithms(was)
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] M-c: {secs:.1f} s")
+    return {"rel": out, "seconds": secs}
+
+
+def phase_slice_m() -> dict:
+    """Slice M, tensor and FSDP parallelism under the production plans:
+    M-a (the production dry-run on a fake world), M-b (ranks of the
+    production mesh on the card), M-c (the sharded path on a real (1, 1)
+    NCCL mesh)."""
+    t0 = time.perf_counter()
+    a = phase_slice_m_dryrun()
+    b = phase_slice_m_ranks()
+    c = phase_slice_m_nccl()
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] slice M: {secs:.1f} s (M-a {a['seconds']:.1f}, M-b "
+        f"{b['seconds']:.1f}, M-c {c['seconds']:.1f})")
+    return {"dryrun": a, "ranks": b, "nccl": c, "launches": b["launches"],
+            "windows": b["windows"], "seconds": secs}
 
 
 # ---------------------------------------------------------------- slice L --
@@ -4606,6 +5044,9 @@ def main() -> int:
     l = add_counts(l_a["launches"], l_d["launches"])
     check(l["bsr_spmm"] > 0 and l["cheb_step"] > 0,
           f"slice L: a kernel of its path was not launched: {l}")
+    torch.cuda.empty_cache()
+    m = phase_slice_m()
+    m_win = m["windows"][0]
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
@@ -4690,6 +5131,31 @@ def main() -> int:
          "plain_ms": eb_bwd["plain_ms"],
          "bound_ms": ebb_b, "bound_by": ebb_by,
          "library_ms": eb_bwd["library_ms"]},
+        {"name": "embedding_bag_window", "route": "cuda",
+         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                   "embedding_bag.cu",
+         "replaces": "src/repro/kernels/embedding_bag/embedding_bag.py:40",
+         "launches": m["launches"]["embedding_bag_window"],
+         "launches_by_path": {"slice_m": m["launches"][
+             "embedding_bag_window"]},
+         "max_abs_err": m_win["fwd"]["err"],
+         "ms": m_win["fwd"]["ms"], "call_ms": m_win["fwd"]["call_ms"],
+         "plain_ms": m_win["fwd"]["plain_ms"],
+         "bound_ms": m_win["fwd"]["bound_ms"],
+         "bound_by": m_win["fwd"]["bound_by"], "library_ms": None},
+        {"name": "embedding_bag_window_backward", "route": "cuda",
+         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                   "embedding_bag_backward.cu",
+         "replaces": "src/repro/models/recsys/dlrm.py:104",
+         "launches": m["launches"]["embedding_bag_window_backward"],
+         "launches_by_path": {"slice_m": m["launches"][
+             "embedding_bag_window_backward"]},
+         "max_abs_err": m_win["bwd"]["err"],
+         "ms": m_win["bwd"]["ms"], "call_ms": m_win["bwd"]["call_ms"],
+         "sort_ms": m_win["bwd"]["sort_ms"],
+         "plain_ms": m_win["bwd"]["plain_ms"],
+         "bound_ms": m_win["bwd"]["bound_ms"],
+         "bound_by": m_win["bwd"]["bound_by"], "library_ms": None},
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

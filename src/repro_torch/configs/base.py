@@ -18,7 +18,8 @@ senders < n, edge sources < rows). Where a plan can state them,
 `static["out_abstract"]` holds the outputs its step allocates beside
 the arguments and `static["temp_abstract"]` the buffers it cannot run
 without (a train step's float32 gradients): the dry-run's fit check
-counts both.
+counts both. Under the production mesh, `local_args(mesh)` is a rank's
+own pieces of the arguments, which the step runs sharded.
 """
 from __future__ import annotations
 
@@ -55,9 +56,24 @@ class DryRunPlan:
     note: str = ""
     # The reference's correction for XLA counting loop bodies once:
     # {"L": layers, "M": microbatches, "probe": fn(L, M) -> DryRunPlan}.
-    # Kept for parity; a counted eager run sees every trip of every loop,
-    # so launch/dryrun.py does not need it on one card.
+    # A counted eager run sees every trip of every loop, so
+    # launch/dryrun.py uses it, as the reference does, only on the
+    # production mesh, where it cuts a deep step's counting time.
     cost_model: dict | None = None
+
+    def local_args(self, mesh) -> tuple:
+        """This rank's arguments under the production mesh `mesh`: its
+        pieces of the abstract arguments under `in_specs`
+        (`sharding.shard_tree`, on meta tensors), with the scalars the
+        plan states (`static["scalar_args"]`: index -> value, e.g. a
+        decode step's cache_len) as host tensors. What the step, run under
+        `use_mesh(mesh, sharded=True)`, takes."""
+        from repro_torch.distributed.sharding import shard_tree
+        args = list(shard_tree(tuple(self.abstract_args),
+                               tuple(self.in_specs), mesh))
+        for i, v in self.static.get("scalar_args", {}).items():
+            args[i] = torch.tensor(v, dtype=self.abstract_args[i].dtype)
+        return tuple(args)
 
 
 def meta(shape, dtype) -> torch.Tensor:

@@ -118,7 +118,8 @@ def build(shape: str, multi_pod: bool) -> DryRunPlan:
         ospecs = {"step": P(), "m": pspecs, "v": pspecs}
         batch = make_batch(cfg, bsz, abstract=True)
         step = make_train_step(partial(dlrm.loss_fn, cfg=cfg), opt_cfg,
-                               num_microbatches=1, donate=True)
+                               num_microbatches=1, donate=True,
+                               grad_specs=pspecs)
 
         def make_args(seed: int = 0, device=None):
             params = dlrm.init_params(cfg, seed=seed, device=device)
@@ -142,6 +143,7 @@ def build(shape: str, multi_pod: bool) -> DryRunPlan:
         return DryRunPlan(step=partial(dlrm.serve_step, cfg=cfg),
                           abstract_args=(aparams, batch),
                           in_specs=(pspecs, _batch_specs(batch, bx)),
+                          out_specs=P(bx),
                           model_flops=model_flops(cfg, bsz, "serve"),
                           static={**static, "make_args": make_args,
                                   "out_abstract": meta((bsz,),

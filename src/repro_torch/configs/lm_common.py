@@ -167,8 +167,11 @@ def build_lm_plan(cfg: TransformerConfig, shape: str, multi_pod: bool,
             return params_of(seed, device), tokens_of(gen, bsz, seq)
         out = (meta((bsz, cfg.vocab_padded), torch.float32),
                (meta(cache_shape, cfg.cdtype),) * 2)
+        cache_spec = P(None, bx_or_none, "model", None, None)
         plan = DryRunPlan(step=step, abstract_args=(aparams, tokens),
                           in_specs=(pspecs, P(bx_or_none, None)),
+                          out_specs=(P(bx_or_none, None),
+                                     (cache_spec, cache_spec)),
                           model_flops=2.0 * cfg.n_active_params() * bsz * seq
                           + lm_attn_flops(cfg, bsz, seq),
                           static={**static, "make_args": make_args,
@@ -195,9 +198,11 @@ def build_lm_plan(cfg: TransformerConfig, shape: str, multi_pod: bool,
                           abstract_args=(aparams, token, kv, clen),
                           in_specs=(pspecs, P(bx_or_none, None),
                                     (cache_spec, cache_spec), P()),
+                          out_specs=P(bx_or_none, None),
                           donate=(2,),
                           model_flops=lm_decode_flops(cfg, bsz, seq),
                           static={**static, "make_args": make_args,
+                                  "scalar_args": {3: seq - 1},
                                   "out_abstract": meta(
                                       (bsz, cfg.vocab_padded),
                                       torch.float32)})

@@ -44,6 +44,7 @@ never waits on the card to tell the others what comes next.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import warnings
@@ -60,6 +61,9 @@ from repro_torch.graph.partition import Partition1D, Partition2D, \
 
 __all__ = [
     "init_process_group",
+    "init_fake_world",
+    "fake_world",
+    "destroy_world",
     "init_mesh",
     "world_size",
     "rank",
@@ -171,7 +175,8 @@ def all_true(flag: bool) -> bool:
 def init_process_group(device=None) -> torch.device:
     """Start the default process group for `device` (None = cuda; raises
     without a GPU) unless one is initialized, and return the device. See
-    `init_mesh` for how it starts and which backend it takes.
+    `init_mesh` for how it starts and which backend it takes. A fake world
+    (`init_fake_world`) serves any device.
 
     Raises:
         RuntimeError: NCCL unavailable for cuda, or the initialized default
@@ -192,11 +197,50 @@ def init_process_group(device=None) -> torch.device:
                                     world_size=1,
                                     timeout=datetime.timedelta(minutes=10))
     have = str(dist.get_backend())
-    if backend not in have:
+    if backend not in have and have != "fake":
         raise RuntimeError(f"repro_torch: a {dev.type} mesh needs a "
                            f"{backend} process group; the default group "
                            f"runs {have!r}")
     return dev
+
+
+def init_fake_world(world_size: int, rank: int = 0) -> None:
+    """Make this process rank `rank` of a world of `world_size` ranks on
+    torch's fake backend (`torch.testing._internal.distributed.fake_pg`):
+    every collective returns at once without moving a byte, an all-gather
+    leaving each chunk a copy of the input and an all-reduce its input as
+    it is. One process then runs one rank's program of a mesh it does not
+    have, on meta tensors (the production dry-run) or on real ones (one
+    rank's device work). The port's collective wrappers (`all_gather`,
+    `reduce_scatter`, `all_reduce`, `all_to_all`) run on it unchanged and
+    are counted as on any group. A default group already running is
+    destroyed first (a mesh built over it is dropped from the cache).
+
+    The fake backend is torch's own: the port keeps no fake world of its
+    own at the wrapper layer."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=int(rank),
+                            world_size=int(world_size))
+
+
+def destroy_world() -> None:
+    """Destroy the default group, if one is running (the next
+    `init_process_group` starts a new one)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def fake_world(world_size: int, rank: int = 0):
+    """`init_fake_world` for the block; the fake group is destroyed after
+    it (the next `init_process_group` then starts a real one)."""
+    init_fake_world(world_size, rank)
+    try:
+        yield
+    finally:
+        destroy_world()
 
 
 _MESHES: dict[tuple, object] = {}
@@ -275,13 +319,13 @@ def all_gather(x: torch.Tensor, group, *, tag=None, site: str = "apply",
     return out
 
 
-def reduce_scatter(x: torch.Tensor, group, *, tag=None,
+def reduce_scatter(x: torch.Tensor, group, *, tag=None, site: str = "apply",
                    dim: str = "world") -> torch.Tensor:
     """Sum x over the group and keep this rank's dim-0 slice of the sum."""
     x = x.contiguous()
     out = x.new_empty((x.shape[0] // dist.get_world_size(group),)
                       + tuple(x.shape[1:]))
-    _count(tag, "apply", "reduce_scatter", dim, _nbytes(x))
+    _count(tag, site, "reduce_scatter", dim, _nbytes(x))
     dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
     return out
 

@@ -26,32 +26,51 @@ The spec builders (`lm_param_specs` ... `dlrm_param_specs`) give the
 reference's plans as trees of `P`, one axis name, tuple of names or None
 per dimension; `shard_shape` turns a shape, its spec and a mesh's axis
 sizes into the shape each device holds (the dry-run's per-device bytes).
-The port's models run no tensor or FSDP parallelism, so nothing shards a
-tensor by these specs: `maybe_shard` and `shard_activation` are
-identities (as the reference's are without a mesh). `shard_map_compat`
-has no counterpart: the port is SPMD already.
+
+Sharded execution. `local_shard(x, spec, mesh)` is this rank's piece of
+a whole tensor under a spec, `shard_tree` maps it over a tree and
+`gather_tree` puts the pieces back together (tests). The split rule is
+`shard_shape`'s, the one GSPMD pads: a dimension of n over k ranks
+gives every rank c = ceil(n / k) entries, rank i holding [i c, (i + 1)
+c) of them clipped to n and zero-padded to c, so the last ranks hold
+padding or nothing (`split`). Under `use_mesh(mesh, sharded=True)` the
+models take their parameters as such local shards (`params_sharded()`)
+and run SPMD: each rank computes on its shards and calls the collectives
+of `distributed.parallel` explicitly, so `collective_counts` sees every
+trip. Without `sharded` a mesh changes only what it changed before (the
+all-to-all MoE, the data-parallel mean of whole gradients).
+
+`maybe_shard` and `shard_activation` stay identities: the reference's
+are layout constraints for XLA's partitioner, which the port has not;
+its layouts are the explicit collectives above. `shard_map_compat` has
+no counterpart: the port is SPMD already.
 """
 from __future__ import annotations
 
 import contextlib
 
+import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["use_mesh", "current_mesh", "axis_size", "axis_index", "P",
-           "flat_axes", "batch_axes", "maybe_shard", "shard_activation",
+__all__ = ["use_mesh", "current_mesh", "params_sharded", "axis_size",
+           "axis_index", "P", "flat_axes", "batch_axes", "maybe_shard",
+           "shard_activation", "split", "axes_of", "local_shard",
+           "shard_tree", "gather_tree",
            "lm_param_specs", "lm_opt_specs", "lm_batch_specs",
            "lm_cache_spec", "gnn_batch_specs", "replicated_specs",
            "dlrm_param_specs", "shard_shape"]
 
-_ACTIVE: list = []     # stack of the meshes entered with use_mesh
+_ACTIVE: list = []     # stack of (mesh, sharded) entered with use_mesh
 
 
 @contextlib.contextmanager
-def use_mesh(mesh):
+def use_mesh(mesh, sharded: bool = False):
     """Make `mesh` the active mesh inside the block (None: no mesh, so
-    model code takes its single-rank paths). Process-wide, so the
-    autograd engine's threads see it too; nests."""
-    _ACTIVE.append(mesh)
+    model code takes its single-rank paths). `sharded`: the models'
+    parameters are this rank's local shards under their specs (module
+    docstring). Process-wide, so the autograd engine's threads see it
+    too; nests."""
+    _ACTIVE.append((mesh, bool(sharded) and mesh is not None))
     try:
         yield mesh
     finally:
@@ -60,7 +79,12 @@ def use_mesh(mesh):
 
 def current_mesh():
     """The innermost mesh of `use_mesh`, or None."""
-    return _ACTIVE[-1] if _ACTIVE else None
+    return _ACTIVE[-1][0] if _ACTIVE else None
+
+
+def params_sharded() -> bool:
+    """True inside `use_mesh(mesh, sharded=True)` (innermost block)."""
+    return bool(_ACTIVE) and _ACTIVE[-1][1]
 
 
 def _names(mesh) -> tuple:
@@ -106,17 +130,113 @@ def batch_axes(multi_pod: bool) -> tuple:
 
 
 def maybe_shard(x, *spec):
-    """x: the reference pins x to `spec` under a mesh (a no-op on one
-    device); the port shards no tensor by spec."""
+    """x: the reference pins x to `spec` for XLA's partitioner under a
+    mesh. The port has no partitioner to pin for: its sharded layouts are
+    made by explicit collectives (`distributed.parallel`), so this stays
+    an identity."""
     del spec
     return x
 
 
 def shard_activation(x, *roles):
     """x: the reference's role-based activation constraint, an identity
-    here as `maybe_shard` is."""
+    here for the reason `maybe_shard` gives."""
     del roles
     return x
+
+
+# ------------------------------------------------------------ local shards --
+
+def split(n: int, k: int, i: int) -> tuple[int, int, int]:
+    """(lo, hi, c): rank i of k holds entries [lo, hi) of a dimension of n,
+    padded to c = ceil(n / k) (`shard_shape`'s count; the last ranks may
+    hold fewer entries, or none)."""
+    c = -(-int(n) // int(k))
+    lo = min(i * c, n)
+    return lo, min(lo + c, n), c
+
+
+def axes_of(entry) -> tuple:
+    """The axis names of one spec entry (None: none)."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _coordinate(mesh, entry) -> tuple[int, int]:
+    """(index, count) of this rank over the axes of one spec entry, in
+    row-major order of the named axes (a mesh without one counts 1)."""
+    idx, k = 0, 1
+    for a in axes_of(entry):
+        size = axis_size(mesh, a)
+        idx = idx * size + axis_index(mesh, a)
+        k *= size
+    return idx, k
+
+
+def _dims(spec, ndim: int) -> tuple:
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def local_shard(x, spec, mesh):
+    """This rank's piece of the whole tensor x under `spec` on `mesh`:
+    along each sharded dimension its `split` range, zero-padded to the
+    even count, so the piece has `shard_shape`'s shape. Works on meta
+    tensors."""
+    for d, entry in enumerate(_dims(spec, x.ndim)):
+        idx, k = _coordinate(mesh, entry)
+        if k == 1:
+            continue
+        lo, hi, c = split(x.shape[d], k, idx)
+        piece = x.narrow(d, lo, hi - lo)
+        if hi - lo < c:
+            pad = list(x.shape)
+            pad[d] = c - (hi - lo)
+            piece = torch.cat([piece, x.new_zeros(pad)], dim=d)
+        x = piece
+    return x.contiguous()
+
+
+def _is_spec(s) -> bool:
+    return isinstance(s, P)
+
+
+def shard_tree(tree, specs, mesh):
+    """`local_shard` of every leaf of `tree` under the matching spec of
+    `specs` (a tree of `P` of the same structure; None leaves whole)."""
+    if specs is None:
+        return tree
+    if _is_spec(specs):
+        return local_shard(tree, specs, mesh)
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s, mesh)
+                          for v, s in zip(tree, specs))
+    raise TypeError(f"no spec for {type(tree)}")
+
+
+def gather_tree(tree, specs, mesh, like):
+    """The inverse of `shard_tree`: every leaf all-gathered over the axes
+    of its spec (not counted) and trimmed to the shape of the matching
+    leaf of `like`. Every rank must call it."""
+    from repro_torch.core import distributed as cdist
+    if specs is None:
+        return tree
+    if _is_spec(specs):
+        x = tree
+        for d, entry in enumerate(_dims(specs, x.ndim)):
+            for a in reversed(axes_of(entry)):
+                if axis_size(mesh, a) > 1:
+                    x = cdist.all_gather(x.movedim(d, 0),
+                                         mesh.get_group(a)).movedim(0, d)
+            x = x.narrow(d, 0, like.shape[d])
+        return x.contiguous()
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, specs[k], mesh, like[k])
+                for k, v in tree.items()}
+    return type(tree)(gather_tree(v, s, mesh, w)
+                      for v, s, w in zip(tree, specs, like))
 
 
 def _axis_count(entry, mesh_shape: dict) -> int:

@@ -29,8 +29,20 @@
 //
 // Row offsets are 64-bit ((int64_t)id * columns): the full RM2 table holds
 // 2.16e9 floats, so a 32-bit offset would read the wrong row from row
-// 33,554,432 on. ids must lie in [0, V); the wrapper does not check them on
-// the device (that would cost a host sync on the serve path).
+// 33,554,432 on.
+//
+// Window. The table may be one rank's row shard of a larger table: rows
+// [row_lo, row_lo + n_local) of it, as the row-sharded layout P("model",
+// None) puts 1/16 of RM2's rows on each rank of a 16-way model axis
+// (embedding_bag_window_f32). An id outside the window adds nothing: the
+// test sits in the loop over l, beside the row load it guards (no row is
+// read for such an id), with no pass of its own over the ids. The whole
+// table is the window [0, V) (embedding_bag_f32), where every id passes the
+// test, so the test is compiled out there (kWindow = false): the test's
+// registers (40 against 32 a thread) cost the whole-table lookup 14% at
+// serve_bulk's shape (probes/eb_window_probe.py), and without it the loads
+// and fmas are those of the kernel before it took a window, in the same
+// order, with the same bits.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -61,15 +73,26 @@ __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
-// ids [n_bags, bag] int32; table [V, cols] of V-typed columns; w [n_bags,
-// bag] f32 or null (unit weights); out [n_bags, cols].
-template <typename V, int G>
+// The row of `id` in a window of n_local rows from row_lo, or -1 outside.
+__device__ __forceinline__ int64_t window_row(int32_t id, int64_t row_lo,
+                                              int64_t n_local) {
+  const int64_t row = int64_t(id) - row_lo;
+  return static_cast<uint64_t>(row) < static_cast<uint64_t>(n_local) ? row
+                                                                     : -1;
+}
+
+// ids [n_bags, bag] int32; table [n_local, cols] of V-typed columns, rows
+// [row_lo, row_lo + n_local) of the whole table (kWindow; else the whole
+// table, row_lo 0); w [n_bags, bag] f32 or null (unit weights); out
+// [n_bags, cols].
+template <typename V, int G, bool kWindow>
 __global__ void __launch_bounds__(kThreads)
 embedding_bag_kernel(const int32_t* __restrict__ ids,
                      const V* __restrict__ table,
                      const float* __restrict__ w,
                      V* __restrict__ out,
-                     int64_t n_bags, int64_t bag, int64_t cols) {
+                     int64_t n_bags, int64_t bag, int64_t cols,
+                     int64_t row_lo, int64_t n_local) {
   constexpr int kGroups = kThreads / G;
   const int lane = threadIdx.x % G;
   const int64_t stride = int64_t(gridDim.x) * kGroups;
@@ -84,16 +107,35 @@ embedding_bag_kernel(const int32_t* __restrict__ ids,
       for (; l + kUnroll <= bag; l += kUnroll) {
         V r[kUnroll];
         float wl[kUnroll];
+        bool in[kUnroll];
 #pragma unroll
         for (int k = 0; k < kUnroll; ++k) {
-          r[k] = __ldg(table + int64_t(__ldg(bag_ids + l + k)) * cols + c);
+          const int32_t id = __ldg(bag_ids + l + k);
+          if constexpr (kWindow) {
+            const int64_t row = window_row(id, row_lo, n_local);
+            in[k] = row >= 0;
+            r[k] = in[k] ? __ldg(table + row * cols + c) : zero<V>();
+          } else {
+            r[k] = __ldg(table + int64_t(id) * cols + c);
+          }
           wl[k] = bag_w ? __ldg(bag_w + l + k) : 1.0f;
         }
 #pragma unroll
-        for (int k = 0; k < kUnroll; ++k) fma_into(acc, wl[k], r[k]);
+        for (int k = 0; k < kUnroll; ++k) {
+          if constexpr (kWindow) {
+            if (in[k]) fma_into(acc, wl[k], r[k]);
+          } else {
+            fma_into(acc, wl[k], r[k]);
+          }
+        }
       }
       for (; l < bag; ++l) {
-        const V r = __ldg(table + int64_t(__ldg(bag_ids + l)) * cols + c);
+        int64_t row = __ldg(bag_ids + l);
+        if constexpr (kWindow) {
+          row = window_row(static_cast<int32_t>(row), row_lo, n_local);
+          if (row < 0) continue;
+        }
+        const V r = __ldg(table + row * cols + c);
         fma_into(acc, bag_w ? __ldg(bag_w + l) : 1.0f, r);
       }
       __stcs(out_row + c, acc);
@@ -103,13 +145,19 @@ embedding_bag_kernel(const int32_t* __restrict__ ids,
 
 template <typename V, int G>
 cudaError_t launch(const int32_t* ids, const V* table, const float* w, V* out,
-                   int64_t n_bags, int64_t bag, int64_t cols,
-                   cudaStream_t st) {
+                   int64_t n_bags, int64_t bag, int64_t cols, int64_t row_lo,
+                   int64_t n_local, cudaStream_t st) {
   constexpr int64_t kGroups = kThreads / G;
   int64_t blocks = (n_bags + kGroups - 1) / kGroups;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  embedding_bag_kernel<V, G><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               st>>>(ids, table, w, out, n_bags, bag, cols);
+  const auto grid = static_cast<unsigned>(blocks);
+  if (n_local < 0) {           // the whole table: no window to test
+    embedding_bag_kernel<V, G, false><<<grid, kThreads, 0, st>>>(
+        ids, table, w, out, n_bags, bag, cols, 0, 0);
+  } else {
+    embedding_bag_kernel<V, G, true><<<grid, kThreads, 0, st>>>(
+        ids, table, w, out, n_bags, bag, cols, row_lo, n_local);
+  }
   return cudaGetLastError();
 }
 
@@ -117,18 +165,44 @@ cudaError_t launch(const int32_t* ids, const V* table, const float* w, V* out,
 template <typename V>
 cudaError_t dispatch(const int32_t* ids, const V* table, const float* w,
                      V* out, int64_t n_bags, int64_t bag, int64_t cols,
-                     cudaStream_t st) {
-  if (cols <= 1) return launch<V, 1>(ids, table, w, out, n_bags, bag, cols, st);
-  if (cols <= 2) return launch<V, 2>(ids, table, w, out, n_bags, bag, cols, st);
-  if (cols <= 4) return launch<V, 4>(ids, table, w, out, n_bags, bag, cols, st);
-  if (cols <= 8) return launch<V, 8>(ids, table, w, out, n_bags, bag, cols, st);
+                     int64_t lo, int64_t n, cudaStream_t st) {
+  if (cols <= 1)
+    return launch<V, 1>(ids, table, w, out, n_bags, bag, cols, lo, n, st);
+  if (cols <= 2)
+    return launch<V, 2>(ids, table, w, out, n_bags, bag, cols, lo, n, st);
+  if (cols <= 4)
+    return launch<V, 4>(ids, table, w, out, n_bags, bag, cols, lo, n, st);
+  if (cols <= 8)
+    return launch<V, 8>(ids, table, w, out, n_bags, bag, cols, lo, n, st);
   if (cols <= 16)
-    return launch<V, 16>(ids, table, w, out, n_bags, bag, cols, st);
-  return launch<V, 32>(ids, table, w, out, n_bags, bag, cols, st);
+    return launch<V, 16>(ids, table, w, out, n_bags, bag, cols, lo, n, st);
+  return launch<V, 32>(ids, table, w, out, n_bags, bag, cols, lo, n, st);
 }
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+}  // namespace
+
+namespace {
+
+// n_local < 0: the whole table, no window.
+int lookup(const void* ids, const void* table, const void* weights, void* out,
+           int64_t n_bags, int64_t bag, int64_t dim, int64_t row_lo,
+           int64_t n_local, void* stream) {
+  if (n_bags <= 0 || dim <= 0) return 0;
+  const auto* ip = static_cast<const int32_t*>(ids);
+  const auto* wp = static_cast<const float*>(weights);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dim % 4 == 0 && aligned16(table) && aligned16(out)) {
+    return static_cast<int>(dispatch<float4>(
+        ip, static_cast<const float4*>(table), wp, static_cast<float4*>(out),
+        n_bags, bag, dim / 4, row_lo, n_local, st));
+  }
+  return static_cast<int>(dispatch<float>(
+      ip, static_cast<const float*>(table), wp, static_cast<float*>(out),
+      n_bags, bag, dim, row_lo, n_local, st));
 }
 
 }  // namespace
@@ -141,16 +215,18 @@ extern "C" int embedding_bag_f32(const void* ids, const void* table,
                                  const void* weights, void* out,
                                  int64_t n_bags, int64_t bag, int64_t dim,
                                  void* stream) {
-  if (n_bags <= 0 || dim <= 0) return 0;
-  const auto* ip = static_cast<const int32_t*>(ids);
-  const auto* wp = static_cast<const float*>(weights);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dim % 4 == 0 && aligned16(table) && aligned16(out)) {
-    return static_cast<int>(dispatch<float4>(
-        ip, static_cast<const float4*>(table), wp, static_cast<float4*>(out),
-        n_bags, bag, dim / 4, st));
-  }
-  return static_cast<int>(dispatch<float>(
-      ip, static_cast<const float*>(table), wp, static_cast<float*>(out),
-      n_bags, bag, dim, st));
+  return lookup(ids, table, weights, out, n_bags, bag, dim, 0, -1, stream);
+}
+
+// embedding_bag_f32 over rows [row_lo, row_lo + n_local) of the whole table,
+// which `table` ([n_local, dim]) holds: an id outside them adds nothing.
+extern "C" int embedding_bag_window_f32(const void* ids, const void* table,
+                                        const void* weights, void* out,
+                                        int64_t n_bags, int64_t bag,
+                                        int64_t dim, int64_t row_lo,
+                                        int64_t n_local, void* stream) {
+  if (row_lo < 0 || n_local < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return lookup(ids, table, weights, out, n_bags, bag, dim, row_lo, n_local,
+                stream);
 }

@@ -52,8 +52,20 @@
 // Every row is written by exactly one warp and every sum is taken in an
 // order fixed by the sorted ids, the chunk length and these constants, so
 // two launches are bitwise equal. Nothing is added into grad_table with
-// atomics. ids must lie in [0, V); the wrapper does not check them on the
-// device.
+// atomics.
+//
+// Window. grad_table may be one rank's row shard [n_local, D] of the table's
+// gradient, rows [row_lo, row_lo + n_local) (the row-sharded layout P("model",
+// None)). An entry whose id lies outside the window writes nothing: the
+// pieces pass tests each staged id in its row loads (no grad_out row is read
+// for it) and at each flush (no row of grad_table is written for it), and the
+// join's owner tests the id of the segment it would write. There is no pass
+// of its own over the ids, and the sort and the chunk plan are those of the
+// whole call, so the sums of the rows inside the window run in the same
+// order as without one (embedding_bag_backward_window_f32). The whole table
+// is the window [0, V) (embedding_bag_backward_f32): every id passes, so the
+// tests are compiled out there (kWindow = false), as in the lookup, and the
+// kernel does what it did before it took a window, bit for bit.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -88,17 +100,28 @@ __device__ __forceinline__ float2 add2(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
 }
 
+// True when `id` lies in the window of n_local rows from row_lo (always,
+// without a window).
+template <bool kWindow>
+__device__ __forceinline__ bool in_window(int32_t id, int64_t row_lo,
+                                          int64_t n_local) {
+  return !kWindow || static_cast<uint64_t>(int64_t(id) - row_lo) <
+                         static_cast<uint64_t>(n_local);
+}
+
 // sid [n] sorted ids; perm [n] their flat positions in ids [n_bags, bag];
-// w [n_bags * bag] or null; gout [n_bags, dim]; grad [V, dim]; head, tail
-// [n_chunks, dim].
-template <int V>
+// w [n_bags * bag] or null; gout [n_bags, dim]; grad [n_local, dim], rows
+// [row_lo, row_lo + n_local) of the table's gradient (kWindow; else the
+// whole gradient, row_lo 0); head, tail [n_chunks, dim].
+template <int V, bool kWindow>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 backward_pieces(const int32_t* __restrict__ sid,
                 const int64_t* __restrict__ perm,
                 const float* __restrict__ w,
                 const float* __restrict__ gout, float* __restrict__ grad,
                 float* __restrict__ head, float* __restrict__ tail,
-                int64_t n, int64_t chunk, int64_t bag, int dim) {
+                int64_t n, int64_t chunk, int64_t bag, int dim,
+                int64_t row_lo, int64_t n_local) {
   __shared__ int32_t s_ids[kWarps][kTile + 1];
   __shared__ int64_t s_rows[kWarps][kTile];
   __shared__ float s_wts[kWarps][kTile];
@@ -135,8 +158,10 @@ backward_pieces(const int32_t* __restrict__ sid,
 #pragma unroll
         for (int u = 0; u < kDepth; ++u) {
           const int j = j0 + u;
-          g[u] = j < cnt && live ? load_cols<V>(gout + rows[j] + col)
-                                 : make_float2(0.0f, 0.0f);
+          g[u] = j < cnt && live &&
+                         in_window<kWindow>(ids[j], row_lo, n_local)
+                     ? load_cols<V>(gout + rows[j] + col)
+                     : make_float2(0.0f, 0.0f);
         }
       };
       auto add = [&](int j0, const float2 (&g)[kDepth]) {
@@ -153,10 +178,12 @@ backward_pieces(const int32_t* __restrict__ sid,
             dst = head + c * dim;                // continues a segment
           } else if (last_tile && j + 1 == cnt && open_end) {
             dst = tail + c * dim;                // opens one that runs on
+          } else if (in_window<kWindow>(id, row_lo, n_local)) {
+            dst = grad + (int64_t(id) - row_lo) * dim;  // a whole segment
           } else {
-            dst = grad + int64_t(id) * dim;      // a whole segment
+            dst = nullptr;                       // outside the window
           }
-          if (live) store_cols<V>(dst + col, acc);
+          if (live && dst) store_cols<V>(dst + col, acc);
           acc = make_float2(0.0f, 0.0f);
           first = false;
         }
@@ -183,12 +210,13 @@ __device__ __forceinline__ float2 tree_sum(float2 (&g)[kBatch]) {
   return g[0];
 }
 
-template <int V>
+template <int V, bool kWindow>
 __global__ void __launch_bounds__(kWarps * 32)
 backward_join(const int32_t* __restrict__ sid,
               const float* __restrict__ head,
               const float* __restrict__ tail, float* __restrict__ grad,
-              int64_t n, int64_t chunk, int dim) {
+              int64_t n, int64_t chunk, int dim, int64_t row_lo,
+              int64_t n_local) {
   const int lane = threadIdx.x & 31;
   const int64_t c0 = int64_t(blockIdx.x) * kWarps + threadIdx.x / 32;
   const int64_t lo = c0 * chunk;
@@ -197,6 +225,7 @@ backward_join(const int32_t* __restrict__ sid,
   const int32_t id = __ldg(sid + hi - 1);
   // owner: the chunk whose last piece opens a segment that runs on
   if (__ldg(sid + hi) != id || (lo > 0 && __ldg(sid + lo - 1) == id)) return;
+  if (!in_window<kWindow>(id, row_lo, n_local)) return;  // another window
   // c1: the first chunk after c0 in which the segment ends; a round tests
   // 32 * kScan chunk ends, their reads in flight together
   int64_t c1 = -1;
@@ -236,48 +265,32 @@ backward_join(const int32_t* __restrict__ sid,
       load(k + 2 * kBatch, ga);
       if (k + kBatch < parts) sum = add2(sum, tree_sum(gb));
     }
-    store_cols<V>(grad + int64_t(id) * dim + col, sum);
+    store_cols<V>(grad + (int64_t(id) - row_lo) * dim + col, sum);
   }
 }
 
-template <int V>
+template <int V, bool kWindow>
 int launch(const int32_t* sid, const int64_t* perm, const float* w,
            const float* gout, float* grad, float* head, float* tail,
-           int64_t n, int64_t chunk, int64_t bag, int dim, cudaStream_t st) {
+           int64_t n, int64_t chunk, int64_t bag, int dim, int64_t row_lo,
+           int64_t n_local, cudaStream_t st) {
   const int64_t n_chunks = (n + chunk - 1) / chunk;
   const auto blocks = static_cast<unsigned>((n_chunks + kWarps - 1) / kWarps);
-  backward_pieces<V><<<blocks, kWarps * 32, 0, st>>>(
-      sid, perm, w, gout, grad, head, tail, n, chunk, bag, dim);
+  backward_pieces<V, kWindow><<<blocks, kWarps * 32, 0, st>>>(
+      sid, perm, w, gout, grad, head, tail, n, chunk, bag, dim, row_lo,
+      n_local);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  backward_join<V><<<blocks, kWarps * 32, 0, st>>>(sid, head, tail, grad, n,
-                                                   chunk, dim);
+  backward_join<V, kWindow><<<blocks, kWarps * 32, 0, st>>>(
+      sid, head, tail, grad, n, chunk, dim, row_lo, n_local);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Resident blocks of kWarps warps per SM that the pieces pass reaches on
-// this device (ops.py's CHUNKS assumes kMinBlocks on an H100), or -1.
-extern "C" int embedding_bag_backward_blocks_per_sm() {
-  int blocks = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, backward_pieces<2>, kWarps * 32, 0) != cudaSuccess)
-    return -1;
-  return blocks;
-}
-
-// sorted_ids [n] int32 (stably sorted flat ids), perm [n] int64 (their
-// positions in the flat [n_bags * bag] ids), weights [n_bags * bag] f32 or
-// null, grad_out [n_bags, dim] f32, grad_table [V, dim] f32 (zero-filled;
-// only the touched rows are written), head and tail scratch of
-// ceil(n / chunk) * dim floats each. All contiguous on the current device;
-// chunk >= 1 entries per warp (backward_plan). Launches both passes on
-// `stream` and returns cudaGetLastError() after each (0 = cudaSuccess).
-extern "C" int embedding_bag_backward_f32(
-    const void* sorted_ids, const void* perm, const void* weights,
-    const void* grad_out, void* grad_table, void* head, void* tail, int64_t n,
-    int64_t chunk, int64_t bag, int64_t dim, void* stream) {
+// n_local < 0: the whole gradient, no window.
+int backward(const void* sorted_ids, const void* perm, const void* weights,
+             const void* grad_out, void* grad_table, void* head, void* tail,
+             int64_t n, int64_t chunk, int64_t bag, int64_t dim,
+             int64_t row_lo, int64_t n_local, void* stream) {
   if (n <= 0 || dim <= 0) return 0;
   if (chunk <= 0 || dim > INT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -294,6 +307,55 @@ extern "C" int embedding_bag_backward_f32(
        reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(t)) %
           8 == 0;
   const int d = static_cast<int>(dim);
-  return pairs ? launch<2>(sid, p, w, g, out, h, t, n, chunk, bag, d, st)
-               : launch<1>(sid, p, w, g, out, h, t, n, chunk, bag, d, st);
+  if (n_local < 0) {
+    return pairs ? launch<2, false>(sid, p, w, g, out, h, t, n, chunk, bag,
+                                    d, 0, 0, st)
+                 : launch<1, false>(sid, p, w, g, out, h, t, n, chunk, bag,
+                                    d, 0, 0, st);
+  }
+  return pairs ? launch<2, true>(sid, p, w, g, out, h, t, n, chunk, bag, d,
+                                 row_lo, n_local, st)
+               : launch<1, true>(sid, p, w, g, out, h, t, n, chunk, bag, d,
+                                 row_lo, n_local, st);
+}
+
+}  // namespace
+
+// Resident blocks of kWarps warps per SM that the pieces pass reaches on
+// this device (ops.py's CHUNKS assumes kMinBlocks on an H100), or -1.
+extern "C" int embedding_bag_backward_blocks_per_sm() {
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, backward_pieces<2, false>, kWarps * 32, 0) != cudaSuccess)
+    return -1;
+  return blocks;
+}
+
+// sorted_ids [n] int32 (stably sorted flat ids), perm [n] int64 (their
+// positions in the flat [n_bags * bag] ids), weights [n_bags * bag] f32 or
+// null, grad_out [n_bags, dim] f32, grad_table [V, dim] f32 (zero-filled;
+// only the touched rows are written), head and tail scratch of
+// ceil(n / chunk) * dim floats each. All contiguous on the current device;
+// chunk >= 1 entries per warp (backward_plan). Launches both passes on
+// `stream` and returns cudaGetLastError() after each (0 = cudaSuccess).
+extern "C" int embedding_bag_backward_f32(
+    const void* sorted_ids, const void* perm, const void* weights,
+    const void* grad_out, void* grad_table, void* head, void* tail, int64_t n,
+    int64_t chunk, int64_t bag, int64_t dim, void* stream) {
+  return backward(sorted_ids, perm, weights, grad_out, grad_table, head, tail,
+                  n, chunk, bag, dim, 0, -1, stream);
+}
+
+// embedding_bag_backward_f32 into rows [row_lo, row_lo + n_local) of the
+// table's gradient, which grad_table ([n_local, dim], zero-filled) holds:
+// an id outside them writes nothing.
+extern "C" int embedding_bag_backward_window_f32(
+    const void* sorted_ids, const void* perm, const void* weights,
+    const void* grad_out, void* grad_table, void* head, void* tail, int64_t n,
+    int64_t chunk, int64_t bag, int64_t dim, int64_t row_lo, int64_t n_local,
+    void* stream) {
+  if (row_lo < 0 || n_local < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return backward(sorted_ids, perm, weights, grad_out, grad_table, head, tail,
+                  n, chunk, bag, dim, row_lo, n_local, stream);
 }

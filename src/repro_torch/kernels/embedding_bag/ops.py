@@ -13,6 +13,23 @@ reads and the one write of each output row, the backward by the read of
 the output gradient and the one write of each touched row. Each has its
 own launch counter and reports its FLOPs and those bytes to
 `kernels.cost` while a collector is open.
+
+Window variants. Under the row-sharded layout P("model", None) a rank
+holds rows [row_lo, row_lo + n_local) of the table. `embedding_bag_window`
+and `embedding_bag_backward_window` take that shard: an id outside the
+window adds nothing to the lookup and writes nothing in the backward
+(the test is in each kernel's inner loop; `ref.py` has their plain
+versions). They launch the same two kernels, instantiated with the test
+(`embedding_bag_window_f32`, `embedding_bag_backward_window_f32`), and
+count on counters of their own (`window_launches`,
+`window_backward_launches`). The whole-table entry points are the window
+[0, V), which every id passes: there the kernels are instantiated
+without the test, as before they took a window (the same bits).
+
+On meta tensors (the dry-run) nothing is launched or counted: the
+wrappers return meta outputs and report the cost the kernel would have,
+assuming every id distinct (and, for a window with `n_rows_total` given,
+the window's share of them).
 """
 from __future__ import annotations
 
@@ -21,11 +38,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build, cost
-from repro_torch.kernels.embedding_bag.ref import (embedding_bag_backward_ref,
-                                                   embedding_bag_ref)
+from repro_torch.kernels.embedding_bag.ref import (
+    embedding_bag_backward_ref, embedding_bag_backward_window_ref,
+    embedding_bag_ref, embedding_bag_window_ref)
 
-__all__ = ["embedding_bag", "embedding_bag_backward", "backward_plan",
-           "launches", "backward_launches", "reset_launches"]
+__all__ = ["embedding_bag", "embedding_bag_backward", "embedding_bag_window",
+           "embedding_bag_backward_window", "backward_plan", "launches",
+           "backward_launches", "window_launches",
+           "window_backward_launches", "reset_launches"]
 
 # The backward kernel's chunk plan (csrc/embedding_bag_backward.cu): one
 # warp per chunk of sorted entries, each chunk at least TILE entries (the
@@ -35,38 +55,53 @@ __all__ = ["embedding_bag", "embedding_bag_backward", "backward_plan",
 TILE = 256
 CHUNKS = 132 * 4 * 8
 
-_LAUNCHES = 0
-_BWD_LAUNCHES = 0
-_FN = None
-_BWD_FN = None
+# launches since the last reset_launches(), by (kernel, entry point)
+_COUNTS = {"lookup": 0, "backward": 0, "lookup_window": 0,
+           "backward_window": 0}
+_FNS: dict = {}       # (library, window) -> the bound C function
 
 
 def launches() -> int:
-    """Lookup kernel launches since the last `reset_launches()`."""
-    return _LAUNCHES
+    """Lookup kernel launches of the whole-table entry point since the last
+    `reset_launches()`."""
+    return _COUNTS["lookup"]
 
 
 def backward_launches() -> int:
-    """Backward kernel launches since the last `reset_launches()` (one per
-    call: its two passes count once)."""
-    return _BWD_LAUNCHES
+    """Backward kernel launches of the whole-table entry point since the
+    last `reset_launches()` (one per call: its two passes count once)."""
+    return _COUNTS["backward"]
+
+
+def window_launches() -> int:
+    """Lookup kernel launches of `embedding_bag_window`."""
+    return _COUNTS["lookup_window"]
+
+
+def window_backward_launches() -> int:
+    """Backward kernel launches of `embedding_bag_backward_window` (and of
+    the window lookup's autograd backward)."""
+    return _COUNTS["backward_window"]
 
 
 def reset_launches() -> None:
-    """Set both counters to 0."""
-    global _LAUNCHES, _BWD_LAUNCHES
-    _LAUNCHES = _BWD_LAUNCHES = 0
+    """Set every counter to 0."""
+    for k in _COUNTS:
+        _COUNTS[k] = 0
 
 
-def _kernel_fn():
-    global _FN
-    if _FN is None:
-        fn = _build.library("embedding_bag").embedding_bag_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64] * 3 + \
-            [ctypes.c_void_p]
+def _c_function(lib: str, window: bool, n_ptrs: int, n_ints: int):
+    """The C entry point of library `lib` (its window variant, which takes
+    row_lo and n_local after the other integers), bound once."""
+    key = (lib, window)
+    if key not in _FNS:
+        fn = getattr(_build.library(lib),
+                     lib + ("_window_f32" if window else "_f32"))
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] * (
+            n_ints + (2 if window else 0)) + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[key] = fn
+    return _FNS[key]
 
 
 def _check(ids: torch.Tensor, table: torch.Tensor,
@@ -102,58 +137,76 @@ def _check(ids: torch.Tensor, table: torch.Tensor,
 
 
 def _launch(ids: torch.Tensor, table: torch.Tensor,
-            weights: torch.Tensor | None) -> torch.Tensor:
-    global _LAUNCHES
+            weights: torch.Tensor | None,
+            row_lo: int | None = None) -> torch.Tensor:
+    """The lookup kernel over the whole table, or (row_lo given) over rows
+    [row_lo, row_lo + len(table)) of it, which `table` holds."""
     _check(ids, table, weights)
     n_bags, bag = ids.shape
     out = torch.empty((n_bags, table.shape[1]), dtype=torch.float32,
                       device=table.device)
     if out.numel() == 0:
         return out
-    fn = _kernel_fn()
+    window = row_lo is not None
+    fn = _c_function("embedding_bag", window, 4, 3)
+    rows = (row_lo, table.shape[0]) if window else ()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = fn(ids.data_ptr(), table.data_ptr(),
                  None if weights is None else weights.data_ptr(),
-                 out.data_ptr(), n_bags, bag, table.shape[1], stream)
+                 out.data_ptr(), n_bags, bag, table.shape[1], *rows, stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag: kernel launch failed with CUDA "
                            f"error {err}")
-    _LAUNCHES += 1
+    _COUNTS["lookup_window" if window else "lookup"] += 1
     if cost.active():
-        cost.report("embedding_bag", lambda: _lookup_cost(ids, out))
+        cost.report("embedding_bag", lambda: _lookup_cost(
+            ids, out, row_lo or 0, table.shape[0] if window else None))
     return out
+
+
+def _in_window(ids: torch.Tensor, row_lo: int, n_local: int):
+    return ids[(ids >= row_lo) & (ids < row_lo + n_local)]
 
 
 def _distinct(ids: torch.Tensor) -> int:
     return int(torch.unique(ids).numel())
 
 
-def _lookup_cost(ids: torch.Tensor, out: torch.Tensor) -> tuple[int, int]:
+def _lookup_cost(ids: torch.Tensor, out: torch.Tensor, row_lo: int = 0,
+                 n_local: int | None = None) -> tuple[int, int]:
     """(flops, bytes) of one lookup: 2 per id and column; each distinct
-    row read once, the ids read and the output written once."""
+    row of the window read once, the ids read and the output written
+    once."""
     dim = out.shape[1]
-    return (2 * ids.numel() * dim,
-            4 * _distinct(ids) * dim + 4 * (out.numel() + ids.numel()))
+    inside = ids if n_local is None else _in_window(ids, row_lo, n_local)
+    return (2 * inside.numel() * dim,
+            4 * _distinct(inside) * dim + 4 * (out.numel() + ids.numel()))
 
 
-def _backward_cost(ids: torch.Tensor, dim: int) -> tuple[int, int]:
-    """(flops, bytes) of one backward: 2 per id and column; grad_out and
-    the ids read once, each touched row written once."""
-    n = ids.numel()
-    return 2 * n * dim, 4 * n * dim + 4 * n + 4 * _distinct(ids) * dim
+def _backward_cost(ids: torch.Tensor, dim: int, row_lo: int = 0,
+                   n_local: int | None = None) -> tuple[int, int]:
+    """(flops, bytes) of one backward: 2 per id and column of the window;
+    the ids read once, the grad_out rows of the window's ids read once,
+    each touched row of the window written once."""
+    inside = ids if n_local is None else _in_window(ids, row_lo, n_local)
+    n = inside.numel()
+    return 2 * n * dim, 4 * n * dim + 4 * ids.numel() + \
+        4 * _distinct(inside) * dim
 
 
-def _bwd_fn():
-    global _BWD_FN
-    if _BWD_FN is None:
-        lib = _build.library("embedding_bag_backward")
-        fn = lib.embedding_bag_backward_f32
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64] * 4 + \
-            [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _BWD_FN = fn
-    return _BWD_FN
+def _meta_cost(name: str, n_ids: int, dim: int, out_rows: int,
+               share: float) -> None:
+    """Report a meta call's cost: every id distinct, `share` of them in
+    the window."""
+    inside = int(round(n_ids * share))
+    if name == "embedding_bag":
+        cost.report(name, lambda: (2 * inside * dim,
+                                   4 * inside * dim
+                                   + 4 * (out_rows * dim + n_ids)))
+    else:
+        cost.report(name, lambda: (2 * inside * dim,
+                                   8 * inside * dim + 4 * n_ids))
 
 
 def backward_plan(n: int) -> tuple[int, int]:
@@ -166,11 +219,12 @@ def backward_plan(n: int) -> tuple[int, int]:
 
 
 def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
-                     grad: torch.Tensor,
-                     weights: torch.Tensor | None) -> torch.Tensor:
-    """Write every row of grad [V, D] that `ids` touch (the other rows are
-    left as they are: the caller zero-fills them) and return grad."""
-    global _BWD_LAUNCHES
+                     grad: torch.Tensor, weights: torch.Tensor | None,
+                     row_lo: int | None = None) -> torch.Tensor:
+    """Write every row of grad [V, D] (or, row_lo given, of grad [n_local,
+    D], rows [row_lo, row_lo + n_local) of the table's gradient) that
+    `ids` touch (the other rows are left as they are: the caller
+    zero-fills them) and return grad."""
     _check(ids, grad, weights)
     if grad_out.dtype != torch.float32 or grad_out.device != grad.device \
             or not grad_out.is_contiguous() or \
@@ -182,7 +236,8 @@ def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
     n, dim = ids.numel(), grad.shape[1]
     if n == 0 or dim == 0:
         return grad
-    fn = _bwd_fn()
+    window = row_lo is not None
+    fn = _c_function("embedding_bag_backward", window, 7, 4)
     # index preparation: the entries of one id, in position order
     sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
     chunk, n_chunks = backward_plan(n)
@@ -194,19 +249,52 @@ def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
         err = fn(sorted_ids.data_ptr(), perm.data_ptr(),
                  None if weights is None else weights.data_ptr(),
                  grad_out.data_ptr(), grad.data_ptr(), head.data_ptr(),
-                 tail.data_ptr(), n, chunk, ids.shape[1], dim, stream)
+                 tail.data_ptr(), n, chunk, ids.shape[1], dim,
+                 *((row_lo, grad.shape[0]) if window else ()), stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag backward: kernel launch failed "
                            f"with CUDA error {err}")
-    _BWD_LAUNCHES += 1
+    _COUNTS["backward_window" if window else "backward"] += 1
     if cost.active():
+        n_local = grad.shape[0] if window else None
         cost.report("embedding_bag_backward",
-                    lambda: _backward_cost(ids, dim))
+                    lambda: _backward_cost(ids, dim, row_lo or 0, n_local))
     return grad
 
 
 def _on_cpu(*ts) -> bool:
     return all(t is None or t.device.type == "cpu" for t in ts)
+
+
+def _on_meta(*ts) -> bool:
+    return all(t is None or t.device.type == "meta" for t in ts)
+
+
+def _backward(ids, grad_out, n_rows, weights, row_lo, share):
+    """The table gradient into [n_rows, D]: the whole table (row_lo None)
+    or rows [row_lo, row_lo + n_rows) of it."""
+    ids = ids.to(torch.int32)
+    if weights is not None:
+        weights = weights.to(torch.float32)
+    if _on_meta(ids, grad_out, weights):
+        if cost.active():
+            _meta_cost("embedding_bag_backward", ids.numel(),
+                       grad_out.shape[1], n_rows, share)
+        return torch.zeros((n_rows, grad_out.shape[1]), dtype=torch.float32,
+                           device="meta")
+    if grad_out.device.type == "cuda":
+        grad = torch.zeros((n_rows, grad_out.shape[1]), dtype=torch.float32,
+                           device=grad_out.device)
+        return _launch_backward(ids.contiguous(), grad_out.contiguous(),
+                                grad, weights, row_lo)
+    if _on_cpu(ids, grad_out, weights):
+        if row_lo is None:
+            return embedding_bag_backward_ref(
+                ids, grad_out.to(torch.float32), n_rows, weights)
+        return embedding_bag_backward_window_ref(
+            ids, grad_out.to(torch.float32), row_lo, n_rows, weights)
+    raise ValueError(f"embedding_bag backward: tensors on {ids.device}, "
+                     f"{grad_out.device}")
 
 
 def embedding_bag_backward(ids: torch.Tensor, grad_out: torch.Tensor,
@@ -218,31 +306,47 @@ def embedding_bag_backward(ids: torch.Tensor, grad_out: torch.Tensor,
     duplicates within and across bags accumulate). On CPU tensors the
     plain `index_add_`; on CUDA tensors the sorted-segment kernel, whose
     sums run in a fixed order (deterministic)."""
-    ids = ids.to(torch.int32)
-    if weights is not None:
-        weights = weights.to(torch.float32)
-    if grad_out.device.type == "cuda":
-        grad = torch.zeros((n_rows, grad_out.shape[1]), dtype=torch.float32,
-                           device=grad_out.device)
-        return _launch_backward(ids.contiguous(), grad_out.contiguous(),
-                                grad, weights)
-    if _on_cpu(ids, grad_out, weights):
-        return embedding_bag_backward_ref(ids, grad_out.to(torch.float32),
-                                          n_rows, weights)
-    raise ValueError(f"embedding_bag backward: tensors on {ids.device}, "
-                     f"{grad_out.device}")
+    return _backward(ids, grad_out, n_rows, weights, None, 1.0)
+
+
+def embedding_bag_backward_window(ids: torch.Tensor, grad_out: torch.Tensor,
+                                  row_lo: int, n_local: int,
+                                  weights: torch.Tensor | None = None,
+                                  n_rows_total: int | None = None
+                                  ) -> torch.Tensor:
+    """`embedding_bag_backward` into rows [row_lo, row_lo + n_local) of the
+    table's gradient only: a dense float32 [n_local, D] where an id
+    outside the window writes nothing. On CPU tensors the plain version
+    (`ref.embedding_bag_backward_window_ref`), on CUDA tensors the
+    backward kernel with that window; `n_rows_total` serves only a meta
+    call's cost estimate."""
+    share = n_local / n_rows_total if n_rows_total else 1.0
+    return _backward(ids, grad_out, int(n_local), weights, int(row_lo),
+                     share)
 
 
 class _EmbeddingBag(torch.autograd.Function):
-    """Forward: the lookup; backward: its table gradient (the backward
-    kernel on the card) and, when asked for, the weights' gradient
-    table[ids[b, l]] . grad_out[b] in torch ops (DLRM never asks)."""
+    """Forward: the lookup over the window [row_lo, row_lo + len(table))
+    (the whole table: row_lo None); backward: its table gradient (the
+    backward kernel on the card) and, when asked for, the weights'
+    gradient table[ids[b, l]] . grad_out[b] in torch ops (DLRM never
+    asks; whole tables only)."""
 
     @staticmethod
-    def forward(ctx, ids, table, weights):
+    def forward(ctx, ids, table, weights, row_lo, share):
         ctx.save_for_backward(ids, table, weights)
+        ctx.row_lo, ctx.share = row_lo, share
+        if table.device.type == "meta":
+            if cost.active():
+                _meta_cost("embedding_bag", ids.numel(), table.shape[1],
+                           ids.shape[0], share)
+            return torch.empty((ids.shape[0], table.shape[1]),
+                               dtype=torch.float32, device="meta")
         if table.device.type == "cuda":
-            return _launch(ids, table, weights)
+            return _launch(ids, table, weights, row_lo)
+        if row_lo is not None:
+            return embedding_bag_window_ref(ids, table.to(torch.float32),
+                                            row_lo, weights)
         return embedding_bag_ref(ids, table.to(torch.float32), weights)
 
     @staticmethod
@@ -250,13 +354,25 @@ class _EmbeddingBag(torch.autograd.Function):
         ids, table, weights = ctx.saved_tensors
         g_table = g_weights = None
         if ctx.needs_input_grad[1]:
-            g_table = embedding_bag_backward(ids, g, table.shape[0],
-                                             weights).to(table.dtype)
+            g_table = _backward(ids, g, table.shape[0], weights,
+                                ctx.row_lo, ctx.share).to(table.dtype)
         if ctx.needs_input_grad[2]:
             rows = table.index_select(0, ids.reshape(-1).long()).reshape(
                 *ids.shape, -1).to(g.dtype)
             g_weights = (rows * g[:, None, :]).sum(-1)
-        return None, g_table, g_weights
+        return None, g_table, g_weights, None, None
+
+
+def _apply(ids, table, weights, row_lo, share):
+    ids = ids.to(torch.int32)
+    if weights is not None:
+        weights = weights.to(torch.float32)
+    if table.device.type == "cuda" or _on_cpu(ids, table, weights) or \
+            _on_meta(ids, table, weights):
+        return _EmbeddingBag.apply(ids, table, weights, row_lo, share)
+    raise ValueError(f"embedding_bag: tensors on {ids.device}, "
+                     f"{table.device}"
+                     + ("" if weights is None else f", {weights.device}"))
 
 
 def embedding_bag(ids: torch.Tensor, table: torch.Tensor,
@@ -267,17 +383,30 @@ def embedding_bag(ids: torch.Tensor, table: torch.Tensor,
     ids [B, L] are cast to int32 and weights [B, L] to float32, as the
     reference wrapper does; weights default to ones (the plain multi-hot
     sum, the DLRM case). Duplicate ids accumulate. ids must lie in [0, V):
-    the CUDA path does not check them (that would cost a host sync).
+    the whole-table kernel does not check them (that would cost a host
+    sync), and one outside reads memory past the table. Only
+    `embedding_bag_window` skips ids outside its window.
 
     On CPU tensors this is the plain version; on CUDA tensors the CUDA
     kernel (table float32 [V, D], all inputs contiguous), which reads unit
     weights without materializing them. The gradient w.r.t. the table is
     dense, as `jnp.take`'s is in the reference: `embedding_bag_backward`."""
-    ids = ids.to(torch.int32)
-    if weights is not None:
-        weights = weights.to(torch.float32)
-    if table.device.type == "cuda" or _on_cpu(ids, table, weights):
-        return _EmbeddingBag.apply(ids, table, weights)
-    raise ValueError(f"embedding_bag: tensors on {ids.device}, "
-                     f"{table.device}"
-                     + ("" if weights is None else f", {weights.device}"))
+    return _apply(ids, table, weights, None, 1.0)
+
+
+def embedding_bag_window(ids: torch.Tensor, table: torch.Tensor,
+                         row_lo: int, weights: torch.Tensor | None = None,
+                         n_rows_total: int | None = None) -> torch.Tensor:
+    """`embedding_bag` over one rank's row shard: `table` [n_local, D]
+    holds rows [row_lo, row_lo + n_local) of the whole table, and an id
+    outside them adds nothing (a bag of such ids gives 0). Summed over the
+    ranks of the shard axis, the outputs are the whole table's lookup.
+    Differentiable in table, whose gradient is the window backward
+    (`embedding_bag_backward_window`); not in weights. On CPU tensors the
+    plain version (`ref.embedding_bag_window_ref`), on CUDA tensors the
+    lookup kernel with that window; `n_rows_total` serves only a meta
+    call's cost estimate."""
+    if weights is not None and weights.requires_grad:
+        raise ValueError("embedding_bag_window: weights take no gradient")
+    share = table.shape[0] / n_rows_total if n_rows_total else 1.0
+    return _apply(ids, table, weights, int(row_lo), share)

@@ -20,7 +20,14 @@ step once under counters (`count_step`):
               counter sees: each reports its own FLOPs and bytes
               (`kernels.cost`), from the byte count of its bound;
   collectives `core.distributed.collective_counts()`, mapped onto the
-              reference's five kinds and their `n_*` counts.
+              reference's five kinds and their `n_*` counts, and by
+              mesh axis (`collective_bytes_by_axis`);
+  memory      with `track_memory`, the peak of the bytes the step's own
+              allocations hold at once (`OpCounter.peak_bytes`): each
+              storage an op creates counts from that op until the last
+              tensor on it is freed (a weakref finalizer per tensor), so
+              a step on meta tensors, which allocates nothing, still has
+              the temp_bytes the reference reads from XLA.
 
 The roofline divides by the card's rates (`launch/mesh.py`): FLOPs over
 the peak of the plan's compute dtype (bf16 tensor cores, or FP32 CUDA
@@ -30,6 +37,7 @@ bandwidth. Every term is per device, as the reference's are.
 from __future__ import annotations
 
 import contextlib
+import weakref
 from dataclasses import asdict, dataclass
 
 import torch
@@ -42,8 +50,8 @@ from repro_torch.kernels import cost as kernel_cost
 from repro_torch.launch.mesh import HBM_BW, NVLINK_BW, PEAK_FLOPS_BF16, \
     PEAK_FLOPS_F32
 
-__all__ = ["COLLECTIVES", "collective_bytes", "OpCounter", "count_step",
-           "Roofline", "roofline_terms"]
+__all__ = ["COLLECTIVES", "collective_bytes", "collective_bytes_by_axis",
+           "OpCounter", "count_step", "Roofline", "roofline_terms"]
 
 COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
                "collective-permute")
@@ -62,6 +70,17 @@ def collective_bytes(counts: dict) -> dict:
         out[kind] += int(v["bytes"])
         n[kind] += int(v["calls"])
     return {**out, **{f"n_{k}": v for k, v in n.items()}}
+
+
+def collective_bytes_by_axis(counts: dict) -> dict:
+    """{axis: {kind: bytes}} per device from `collective_counts()` (the
+    key's last field is the mesh axis or group the trip ran over)."""
+    out: dict = {}
+    for key, v in counts.items():
+        _, _, op, axis = key.split("/")
+        per = out.setdefault(axis, {})
+        per[_KIND[op]] = per.get(_KIND[op], 0) + int(v["bytes"])
+    return out
 
 
 # ---------------------------------------------------------------- counters --
@@ -128,11 +147,16 @@ class OpCounter(TorchDispatchMode):
     module docstring). `paused` stops the count (for the accounting's own
     ops)."""
 
-    def __init__(self):
+    def __init__(self, track_memory: bool = False):
         super().__init__()
         self.flops = 0
         self.bytes = 0
         self.paused = False
+        self.track_memory = track_memory
+        self.live_bytes = 0         # storages made inside, still held
+        self.peak_bytes = 0
+        self._storages: dict = {}   # storage key -> [bytes, tensors on it]
+        self._before: set = set()   # storage keys of the arguments
 
     @contextlib.contextmanager
     def pause(self):
@@ -156,7 +180,46 @@ class OpCounter(TorchDispatchMode):
         out = func(*args, **kwargs)
         if not self.paused and func.namespace == "aten":
             self._count(func, args, kwargs, out)
+        if self.track_memory:
+            self._hold(_tensors(out))
         return out
+
+    def _hold(self, outs) -> None:
+        """Count each output's storage from its first tensor until its
+        last tensor is freed (views and in-place results join the storage
+        they share; storages made before the block are not counted)."""
+        for t in outs:
+            try:
+                st = t.untyped_storage()
+            except (NotImplementedError, RuntimeError):
+                continue
+            key = st._cdata
+            if key in self._before:
+                continue
+            rec = self._storages.get(key)
+            if rec is None:
+                rec = self._storages[key] = [st.nbytes(), 0]
+                self.live_bytes += rec[0]
+                self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            rec[1] += 1
+            weakref.finalize(t, self._release, key)
+
+    def _release(self, key) -> None:
+        rec = self._storages.get(key)
+        if rec is None:
+            return
+        rec[1] -= 1
+        if rec[1] == 0:
+            self.live_bytes -= rec[0]
+            del self._storages[key]
+
+    def exclude(self, tree) -> None:
+        """Leave the storages of `tree`'s tensors (the step's arguments)
+        out of the count: an in-place op on them allocates nothing."""
+        from torch.utils import _pytree as pytree
+        self._before |= {t.untyped_storage()._cdata
+                         for t in pytree.tree_leaves(tree)
+                         if isinstance(t, torch.Tensor)}
 
     def _count(self, func, args, kwargs, out) -> None:
         name = _base_name(func)
@@ -219,12 +282,16 @@ def _accumulates(args, kwargs) -> bool:
                            else False))
 
 
-def count_step(fn, *args) -> tuple:
+def count_step(fn, *args, memory: dict | None = None) -> tuple:
     """Run fn(*args) once under the counters. Returns (fn's output,
     {"flops", "bytes accessed"} per device with the kernels' reports
     added, the collectives as `collective_bytes` gives them, {kernel:
-    {"launches", "flops", "bytes"}})."""
-    counter = OpCounter()
+    {"launches", "flops", "bytes"}}). With `memory` (a dict), the step's
+    allocations are tracked too: memory["peak_bytes"] is the most they
+    held at once, memory["by_axis"] the collective bytes per mesh axis."""
+    counter = OpCounter(track_memory=memory is not None)
+    if memory is not None:
+        counter.exclude(args)
     kernels: dict = {}
 
     def sink(name, cost_fn):
@@ -240,6 +307,9 @@ def count_step(fn, *args) -> tuple:
     with kernel_cost.collecting(sink), counter:
         out = fn(*args)
     coll = collective_bytes(collective_counts())
+    if memory is not None:
+        memory["peak_bytes"] = counter.peak_bytes
+        memory["by_axis"] = collective_bytes_by_axis(collective_counts())
     cost = {"flops": float(counter.flops + sum(k["flops"]
                                                for k in kernels.values())),
             "bytes accessed": float(counter.bytes + sum(

@@ -2,20 +2,42 @@
 `repro.launch.dryrun`): memory, FLOPs, bytes, collectives and the roofline
 of one step, one JSON record per cell.
 
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh production \\
+        --arch dlrm-rm2 --shape train_batch
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh card \\
         --arch pna --shape molecule
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh card --all \\
         --out dryrun.jsonl
 
 The flags are the reference's (`--arch --shape --all --multi-pod
---both-meshes --out --skip-done`) plus `--mesh` and `--device`:
+--both-meshes --out --skip-done`) plus `--mesh` and `--device` (card
+only):
 
-  production  (default) the reference's (16, 16) or (2, 16, 16) mesh. The
-              port's models run no tensor or FSDP parallelism, so a cell
-              is recorded as skipped, its reason naming the mesh it needs
-              and this world's size; the record still carries the
-              per-device argument bytes of the plan's specs
-              (`distributed.sharding.shard_shape`).
+  production  (default) the reference's (16, 16) or (2, 16, 16) mesh, on
+              a fake world of 256 or 512 ranks in this one process
+              (`launch.mesh.make_production_mesh(fake=True)`), as the
+              reference compiles for 512 placeholder devices: rank 0's
+              program runs once on meta tensors, allocating nothing. Its
+              arguments are rank 0's pieces of the plan's under its
+              specs (`sharding.shard_tree`; their bytes are
+              `per_device_bytes`), the models run sharded
+              (`use_mesh(mesh, sharded=True)`), and the step is counted
+              by `launch/analysis.py` with its allocations tracked: the
+              record's memory (argument, stated and counted output, peak
+              temp, alias bytes, and whether arguments, outputs and the
+              peak fit the card's 85,017,493,504 bytes), cost,
+              collectives by kind and by mesh axis, and the roofline at
+              256 or 512 chips with the H100's rates. As the reference,
+              a plan whose cost model names more than two layers or one
+              microbatch takes its FLOPs, bytes and collectives from
+              counted steps of its reduced probes (`_probe_counts`), and
+              its peak temp bytes from a fit linear in the layers, which
+              the record marks as estimated; where the sharded step would
+              run fewer microbatches than the model names
+              (`_probes_hold`), the whole step is counted. The LM and
+              DLRM-RM2 cells run; the GNN and cpaa cells keep a skip
+              naming the slice they wait for, as the cells' own skip
+              reasons stay.
   card        the (1, 1) ("data", "model") mesh of one rank: build the
               plan on meta tensors; skip the cell, naming both byte
               counts, when its arguments, the outputs the plan states
@@ -34,8 +56,8 @@ in the counted step). `memory.peak_per_device` is the peak allocated
 over the timed steps, `temp_bytes` the peak less the arguments,
 `alias_bytes` the donated arguments'. An out-of-memory or any other
 exception records `"status": "error"` and makes the exit code 1, as in
-the reference; it is never a skip. The plans' `cost_model` is not used:
-a counted eager run sees every trip of every loop.
+the reference; it is never a skip. On the card the plans' `cost_model`
+is not used: a counted eager run sees every trip of every loop.
 """
 from __future__ import annotations
 
@@ -54,15 +76,26 @@ from torch.utils import _pytree as pytree
 from repro_torch.configs.registry import all_cells, get
 from repro_torch.core import distributed as dist
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import P, shard_shape, use_mesh
+from repro_torch.distributed.sharding import P, shard_shape, shard_tree, \
+    use_mesh
 from repro_torch.launch.analysis import count_step, roofline_terms
-from repro_torch.launch.mesh import PRODUCTION_SHAPES, production_ranks
+from repro_torch.launch.mesh import CARD_BYTES, PRODUCTION_SHAPES, \
+    make_production_mesh, production_ranks
 
-__all__ = ["MESHES", "plan_cell", "run_cell", "run_plan", "card_name",
-           "per_device_bytes", "main"]
+__all__ = ["MESHES", "plan_cell", "run_cell", "run_plan", "run_production",
+           "card_name", "per_device_bytes", "main"]
 
 MESHES = ("production", "card")
 TIMED_STEPS = 3
+# families whose production cells wait for a later slice, and why
+WAITING = {
+    "gnn": ("the production mesh's GNN cells wait for the next slice of "
+            "the port: gnn_batch_specs shards node and edge arrays over "
+            "every rank, so message passing needs partitioned gathers"),
+    "pagerank": ("the production mesh's cpaa cells wait for the next "
+                 "slice of the port: step_builder(mesh) over the sharded "
+                 "engines on the fake world"),
+}
 
 
 def card_name(dev: torch.device) -> str:
@@ -126,13 +159,9 @@ def plan_cell(arch: str, shape: str, multi_pod: bool = False,
               mesh: str = "production", device=None) -> tuple:
     """(record, plan): the cell's plan on meta tensors and what the mesh
     makes of it before anything runs. The record's status is "skipped"
-    (the cell's own reason, a production mesh this world lacks, or a card
-    it does not fit) or "fits" (card only; plan then not None).
-
-    Raises:
-        NotImplementedError: the world holds the production mesh's ranks
-            (the port cannot run a cell sharded over them).
-    """
+    (the cell's own reason, a production cell of a family that waits for
+    a later slice, or a card it does not fit) or "fits" (plan then not
+    None)."""
     if mesh not in MESHES:
         raise ValueError(f"mesh {mesh!r}: one of {MESHES}")
     mod = get(arch)
@@ -140,6 +169,10 @@ def plan_cell(arch: str, shape: str, multi_pod: bool = False,
     rec = _base(arch, shape, multi_pod, mesh, cell.kind)
     if cell.skip_reason:
         return {**rec, "status": "skipped", "reason": cell.skip_reason}, None
+    if mesh == "production" and mod.FAMILY in WAITING:
+        return {**rec, "status": "skipped",
+                "chips": production_ranks(multi_pod),
+                "reason": WAITING[mod.FAMILY]}, None
     t0 = time.perf_counter()
     plan = mod.build(shape, multi_pod)
     rec["build_s"] = round(time.perf_counter() - t0, 3)
@@ -148,20 +181,10 @@ def plan_cell(arch: str, shape: str, multi_pod: bool = False,
     out_bytes = _nbytes(plan.static.get("out_abstract"))
     temp_bytes = _nbytes(plan.static.get("temp_abstract"))
     if mesh == "production":
-        pshape, _ = PRODUCTION_SHAPES[multi_pod]
-        need = production_ranks(multi_pod)
-        world = dist.world_size()
-        if world == need:
-            raise NotImplementedError(
-                f"{arch} x {shape}: the production mesh {pshape} has its "
-                f"{need} ranks, but the port's models run no tensor or FSDP "
-                f"parallelism")
-        reason = (f"needs the production mesh {pshape} of {need} ranks; "
-                  f"this world has {world}")
-        return {**rec, "status": "skipped", "chips": need, "reason": reason,
+        return {**rec, "status": "fits", "chips": production_ranks(multi_pod),
                 "memory": {"argument_bytes": per_device_bytes(plan,
-                                                              multi_pod)}}, \
-            plan
+                                                              multi_pod),
+                           "device_bytes": CARD_BYTES}}, plan
     dev = resolve_device(device)
     rec.update(chips=1, memory={"argument_bytes": args_bytes,
                                 "stated_output_bytes": out_bytes,
@@ -232,7 +255,188 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False,
             print(f"[{arch} x {shape} | {mesh}] SKIP: {rec['reason']}",
                   flush=True)
         return rec
+    if mesh == "production":
+        return run_production(plan, rec, multi_pod, verbose)
     return run_plan(plan, rec, device, verbose, timed)
+
+
+def _count_production(plan, multi_pod: bool, rank: int) -> dict:
+    """One counted step of `plan` as rank `rank` of the production mesh on
+    a fake world: {"args", "alias", "out", "stated", "peak", "cost",
+    "coll", "by_axis", "kernels", "s"}. The fake world is torn down
+    after it."""
+    mesh = make_production_mesh(multi_pod=multi_pod, device="cpu",
+                                fake=True, rank=rank)
+    try:
+        with use_mesh(mesh, sharded=True):
+            args = plan.local_args(mesh)
+            sizes = _arg_bytes(plan, args, mesh)
+            step = plan.step or plan.static["step_builder"](mesh)
+            mem: dict = {}
+            t0 = time.perf_counter()
+            out, cost, coll, kernels = count_step(step, *args, memory=mem)
+            secs = time.perf_counter() - t0
+            kept = {x.untyped_storage()._cdata
+                    for x in pytree.tree_leaves(args)
+                    if isinstance(x, torch.Tensor)}
+            out_bytes = sum(x.numel() * x.element_size()
+                            for x in pytree.tree_leaves(out)
+                            if isinstance(x, torch.Tensor)
+                            and x.untyped_storage()._cdata not in kept)
+            del out
+    finally:
+        dist.destroy_world()
+    return {**sizes, "out": out_bytes, "peak": mem["peak_bytes"],
+            "cost": cost, "coll": coll, "by_axis": mem["by_axis"],
+            "kernels": kernels, "s": secs}
+
+
+def _arg_bytes(plan, args, mesh) -> dict:
+    """{"args", "alias", "stated"}: the bytes of this rank's arguments,
+    of the donated ones, and of the outputs the plan states (None where
+    it states none or no spec for them)."""
+    stated = plan.static.get("out_abstract")
+    return {"args": _nbytes(args),
+            "alias": sum(_nbytes(args[i]) for i in plan.donate),
+            "stated": None if stated is None or plan.out_specs is None
+            else _nbytes(shard_tree(stated, plan.out_specs, mesh))}
+
+
+def _probe_counts(plan, multi_pod: bool, rank: int) -> tuple[dict, dict]:
+    """The reference's cost model (`DryRunPlan.cost_model`, its
+    `_extrapolate`): counted steps of the plan's probes at (L, M) = (1, 1),
+    (2, 1) and, with microbatches, (1, 2), fitted to a + M b + M L c and
+    evaluated at the plan's L and M, for the FLOPs, bytes, collective
+    bytes and counts; the peak temp bytes linear in L. Returns (the
+    extrapolated counts in `_count_production`'s keys, {"L", "M",
+    "probe_s"})."""
+    cm = plan.cost_model
+    big_l, big_m = cm["L"], cm["M"]
+    runs = {lm: _count_production(cm["probe"](*lm), multi_pod, rank)
+            for lm in ([(1, 1), (2, 1)] + ([(1, 2)] if big_m > 1 else []))}
+
+    def fit(get):
+        f11, f21 = get(runs[(1, 1)]), get(runs[(2, 1)])
+        c = f21 - f11
+        b = get(runs[(1, 2)]) - f11 - c if big_m > 1 else 0.0
+        return max(f11 - b - c + big_m * b + big_m * big_l * c, 0.0)
+
+    coll = {k: fit(lambda r, k=k: float(r["coll"][k]))
+            for k in runs[(1, 1)]["coll"]}
+    axes = {(a, k) for r in runs.values() for a, per in r["by_axis"].items()
+            for k in per}
+    by_axis: dict = {}
+    for a, k in sorted(axes):
+        by_axis.setdefault(a, {})[k] = fit(
+            lambda r, a=a, k=k: float(r["by_axis"].get(a, {}).get(k, 0)))
+    # the microbatches run one after another, so the peak does not add
+    # up over M: linear in L, plus the accumulators when M > 1
+    p11, p21 = runs[(1, 1)]["peak"], runs[(2, 1)]["peak"]
+    peak = p11 + (big_l - 1) * (p21 - p11) + \
+        (runs[(1, 2)]["peak"] - p11 if big_m > 1 else 0)
+    out = {"cost": {"flops": fit(lambda r: r["cost"]["flops"]),
+                    "bytes accessed": fit(
+                        lambda r: r["cost"]["bytes accessed"])},
+           "coll": coll, "by_axis": by_axis, "peak": int(peak),
+           "kernels": runs[(1, 1)]["kernels"]}
+    return out, {"L": big_l, "M": big_m,
+                 "probe_s": round(sum(r["s"] for r in runs.values()), 3)}
+
+
+def _local_rows(plan, multi_pod: bool) -> int:
+    """Rows of the plan's batch (its last argument, whose first leaf's
+    rows a train step splits into microbatches) that one rank of the
+    production mesh holds under the batch's spec."""
+    shape, names = PRODUCTION_SHAPES[multi_pod]
+    dims, _, spec = _spec_leaves(plan.abstract_args[-1],
+                                 plan.in_specs[-1])[0]
+    return shard_shape(dims, spec, dict(zip(names, shape)))[0]
+
+
+def _probes_hold(plan, multi_pod: bool) -> bool:
+    """Whether the reference's model a + M b + M L c fits the sharded
+    step: a rank holding fewer rows than microbatches runs one microbatch
+    a row (`make_train_step`), fewer than the model names, so the plan
+    and its probe of two microbatches must each hold at least as many
+    rows per rank as they name microbatches (qwen3's train_4k, 16
+    microbatches of 16 rows, on the 32 batch ranks of two pods does
+    not)."""
+    cm = plan.cost_model
+    if cm["M"] == 1:
+        return True
+    return _local_rows(plan, multi_pod) >= cm["M"] and \
+        _local_rows(cm["probe"](1, 2), multi_pod) >= 2
+
+
+def run_production(plan, rec: dict, multi_pod: bool, verbose: bool = True,
+                   rank: int = 0) -> dict:
+    """Rank `rank`'s step of `plan` on the production mesh of a fake world
+    (module docstring), counted on meta tensors; `rec` updated into an
+    "ok" record. The argument, alias and output bytes are always the full
+    plan's. A plan whose cost model names more than two layers or one
+    microbatch, and whose probes hold (`_probes_hold`), takes its FLOPs,
+    bytes and collectives from the reference's extrapolation from reduced
+    probes and its peak temp bytes from a fit linear in L
+    (`_probe_counts`), as the reference does, instead of a count of the
+    whole step (minutes on meta tensors for a deep model). The record's
+    "cost_from" says which; `memory.peak_estimated` marks an
+    extrapolated peak, and with it the peak's fit (PERF.md compares it
+    with a whole count)."""
+    chips = production_ranks(multi_pod)
+    cm = plan.cost_model
+    if cm and (cm["L"] > 2 or cm["M"] > 1) and \
+            _probes_hold(plan, multi_pod):
+        mesh = make_production_mesh(multi_pod=multi_pod, device="cpu",
+                                    fake=True, rank=rank)
+        try:
+            base = _arg_bytes(plan, plan.local_args(mesh), mesh)
+        finally:
+            dist.destroy_world()
+        counted, how = _probe_counts(plan, multi_pod, rank)
+        run = {**base, "out": base["stated"] or 0, **counted}
+        rec["cost_from"] = {"probes": how}
+        rec["count_s"] = how["probe_s"]
+    else:
+        run = _count_production(plan, multi_pod, rank)
+        rec["cost_from"] = "counted step"
+        rec["count_s"] = round(run["s"], 3)
+    arg_bytes, out_bytes, temp = run["args"], run["out"], run["peak"]
+    alias, stated_bytes = run["alias"], run["stated"]
+    cost, coll, kernels = run["cost"], run["coll"], run["kernels"]
+    by_axis = run["by_axis"]
+    peak = arg_bytes + temp
+    roof = roofline_terms(cost, coll, chips, plan.model_flops,
+                          plan.static.get("compute_dtype", "bfloat16"))
+    rec.update({
+        "status": "ok", "device": "meta (fake world)",
+        "memory": {"argument_bytes": arg_bytes, "output_bytes": out_bytes,
+                   "stated_output_bytes": stated_bytes,
+                   "temp_bytes": temp, "alias_bytes": alias,
+                   "peak_per_device": peak,
+                   "peak_estimated": rec["cost_from"] != "counted step",
+                   "device_bytes": CARD_BYTES,
+                   "fits": {"arguments": arg_bytes <= CARD_BYTES,
+                            "outputs": arg_bytes + out_bytes <= CARD_BYTES,
+                            "peak": peak <= CARD_BYTES}},
+        "cost": {"flops": cost["flops"],
+                 "bytes_accessed": cost["bytes accessed"]},
+        "collectives": coll,
+        "collectives_by_axis": by_axis,
+        "kernels": kernels,
+        "roofline": roof.to_dict(),
+    })
+    if verbose:
+        fit = ("fits" if rec["memory"]["fits"]["peak"] else
+               "DOES NOT FIT") + (", estimated" if
+                                  rec["memory"]["peak_estimated"] else "")
+        print(f"[{rec.get('arch')} x {rec.get('shape')} | production "
+              f"{chips}] OK args/dev={arg_bytes / 2**30:.3f}GiB "
+              f"peak/dev={peak / 2**30:.3f}GiB ({fit}) "
+              f"dominant={roof.dominant} terms(ms)=C"
+              f"{roof.compute_s * 1e3:.3f}/M{roof.memory_s * 1e3:.3f}/N"
+              f"{roof.collective_s * 1e3:.3f} count={rec['count_s']}s",
+              flush=True)
+    return rec
 
 
 def run_plan(plan, rec: dict, device=None, verbose: bool = True,

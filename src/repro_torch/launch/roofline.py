@@ -83,9 +83,10 @@ def dryrun_table(cells: dict, multi_pod: bool,
                          ("all-gather", "all-reduce", "reduce-scatter",
                           "all-to-all", "collective-permute"))
         peak = r["memory"]["peak_per_device"]
+        est = " (estimated)" if r["memory"].get("peak_estimated") else ""
         lines.append(
             f"| {arch} | {shape} | ok | "
-            f"{'n/a' if peak is None else _fmt_b(peak)} | "
+            f"{'n/a' if peak is None else _fmt_b(peak) + est} | "
             f"{r['cost']['flops']:.3g} | "
             f"{_fmt_b(r['roofline']['coll_bytes'])} | {sched} |")
     return lines

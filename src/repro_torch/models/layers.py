@@ -12,7 +12,13 @@ low-precision inputs accumulated in f32 (`matmul_f32`).
 Both model families keep their layer stacks on a leading axis and take
 one view per layer (`layer_views`), each layer under activation
 checkpointing when training (`checkpointed`), as the reference scans a
-`jax.checkpoint`ed body."""
+`jax.checkpoint`ed body.
+
+The tensor-parallel layers (`column_parallel`, `row_parallel`,
+`vocab_parallel_*`, `decode_attention_split`) run SPMD over the active
+mesh's "model" axis with the collectives of `distributed.parallel`
+named in each docstring; a weight's "data" (FSDP) piece is all-gathered
+just before its product and freed with the product's inputs."""
 from __future__ import annotations
 
 import math
@@ -22,10 +28,16 @@ import torch.nn.functional as F
 from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed import parallel
+from repro_torch.distributed.sharding import split
+
 __all__ = ["dense_init", "embed_init", "mlp_init", "mlp_apply", "layer_norm",
            "rms_norm", "rope_freqs", "rope_tables", "apply_rope",
            "matmul_f32", "chunked_attention", "decode_mask",
-           "decode_attention", "layer_views", "checkpointed"]
+           "decode_attention", "decode_attention_split", "layer_views",
+           "checkpointed", "column_parallel", "row_parallel",
+           "vocab_parallel_embed", "vocab_parallel_logits",
+           "vocab_parallel_xent"]
 
 NEG = -1e30     # masked score, as the reference's
 
@@ -372,6 +384,112 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scores = torch.where(valid[:, None, :], scores, NEG)
     p = torch.softmax(scores, dim=-1)
     full = matmul_f32(p.to(v_cache.dtype), v_cache.reshape(b, s, hkv * dh))
+    out = torch.diagonal(full.reshape(b, hkv, groups, hkv, dh), dim1=1,
+                         dim2=3)                               # [B, G, Dh, Hkv]
+    return out.permute(0, 3, 1, 2).reshape(b, 1, h, dh).to(v_cache.dtype)
+
+
+# ------------------------------------------------------- tensor parallel ----
+
+def fsdp_weight(w: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """The weight whole along `dim` (n entries) from its "data" pieces:
+    the FSDP all-gather just before use (tag "fsdp"), its gradient
+    reduce-scattered back over "data"."""
+    return parallel.gather(w, dim, n, "data", tag="fsdp", site="weight")
+
+
+def column_parallel(x: torch.Tensor, w: torch.Tensor,
+                    d_in: int) -> torch.Tensor:
+    """x [.., d_in] (replicated over "model", already through
+    `parallel.enter`) @ this rank's column piece of a [d_in, N] weight
+    whose rows are FSDP pieces over "data" -> [.., N / model]."""
+    return x @ fsdp_weight(w, 0, d_in)
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor,
+                 d_out: int) -> torch.Tensor:
+    """x [.., K / model] (this rank's piece of the inner dimension) @ this
+    rank's row piece of a [K, d_out] weight whose columns are FSDP pieces
+    over "data", summed over "model" (`parallel.leave`: one all-reduce)
+    -> [.., d_out] replicated."""
+    return parallel.leave(x @ fsdp_weight(w, 1, d_out), "model")
+
+
+def vocab_parallel_embed(embed: torch.Tensor,
+                         tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of `tokens` from an embedding sharded over "model" by rows
+    (`P("model", None)`): this rank's piece `embed` holds rows [lo, lo +
+    c); a token outside them looks up 0, and the lookups are summed over
+    "model" (one all-reduce)."""
+    c = embed.shape[0]
+    lo = parallel.index("model") * c
+    local = tokens.long() - lo
+    mine = (local >= 0) & (local < c)
+    rows = embed[torch.where(mine, local, 0)]
+    rows = torch.where(mine[..., None], rows, 0)
+    return parallel.leave(rows, "model")
+
+
+def vocab_parallel_logits(x: torch.Tensor, head: torch.Tensor,
+                          vocab: int) -> torch.Tensor:
+    """This rank's logits over its vocabulary piece of a head sharded by
+    columns (`P(None, "model")`) for x already through `parallel.enter`,
+    in at least f32, columns past the `vocab` rows of the whole head set
+    to -inf (the split's padding)."""
+    logits = x @ head
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    c = head.shape[1]
+    lo, hi, _ = split(vocab, parallel.size("model"), parallel.index("model"))
+    if hi - lo < c:
+        real = torch.arange(c, device=x.device) < hi - lo
+        logits = torch.where(real, logits, float("-inf"))
+    return logits
+
+
+def vocab_parallel_xent(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Per-position cross-entropy logsumexp(z) - z[label] over the whole
+    vocabulary from this rank's piece of the logits (`vocab_parallel_
+    logits`): the maximum (detached) all-reduced over "model", the sum of
+    exp and the label's logit (from the rank that holds it) summed over
+    "model" (`parallel.leave`)."""
+    c = logits.shape[-1]
+    lo = parallel.index("model") * c
+    m = parallel.all_max(logits.amax(-1), "model", tag="tp")
+    se = parallel.leave(torch.exp(logits - m[..., None]).sum(-1), "model")
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < c)
+    picked = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])
+    ll = parallel.leave(torch.where(mine, picked[..., 0], 0.0), "model")
+    return m + torch.log(se) - ll
+
+
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, valid: torch.Tensor
+                           ) -> torch.Tensor:
+    """`decode_attention` with the cache's sequence sharded over "model"
+    (`lm_cache_spec`): flash-decoding's split-K. q [B, 1, H, Dh] whole;
+    the caches [B, S_loc, Hkv, Dh] this rank's positions, `valid` [B,
+    S_loc] their decode mask. The local maximum of the scores is
+    all-reduced (max), then the local sum of exp(s - max) (sum), then the
+    normalized probabilities' product with the local values is summed over
+    "model": the softmax and the PV product of the whole cache, the sums
+    taken in another order. Inference only."""
+    b, _, h, dh = q.shape
+    _, s, hkv, _ = k_cache.shape
+    groups = h // hkv
+    eye = torch.eye(hkv, dtype=q.dtype, device=q.device)
+    q_bd = (q.reshape(b, hkv, groups, 1, dh)
+            * eye.reshape(1, hkv, 1, hkv, 1)).reshape(b, h, hkv * dh)
+    scores = matmul_f32(q_bd, k_cache.reshape(b, s, hkv * dh).transpose(1, 2))
+    scores = scores * (1.0 / math.sqrt(dh))                   # [B, H, S_loc]
+    scores = torch.where(valid[:, None, :], scores, NEG)
+    m = parallel.all_max(scores.amax(-1), "model", tag="tp")
+    e = torch.exp(scores - m[..., None])
+    den = parallel.all_sum(e.sum(-1), ("model",), tag="tp", site="den")
+    p = e / den[..., None]
+    full = matmul_f32(p.to(v_cache.dtype), v_cache.reshape(b, s, hkv * dh))
+    full = parallel.all_sum(full, ("model",), tag="tp", site="pv")
     out = torch.diagonal(full.reshape(b, hkv, groups, hkv, dh), dim1=1,
                          dim2=3)                               # [B, G, Dh, Hkv]
     return out.permute(0, 3, 1, 2).reshape(b, 1, h, dh).to(v_cache.dtype)

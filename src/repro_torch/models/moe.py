@@ -16,6 +16,18 @@ its own tokens to their owners in two capacity stages: a send buffer of
 arrived. The model takes this path under a mesh whose "model" size
 divides the expert count (`transformer.ffn`) and the dense path
 otherwise, as the reference falls back.
+
+Sharded dense dispatch (`moe_apply_sharded`, under `use_mesh(mesh,
+sharded=True)`): the function of `moe_apply` over the whole batch, run on
+this rank's tokens with its piece of the experts. Routing is replicated
+over "model"; each rank's (token, slot) positions continue those of the
+ranks before it on the batch axes (the per-expert counts all-gathered),
+against the capacity of the whole batch, so the same assignments drop
+as in one call over every token; the load statistics are averaged over
+the batch axes. The rank runs the expert FFN on its piece (whole experts
+[lo, lo + E_loc) when they tile "model", expert parallelism; or every
+expert's d_ff piece, intra-expert tensor parallelism) and the combined
+rows are summed over "model".
 """
 from __future__ import annotations
 
@@ -27,11 +39,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core import distributed as cdist
+from repro_torch.distributed import parallel
 
 __all__ = ["MoEConfig", "moe_capacity", "moe_init", "moe_apply",
-           "a2a_capacities", "positions_in_groups", "moe_apply_a2a",
-           "all_reduce_mean",
-           "TRIPS"]
+           "moe_apply_sharded", "a2a_capacities", "positions_in_groups",
+           "moe_apply_a2a", "all_reduce_mean", "TRIPS"]
 
 
 @dataclass(frozen=True)
@@ -122,6 +134,85 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
     rows = torch.where(in_cap[:, None], out_buf[e_of, slot], 0)
     y = (rows * gates.reshape(t * k, 1).to(rows.dtype)).reshape(t, k, d)
     return y.sum(1), aux
+
+
+def _route(params: dict, x: torch.Tensor, cfg: MoEConfig):
+    """(probs [T, E], gates [T, k], eidx [T, k], fe [E]) of x: the router
+    in at least f32, the top-k gates renormalized, and each expert's share
+    of first choices."""
+    wide = torch.promote_types(x.dtype, torch.float32)
+    logits = x.to(wide) @ params["router"].to(wide)            # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = torch.topk(probs, cfg.top_k, dim=-1)         # [T, k]
+    gates = gates / gates.sum(-1, keepdim=True)
+    experts = torch.arange(cfg.n_experts, device=x.device)
+    fe = (eidx[:, 0, None] == experts).to(wide).mean(0)
+    return probs, gates, eidx, fe
+
+
+def moe_apply_sharded(params: dict, x: torch.Tensor, cfg: MoEConfig,
+                      expert_lo: int, stats: dict | None = None):
+    """`moe_apply` of the whole batch, from this rank's tokens x [T, D]
+    (its rows of the batch axes, replicated over "model") and its piece of
+    the experts: params["router"] [D, E] whole; w1/w3 [E_loc, D, F_loc]
+    and w2 [E_loc, F_loc, D] for experts [expert_lo, expert_lo + E_loc)
+    (padding past E is zero), with F_loc = F or this rank's d_ff piece.
+    Returns ([T, D] replicated over "model", the whole batch's aux).
+
+    Collectives: the per-expert counts all-gathered over each batch axis
+    (tag "moe"), the statistics of the aux averaged over the batch axes,
+    x and the gates entering the "model" region (`parallel.enter`) and the
+    combined rows leaving it (`parallel.leave`)."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    e_loc = params["w1"].shape[0]
+    axes = parallel.batch_axes_of()
+    probs, gates, eidx, fe = _route(params, x, cfg)
+    me = parallel.mean_over(probs.mean(0), axes, tag=TRIPS)
+    fe = parallel.mean_over(fe, axes, tag=TRIPS)
+    aux = e * (fe * me).sum()
+
+    # positions: this rank's continue the counts of the ranks before it
+    experts = torch.arange(e, device=x.device)
+    assign = (experts[:, None] == eidx.reshape(1, t * k)).long()  # [E, T*k]
+    pos_local = ((assign.cumsum(1) - assign) * assign).sum(0)    # [T*k]
+    # inner axis first: the counts of the ranks before this one in its
+    # block of the axis, then those of the blocks before its block
+    block = assign.sum(1)                                        # [E]
+    n_ranks, before = 1, torch.zeros_like(block)
+    for a in reversed(axes):
+        size = parallel.size(a)
+        if size == 1:
+            continue
+        every = parallel.gather(block[None], 0, size, a, tag=TRIPS,
+                                site="counts")                   # [size, E]
+        before = before + every[:parallel.index(a)].sum(0)
+        block = every.sum(0)
+        n_ranks *= size
+    cap = moe_capacity(cfg, t * n_ranks)
+    e_of = eidx.reshape(t * k)
+    in_cap = pos_local + before[e_of] < cap
+    if stats is not None:
+        _add_stat(stats, "dropped", (~in_cap).sum())
+
+    # this rank's experts: a buffer of their kept rows only
+    local_e = e_of - expert_lo
+    mine = in_cap & (local_e >= 0) & (local_e < e_loc)
+    slot = torch.where(mine, pos_local, cap)
+    le = torch.where(mine, local_e, 0)
+    xin = parallel.enter(x, "model")
+    x_rep = xin[:, None, :].expand(t, k, d).reshape(t * k, d)
+    spare = torch.zeros((e_loc, cap + 1, d), dtype=x.dtype, device=x.device)
+    spare[le, slot] = torch.where(mine[:, None], x_rep, 0)
+    buf = spare[:, :cap]
+    h = torch.bmm(buf, params["w1"])
+    g = torch.bmm(buf, params["w3"])
+    out_buf = torch.bmm(F.silu(h) * g, params["w2"])           # [E_loc, C, D]
+    rows = torch.where(mine[:, None], out_buf[le, slot.clamp(max=cap - 1)],
+                       0)
+    gin = parallel.enter(gates, "model")
+    y = (rows * gin.reshape(t * k, 1).to(rows.dtype)).reshape(t, k, d)
+    return parallel.leave(y.sum(1), "model"), aux
 
 
 def _add_stat(stats: dict, key: str, value: torch.Tensor) -> None:

@@ -15,6 +15,16 @@ its numerically stable form; the lookup's table gradient is dense, the
 backward kernel's (`embedding_bag_backward`), as `jnp.take`'s is in the
 reference. `retrieval_step` scores one query against a candidate bank
 with a single [Nc, D] x [D] product + top-k (the `retrieval_cand` shape).
+
+Sharded (`use_mesh(mesh, sharded=True)`, the plan of
+`dlrm_param_specs`): `params["table"]` is this rank's row shard, rows
+[m c, (m + 1) c) of the padded table for "model" coordinate m (c =
+padded_rows / model), and the batch is this rank's rows of the batch
+axes. The lookup is the window kernel on the local rows
+(`embedding_bag_window`), summed over "model" (one all-reduce,
+`distributed.parallel.leave`); the MLPs are whole on every rank. The
+retrieval bank is sharded over every axis: a local top-k, the candidates
+gathered over the axes, and the top-k of those.
 """
 from __future__ import annotations
 
@@ -24,7 +34,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.embedding_bag.ops import embedding_bag
+from repro_torch.distributed import parallel
+from repro_torch.distributed.sharding import params_sharded, split
+from repro_torch.kernels.embedding_bag.ops import embedding_bag, \
+    embedding_bag_window
 from repro_torch.models.layers import mlp_apply, mlp_init
 from repro_torch.topk import topk_lower_index_first
 
@@ -109,6 +122,20 @@ def _interact(dense_out: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return torch.cat([dense_out, zzt[:, iu, ju]], dim=-1)
 
 
+def _lookup(ids: torch.Tensor, table: torch.Tensor,
+            cfg: DLRMConfig) -> torch.Tensor:
+    """The bag sums of `ids` [N, bag] over the whole table: the lookup on
+    a whole table, or, sharded, the window lookup on this rank's rows
+    summed over "model"."""
+    if not params_sharded():
+        return embedding_bag(ids, table)
+    lo, _, _ = split(cfg.padded_rows, parallel.size("model"),
+                     parallel.index("model"))
+    part = embedding_bag_window(ids, table, lo,
+                                n_rows_total=cfg.padded_rows)
+    return parallel.leave(part, "model", tag="tp")
+
+
 def forward(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
     """CTR logits [B]. batch: dense [B, 13] f32; sparse_ids [B, 26, bag]
     int32 (combined-table row ids, offsets already applied)."""
@@ -116,7 +143,7 @@ def forward(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
                           final_act=True)                       # [B, D]
     b = batch["dense"].shape[0]
     ids = batch["sparse_ids"].reshape(b * cfg.n_sparse, cfg.bag_size)
-    emb = embedding_bag(ids, params["table"]).reshape(
+    emb = _lookup(ids, params["table"], cfg).reshape(
         b, cfg.n_sparse, cfg.embed_dim)
     x = _interact(dense_out, emb)
     return mlp_apply(params["top"], x)[:, 0]
@@ -149,5 +176,37 @@ def retrieval_step(params: dict, batch: dict, cfg: DLRMConfig,
     with torch.inference_mode():
         q = mlp_apply(params["bot"], batch["dense"], final_act=True)  # [1, D]
         scores = batch["candidates"] @ q[0]                           # [Nc]
+        if params_sharded():
+            return _sharded_top_k(scores, batch.get("n_candidates"), top_k)
         idx, vals = topk_lower_index_first(scores[None, :], top_k)
         return vals[0], idx[0]
+
+
+def _sharded_top_k(scores: torch.Tensor, n_total: int | None, top_k: int):
+    """Top-k over a bank sharded over every mesh axis (row-major over
+    them): this rank's `split` piece of n_total candidates holds `scores`
+    (its padding rows never taken); the local top-k with global indices is
+    all-gathered over each axis, inner first, so the gathered entries run
+    in rank order, and the top-k of those breaks ties lower index first
+    as the whole bank's does."""
+    axes = tuple(a for a in ("pod", "data", "model")
+                 if parallel.size(a) > 1)
+    flat, k_ranks = 0, 1
+    for a in axes:
+        flat = flat * parallel.size(a) + parallel.index(a)
+        k_ranks *= parallel.size(a)
+    c = scores.shape[0]
+    n_total = n_total or c * k_ranks
+    lo, hi, _ = split(n_total, k_ranks, flat)
+    real = torch.arange(c, device=scores.device) < hi - lo
+    scores = torch.where(real, scores, float("-inf"))
+    k_loc = min(top_k, c)
+    idx, vals = topk_lower_index_first(scores[None, :], k_loc)
+    vals, idx = vals[0], idx[0].to(torch.int64) + lo
+    for a in reversed(axes):
+        vals = parallel.gather(vals, 0, vals.shape[0] * parallel.size(a), a,
+                               tag="retrieval")
+        idx = parallel.gather(idx, 0, idx.shape[0] * parallel.size(a), a,
+                              tag="retrieval")
+    pos, top = topk_lower_index_first(vals[None, :], top_k)
+    return top[0], idx.gather(0, pos[0].long()).to(torch.int32)

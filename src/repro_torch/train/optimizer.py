@@ -8,6 +8,14 @@ bias-corrected moments, p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p).
 1e-6 and keep no bfloat16 moments, so the port does not use them. Moment
 dtypes are configurable (bf16 moments for the largest configs); the state
 mirrors the parameter tree.
+
+Sharded (the parameters, gradients and moments are this rank's pieces
+under their specs, inside `use_mesh(mesh, sharded=True)`), the update is
+the same elementwise arithmetic on the local pieces; only the clip's
+global norm needs the other ranks: `global_norm` sums each leaf's squares
+over the mesh axes of its spec (one all-reduce per group of leaves
+sharded alike, tag "train") and not over the axes it is replicated on,
+so every rank clips by the norm of the whole gradient.
 """
 from __future__ import annotations
 
@@ -49,12 +57,29 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
             "v": zeros(getattr(torch, cfg.v_dtype))}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, specs: list | None = None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's sum of squares, in at
-    least float32."""
+    least float32. `specs` (one per leaf, in flatten order): the leaves
+    are this rank's pieces, and each group of leaves sharded over the same
+    mesh axes has its sum all-reduced over those axes (the padding of an
+    uneven piece is zero and adds nothing)."""
     leaves = pytree.tree_leaves(tree)
-    return torch.sqrt(sum(l.to(_math_dtype(l)).square().sum()
-                          for l in leaves))
+    if specs is None:
+        return torch.sqrt(sum(l.to(_math_dtype(l)).square().sum()
+                              for l in leaves))
+    from repro_torch.distributed import parallel
+    from repro_torch.distributed.sharding import axes_of
+    groups: dict = {}
+    for leaf, spec in zip(leaves, specs):
+        axes = tuple(sorted({a for e in (spec or ()) for a in axes_of(e)
+                             if parallel.size(a) > 1}))
+        part = leaf.to(_math_dtype(leaf)).square().sum()
+        groups[axes] = groups[axes] + part if axes in groups else part
+    total = 0.0
+    for axes, part in groups.items():
+        total = total + parallel.all_sum(part.clone(), axes, tag="train",
+                                         site="grad_norm")
+    return torch.sqrt(total)
 
 
 def _leaves_like(tree, like) -> list:
@@ -107,9 +132,10 @@ def _update_into(outs, p, g, m, v, scale, bc1, bc2, cfg: AdamWConfig):
 
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: AdamWConfig,
-                 in_place: bool = False):
+                 in_place: bool = False, grad_specs: list | None = None):
     """Returns (new_params, new_state, metrics). metrics = {"grad_norm":
-    the norm before clipping}.
+    the norm before clipping; with `grad_specs` (one spec per leaf, the
+    pieces of a sharded step) the whole gradient's, `global_norm`}.
 
     By default the inputs are not modified and the results are new
     tensors. With in_place, each parameter, m and v is overwritten with
@@ -118,7 +144,7 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
     returned, `state["step"]` included; the values are bitwise the same.
     """
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, grad_specs)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     stepf = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32,

@@ -16,9 +16,25 @@ over data x model, not over data alone: the ranks of a "model" group
 hold the same tokens, and with the all-to-all MoE each holds the
 gradient of its own expert slice only (zero elsewhere), so the sum over
 the group assembles the experts and the division by data x model is the
-reference's mean over the per-shard aux estimates. The reference's
-`grad_specs` pin gradients to an FSDP layout; the port keeps every
-gradient whole on each rank, so they are accepted and change nothing.
+reference's mean over the per-shard aux estimates.
+
+Sharded (`use_mesh(mesh, sharded=True)`: the parameters are this rank's
+pieces under their specs, which the caller passes as `grad_specs`), the
+step honours the specs, leaf by leaf (`_spec_mean`):
+  * a leaf whose spec holds "data" (an FSDP piece) has its gradient
+    reduce-scattered over "data" already: the model all-gathers such a
+    weight just before use, and that gather's backward is the reduce-
+    scatter (`distributed.parallel.gather`, tag "fsdp"); the step divides
+    it by the data size (and, on a multi-pod mesh, all-reduces it over
+    "pod" first);
+  * any other leaf is all-reduced over the batch axes, as `_mesh_mean`
+    does over the whole mesh, and divided by their size;
+  * nothing is summed over "model": a leaf sharded over it holds its own
+    piece, and one replicated over it has the same gradient on every
+    rank of the group.
+The gradient norm of the clip is then the norm of the whole gradient
+(`optimizer.global_norm` with the specs), and AdamW's update runs on the
+local pieces.
 """
 from __future__ import annotations
 
@@ -26,7 +42,9 @@ import torch
 from torch.utils import _pytree as pytree
 
 from repro_torch.core import distributed as cdist
-from repro_torch.distributed.sharding import current_mesh
+from repro_torch.distributed import parallel
+from repro_torch.distributed.sharding import axes_of, current_mesh, \
+    params_sharded
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 __all__ = ["make_train_step"]
@@ -76,6 +94,42 @@ def _mesh_mean(grads: list, loss: torch.Tensor) -> torch.Tensor:
     return loss / n
 
 
+def spec_leaves(specs, params) -> list:
+    """The spec of each leaf of `params`, in its flatten order (None:
+    replicated)."""
+    if specs is None:
+        return [None] * len(pytree.tree_leaves(params))
+    if isinstance(params, dict):
+        return [s for k in params for s in spec_leaves(specs[k], params[k])]
+    if isinstance(params, (list, tuple)):
+        return [s for p, sp in zip(params, specs)
+                for s in spec_leaves(sp, p)]
+    return [specs]
+
+
+def _spec_axes(spec) -> set:
+    return {a for e in (spec or ()) for a in axes_of(e)}
+
+
+def _spec_mean(grads: list, specs: list, loss: torch.Tensor):
+    """The sharded step's gradient mean (module docstring), in place;
+    returns the mean loss over the batch axes."""
+    axes = parallel.batch_axes_of()
+    n = 1
+    for a in axes:
+        n *= parallel.size(a)
+    if n == 1:
+        return loss
+    for g, spec in zip(grads, specs):
+        fsdp = "data" in _spec_axes(spec)
+        over = [a for a in axes if not (fsdp and a == "data")]
+        parallel.all_sum(g, tuple(over), tag="train", site="grad_mean")
+        g.div_(n)
+    loss = loss.detach().clone()
+    parallel.all_sum(loss, axes, tag="train", site="loss_mean")
+    return loss / n
+
+
 def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
                     donate: bool = True, grad_specs=None):
     """loss_fn(params, microbatch) -> scalar. Returns
@@ -89,13 +143,22 @@ def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
 
     Under a mesh of more than one rank, `batch` is this rank's shard and
     the step applies the mean of the ranks' gradients (`_mesh_mean`);
-    metrics then hold the mean loss. `grad_specs` is the reference's and
-    changes nothing here."""
-    del grad_specs
+    metrics then hold the mean loss. Sharded, `params` and `opt_state`
+    are this rank's pieces under `grad_specs` (the parameters' specs) and
+    the mean follows them (`_spec_mean`); without a sharded mesh the specs
+    change nothing."""
 
     def train_step(params, opt_state, batch):
+        sharded = params_sharded()
         leaves, spec, xs = _grad_leaves(params)
-        if num_microbatches == 1:
+        n_micro = num_microbatches
+        rows = pytree.tree_leaves(batch)[0].shape[0]
+        if sharded and rows < n_micro and n_micro % rows == 0:
+            # a microbatch of the whole batch holds fewer rows than there
+            # are batch ranks (GSPMD pads it): this rank's piece runs one
+            # microbatch per row, the same mean over rows
+            n_micro = rows
+        if n_micro == 1:
             loss = _backward(loss_fn, xs, spec, batch)
             grads = [torch.zeros_like(x) if x.grad is None else x.grad
                      for x in xs]
@@ -112,19 +175,21 @@ def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
                      for x, a in zip(xs, grads)]
             try:
                 loss = 0.0
-                for mb in _split_batch(batch, num_microbatches):
+                for mb in _split_batch(batch, n_micro):
                     loss = loss + _backward(loss_fn, xs, spec, mb)
             finally:
                 for h in hooks:
                     h.remove()
             for g in grads:
-                g.div_(num_microbatches)
-            loss = loss / num_microbatches
+                g.div_(n_micro)
+            loss = loss / n_micro
         del xs
-        loss = _mesh_mean(grads, loss)
+        specs = spec_leaves(grad_specs, params) if sharded else None
+        loss = _spec_mean(grads, specs, loss) if sharded \
+            else _mesh_mean(grads, loss)
         params, opt_state, metrics = adamw_update(
             pytree.tree_unflatten(grads, spec), opt_state, params, opt_cfg,
-            in_place=donate)
+            in_place=donate, grad_specs=specs)
         metrics["loss"] = loss
         return params, opt_state, metrics
 

@@ -1,5 +1,7 @@
 """The port's dry-run tooling on the CPU: `launch/analysis.py`'s counters,
-`launch/dryrun.py` (production and card meshes, the fit check, errors),
+`launch/dryrun.py` (the production mesh on a fake world at smoke size, its
+collective bytes against a closed form, the card mesh, the fit check,
+errors),
 `launch/roofline.py` against the JAX package's report, `launch/mesh.py`
 (its rates, the production mesh's refusal, the elastic mesh's shape at
 world sizes 1, 2, 4 and 8 over gloo, tests/torch_mesh_worker.py, held to
@@ -16,8 +18,10 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.configs.base import DryRunPlan, meta
 from repro_torch.configs.registry import all_cells
+from repro_torch.core import distributed as cdist
 from repro_torch.kernels import cost as kernel_cost
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.launch import analysis, dryrun, mesh as launch_mesh
@@ -221,18 +225,79 @@ class TestDryRun:
         step(None, src, dst.clone(), w)
         assert len(merges) == 2
 
-    def test_production_mesh_records_a_skip_naming_the_world(self):
-        rec = dryrun.run_cell("h2o-danube-1.8b", "train_4k", mesh="production",
+    def test_production_mesh_records_a_skip_naming_the_world(
+            self, monkeypatch):
+        """Once a skip for want of ranks, now the production record: at
+        smoke size (danube's smoke config, small shapes), rank 0 of the
+        (16, 16) mesh on a fake world of 256 ranks runs train_4k counted
+        on meta tensors, with the reference's record keys, argument bytes
+        equal to `per_device_bytes` and the fit on the card."""
+        _smoke_production(monkeypatch)
+        rec = dryrun.run_cell("h2o-danube-1.8b", "train_4k",
+                              mesh="production", verbose=False)
+        assert rec["status"] == "ok" and rec["chips"] == 256
+        plan = registry.get("h2o-danube-1.8b").build("train_4k", False)
+        mem = rec["memory"]
+        assert mem["argument_bytes"] == dryrun.per_device_bytes(plan, False)
+        assert 0 < mem["argument_bytes"] < dryrun._nbytes(
+            plan.abstract_args) / 10
+        assert mem["alias_bytes"] > 0 and mem["temp_bytes"] > 0
+        assert mem["peak_per_device"] == mem["argument_bytes"] + \
+            mem["temp_bytes"]
+        assert mem["fits"] == {"arguments": True, "outputs": True,
+                               "peak": True}
+        assert mem["device_bytes"] == launch_mesh.CARD_BYTES
+        assert rec["cost"]["flops"] > 0 and rec["cost"]["bytes_accessed"] > 0
+        assert set(analysis.COLLECTIVES) <= set(rec["collectives"])
+        assert rec["collectives"]["all-gather"] > 0 and \
+            rec["collectives"]["reduce-scatter"] > 0
+        assert set(rec["collectives_by_axis"]) == {"data", "model"}
+        assert rec["roofline"]["chips"] == 256
+        assert rec["cost_from"] == "counted step"
+        assert mem["peak_estimated"] is False
+        assert cdist.world_size() == 1          # the fake world is gone
+
+    @pytest.mark.parametrize("arch,from_probes", [
+        ("h2o-danube-1.8b", True), ("granite-moe-3b-a800m", True),
+        ("qwen3-moe-235b-a22b", False)])
+    def test_a_cost_model_of_microbatches_takes_the_probes_where_they_hold(
+            self, monkeypatch, arch, from_probes):
+        """train_4k at smoke size with 64 rows, 4 a batch rank of the
+        (16, 16) mesh: danube and granite name 2 microbatches, so their
+        counts come from the reference's model over the probes (L, M) =
+        (1, 1), (2, 1), (1, 2), whose FLOPs, bytes and collective bytes lie
+        within 1% of a count of the whole step, their collective counts
+        equal, and the peak (linear in L) within 2% and marked estimated;
+        qwen3 names 16 microbatches, more than a rank's rows, so its step
+        is counted whole, as the sharded step runs one microbatch a
+        row."""
+        _smoke_production(monkeypatch)
+        from repro_torch.configs import lm_common
+        monkeypatch.setitem(lm_common.LM_SHAPES, "train_4k",
+                            dict(kind="train", seq=16, global_batch=64))
+        rec = dryrun.run_cell(arch, "train_4k", mesh="production",
                               verbose=False)
-        assert rec["status"] == "skipped" and rec["chips"] == 256
-        assert "(16, 16)" in rec["reason"] and \
-            "this world has 1" in rec["reason"]
-        # per-device argument bytes under the specs: fsdp x tp shards the
-        # parameters and moments 256 ways, the batch 16 ways
-        whole = dryrun._nbytes(
-            __import__("repro_torch.configs.registry", fromlist=["get"])
-            .get("h2o-danube-1.8b").build("train_4k", False).abstract_args)
-        assert 0 < rec["memory"]["argument_bytes"] < whole / 100
+        plan = registry.get(arch).build("train_4k", False)
+        assert rec["memory"]["argument_bytes"] == \
+            dryrun.per_device_bytes(plan, False)
+        assert rec["memory"]["peak_estimated"] is from_probes
+        if not from_probes:
+            assert rec["cost_from"] == "counted step"
+            return
+        assert rec["cost_from"]["probes"]["M"] == 2
+        whole = dryrun._count_production(plan, False, 0)
+        assert rec["cost"]["flops"] == pytest.approx(
+            whole["cost"]["flops"], rel=1e-2)
+        assert rec["cost"]["bytes_accessed"] == pytest.approx(
+            whole["cost"]["bytes accessed"], rel=1e-2)
+        for k, v in whole["coll"].items():
+            if k.startswith("n_"):
+                assert rec["collectives"][k] == v, k
+            else:
+                assert rec["collectives"][k] == pytest.approx(
+                    v, rel=1e-2), k
+        assert rec["memory"]["temp_bytes"] == pytest.approx(whole["peak"],
+                                                            rel=2e-2)
 
     def test_card_skips_only_what_does_not_fit(self, monkeypatch):
         """A device of 10^9 bytes: a cell whose arguments need more is
@@ -266,16 +331,83 @@ class TestDryRun:
         assert rc == 1 and rec["status"] == "error"
         assert "out of memory" in rec["error"]
 
-    def test_main_production_all_and_skip_done(self, tmp_path):
+    def test_main_production_all_and_skip_done(self, tmp_path,
+                                               monkeypatch):
+        """Every cell on the production mesh at smoke size: the LM and
+        DLRM-RM2 cells run (argument bytes equal to `per_device_bytes`),
+        the long_500k cells of full-attention archs keep their own skip,
+        and the GNN and cpaa cells a skip naming the next slice; a rerun
+        with --skip-done adds nothing."""
+        _smoke_production(monkeypatch)
         out = tmp_path / "d.jsonl"
         assert dryrun.main(["--all", "--out", str(out)]) == 0
         recs = [json.loads(line) for line in out.read_text().splitlines()]
         assert len(recs) == len(all_cells()) == 47
-        assert all(r["status"] == "skipped" for r in recs)
-        own = [r for r in recs if "production mesh" in r["reason"]]
-        assert len(own) == 43
+        ok = [r for r in recs if r["status"] == "ok"]
+        skips = [r for r in recs if r["status"] == "skipped"]
+        assert len(ok) + len(skips) == 47
+        assert {r["arch"] for r in ok} == {
+            "h2o-danube-1.8b", "deepseek-7b", "granite-moe-3b-a800m",
+            "qwen2.5-32b", "qwen3-moe-235b-a22b", "dlrm-rm2"}
+        assert len(ok) == 21
+        for r in ok:
+            plan = registry.get(r["arch"]).build(r["shape"], False)
+            assert r["memory"]["argument_bytes"] == \
+                dryrun.per_device_bytes(plan, False), (r["arch"], r["shape"])
+            assert r["chips"] == 256 and r["roofline"]["chips"] == 256
+        own = [r for r in skips if r["shape"] == "long_500k"]
+        assert len(own) == 4 and all("full-attention" in r["reason"]
+                                     for r in own)
+        later = [r for r in skips if r["shape"] != "long_500k"]
+        assert len(later) == 22
+        assert all("next slice" in r["reason"] for r in later)
+        assert not any("this world has" in r["reason"] for r in skips)
         assert dryrun.main(["--all", "--out", str(out), "--skip-done"]) == 0
         assert len(out.read_text().splitlines()) == 47
+
+    def test_collective_bytes_per_layer_match_the_closed_form(self):
+        """danube-smoke's `forward` as rank 0 of a (2, 4) mesh on a fake
+        world of 8 ranks: the counted collectives are, per layer, the
+        FSDP all-gathers over "data" of its seven weights (each whole
+        along d_model, its own "model" piece of the other dimension), the
+        all-gathers of k and v over "model" (4 heads tile 4 ranks, so q
+        and the attention output stay local) and the two all-reduces of
+        the row-parallel products; and once, the embedding's all-reduce
+        and the logits' all-gather over "model"."""
+        from repro_torch.configs import h2o_danube_1_8b as dan
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.models import transformer as tf
+        cfg = dan.smoke_config()
+        d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
+        h, hkv, vp, n_l = cfg.n_heads, cfg.n_kv_heads, cfg.vocab_padded, \
+            cfg.n_layers
+        dp, tp, b, s = 2, 4, 2, 16           # rank 0's rows of a batch of 4
+        f32 = 4
+        params = tf.init_params(torch.Generator().manual_seed(0), cfg)
+        with cdist.fake_world(dp * tp):
+            mesh = cdist.init_mesh((dp, tp), ("data", "model"), "cpu")
+            with sh.use_mesh(mesh, sharded=True):
+                local = sh.shard_tree(params, sh.lm_param_specs(cfg, False),
+                                      mesh)
+                cdist.reset_collective_counts()
+                tf.forward(local, torch.zeros((b, s), dtype=torch.int32),
+                           cfg)
+                got = cdist.collective_counts()
+        fsdp = (d * h * hd // tp + 2 * d * hkv * hd // tp
+                + h * hd // tp * d + 3 * d * f // tp) * f32
+        act = b * s * d * f32
+        want = {
+            "fsdp/weight/all_gather/data": {"calls": 7 * n_l,
+                                            "bytes": fsdp * n_l},
+            "tp/kv/all_gather/model": {"calls": 2 * n_l,
+                                       "bytes": 2 * b * s * hkv * hd * f32
+                                       * n_l},
+            "tp/leave/all_reduce/model": {"calls": 2 * n_l + 1,
+                                          "bytes": act * (2 * n_l + 1)},
+            "tp/logits/all_gather/model": {"calls": 1,
+                                           "bytes": b * s * vp * f32},
+        }
+        assert got == want
 
     def test_main_card_cli(self, tmp_path):
         out = tmp_path / "d.jsonl"
@@ -288,6 +420,31 @@ class TestDryRun:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             dryrun.run_cell("pna", "molecule", mesh="card", verbose=False)
+
+
+def _smoke_production(monkeypatch) -> None:
+    """Every LM and DLRM-RM2 config module's full_config its smoke config,
+    and the shapes small (a few rows per batch rank), so the production
+    mesh's counted meta steps take seconds."""
+    from repro_torch.configs import dlrm_rm2, lm_common
+    for arch in ("h2o-danube-1.8b", "deepseek-7b", "granite-moe-3b-a800m",
+                 "qwen2.5-32b", "qwen3-moe-235b-a22b", "dlrm-rm2"):
+        mod = registry.get(arch)
+        monkeypatch.setattr(mod, "full_config", mod.smoke_config)
+    monkeypatch.setitem(lm_common.LM_SHAPES, "train_4k",
+                        dict(kind="train", seq=16, global_batch=32))
+    monkeypatch.setitem(lm_common.LM_SHAPES, "prefill_32k",
+                        dict(kind="prefill", seq=32, global_batch=16))
+    monkeypatch.setitem(lm_common.LM_SHAPES, "decode_32k",
+                        dict(kind="decode", seq=64, global_batch=16))
+    monkeypatch.setitem(lm_common.LM_SHAPES, "long_500k",
+                        dict(kind="decode", seq=128, global_batch=1))
+    for shape, info in (("train_batch", dict(kind="train", batch=64)),
+                        ("serve_p99", dict(kind="serve", batch=32)),
+                        ("serve_bulk", dict(kind="serve", batch=64)),
+                        ("retrieval_cand", dict(kind="retrieval", batch=1,
+                                                n_candidates=1024))):
+        monkeypatch.setitem(dlrm_rm2.SHAPES, shape, info)
 
 
 # ----------------------------------------------------------------- roofline --

@@ -1002,3 +1002,105 @@ class TestAnalysisOnCard:
         with pytest.raises(FloatingPointError, match="aten.div"):
             with sanitize.applied({"debug_nans": True}):
                 torch.zeros(4, device=cuda) / torch.zeros(4, device=cuda)
+
+
+@pytest.mark.gpu
+class TestWindowKernelsOnCard:
+    """The window variants of the embedding_bag kernels (one rank's row
+    shard of the table): the lookup bitwise against its plain version at
+    bag size 1 (and within 1e-5 at larger bags), the backward within 1e-5
+    of the sum of |terms| of a float64 plain window version and bitwise
+    from run to run, an id outside the window adding nothing and writing
+    nothing; the whole-table entry points are the window [0, V)."""
+
+    @staticmethod
+    def _case(cuda, rows: int, n_bags: int, bag: int, dim: int, seed: int):
+        rng = np.random.default_rng(seed)
+        table = torch.from_numpy(rng.standard_normal((rows, dim)).astype(
+            np.float32)).to(cuda)
+        ids = torch.from_numpy((rows * rng.random((n_bags, bag)) ** 2)
+                               .astype(np.int32)).to(cuda)
+        g = torch.from_numpy(rng.standard_normal((n_bags, dim)).astype(
+            np.float32)).to(cuda)
+        return table, ids, g
+
+    @pytest.mark.parametrize("row_lo,n_local", [(0, 300), (300, 300),
+                                                (900, 100), (0, 1000),
+                                                (950, 64)])
+    @pytest.mark.parametrize("bag", [1, 3])
+    def test_lookup_window_vs_plain(self, cuda, row_lo, n_local, bag):
+        from repro_torch.kernels.embedding_bag.ops import \
+            embedding_bag_window
+        from repro_torch.kernels.embedding_bag.ref import \
+            embedding_bag_window_ref
+        table, ids, _ = self._case(cuda, 1000, 5000, bag, 64, bag + row_lo)
+        local = torch.zeros((n_local, 64), device=cuda)
+        real = table[row_lo:row_lo + n_local]
+        local[:real.shape[0]] = real
+        before = eb_ops.window_launches()
+        got = embedding_bag_window(ids, local, row_lo)
+        torch.cuda.synchronize()
+        assert eb_ops.window_launches() == before + 1
+        want = embedding_bag_window_ref(ids, local, row_lo)
+        if bag == 1:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        outside = ((ids < row_lo) | (ids >= row_lo + n_local)).all(1)
+        assert not got[outside].any()
+
+    @pytest.mark.parametrize("row_lo,n_local", [(0, 300), (300, 300),
+                                                (900, 100), (0, 1000)])
+    @pytest.mark.parametrize("n_bags,bag", [(5000, 1), (70_000, 1),
+                                            (3000, 4)])
+    def test_backward_window_vs_plain(self, cuda, row_lo, n_local, n_bags,
+                                      bag):
+        from repro_torch.kernels.embedding_bag.ops import \
+            embedding_bag_backward_window
+        from repro_torch.kernels.embedding_bag.ref import \
+            embedding_bag_backward_window_ref
+        _, ids, g = self._case(cuda, 1000, n_bags, bag, 64, n_bags + row_lo)
+        before = eb_ops.window_backward_launches()
+        got = embedding_bag_backward_window(ids, g, row_lo, n_local)
+        again = embedding_bag_backward_window(ids, g, row_lo, n_local)
+        torch.cuda.synchronize()
+        assert eb_ops.window_backward_launches() == before + 2
+        assert torch.equal(got, again)
+        want = embedding_bag_backward_window_ref(ids, g.double(), row_lo,
+                                                 n_local)
+        mag = embedding_bag_backward_window_ref(ids, g.double().abs(),
+                                                row_lo, n_local)
+        err = (got.double() - want).abs()
+        assert bool((err <= 1e-5 * mag + 1e-30).all())
+        read = torch.zeros(n_local, dtype=torch.bool, device=cuda)
+        inside = ids[(ids >= row_lo) & (ids < row_lo + n_local)]
+        read[(inside - row_lo).long()] = True
+        assert not got[~read].any()
+
+    def test_whole_table_is_the_window_from_zero(self, cuda):
+        from repro_torch.kernels.embedding_bag.ops import (
+            embedding_bag_backward, embedding_bag_backward_window,
+            embedding_bag_window)
+        table, ids, g = self._case(cuda, 1000, 20_000, 1, 64, 5)
+        assert torch.equal(embedding_bag(ids, table),
+                           embedding_bag_window(ids, table, 0))
+        assert torch.equal(embedding_bag(ids, table),
+                           table[ids[:, 0].long()])
+        assert torch.equal(embedding_bag_backward(ids, g, 1000),
+                           embedding_bag_backward_window(ids, g, 0, 1000))
+
+    def test_fake_world_runs_cuda_tensors(self, cuda):
+        """One rank of the production mesh on the card: the fake backend
+        takes CUDA tensors and moves nothing."""
+        from repro_torch.core import distributed as cdist
+        from repro_torch.launch import mesh as launch_mesh
+        mesh = launch_mesh.make_production_mesh(device="cuda", fake=True,
+                                                rank=255)
+        try:
+            assert tuple(mesh.mesh.shape) == (16, 16)
+            assert tuple(mesh.get_coordinate()) == (15, 15)
+            x = torch.arange(4.0, device=cuda)
+            out = cdist.all_gather(x, mesh.get_group("model"))
+            assert out.shape == (64,) and out.is_cuda
+        finally:
+            cdist.destroy_world()
