@@ -351,6 +351,7 @@ def read_counts() -> dict:
             "embedding_bag_window": eb_ops.window_launches(),
             "embedding_bag_window_backward":
                 eb_ops.window_backward_launches(),
+            "embedding_bag_window_sort": eb_ops.window_sort_launches(),
             "bsr_spmm_variants": bsr_ops.launches_by_variant(),
             "applies": engine.apply_counts()}
 
@@ -3168,9 +3169,12 @@ def phase_backward_kernel() -> dict:
     per_sm = _build.library(
         "embedding_bag_backward").embedding_bag_backward_blocks_per_sm()
     for fn, line in ptxas_report("embedding_bag_backward").items():
-        name = re.search(r"backward_(pieces|join)ILi(\d)E", fn)
+        name = re.search(r"((?:backward|window)_(?:pieces|join)|"
+                         r"window_histogram|window_digit_pass)I?"
+                         r"((?:L[ib]\d+E)*)", fn)
+        args = ",".join(re.findall(r"L[ib](\d+)E", name[2])) if name else ""
         log(f"[{CARD}] embedding_bag backward ptxas "
-            f"{name[1] if name else fn}<{name[2] if name else '?'}>: {line}")
+            f"{name[1] if name else fn}<{args}>: {line}")
     idx = ids.reshape(-1).long()
     flat = ids.reshape(-1)
 
@@ -4402,16 +4406,27 @@ def m_window_check(ids, table, lo: int, label: str) -> dict:
     """The window kernels at one rank's window of the real table, against
     their plain versions on the same inputs (not counted on the path):
     the lookup bitwise (bags of one row), an id outside the window giving
-    exactly 0; the backward within EB_BWD_TOL of the sum of |terms| of a
-    float64 plain window version, every window row no inside id reads
-    exactly 0, bitwise from launch to launch. Times both and their plain
-    versions."""
+    exactly 0; the backward's index preparation (compaction and radix
+    sort) bitwise; the backward within EB_BWD_TOL of the sum of |terms| of
+    a float64 plain window version, every window row no inside id reads
+    exactly 0, bitwise from launch to launch. Times all three and their
+    plain versions, the backward split into its compaction (the histogram
+    and the first digit pass), its other digit passes and its two passes
+    over the entries inside, beside torch.sort of all the ids and the
+    library's index_add_ into a spare row."""
     import torch
     from repro_torch.kernels.embedding_bag import ops as eb_ops
     from repro_torch.kernels.embedding_bag.ref import (
-        embedding_bag_backward_window_ref, embedding_bag_window_ref)
+        embedding_bag_backward_window_ref, embedding_bag_window_ref,
+        window_sort_ref)
     n_local, dim = table.shape
     inside = (ids >= lo) & (ids < lo + n_local)
+    keys, vals, count = eb_ops.window_sort(ids, lo, n_local)
+    p_keys, p_vals, p_count = window_sort_ref(ids, lo, n_local)
+    n_in = int(p_count)
+    prep_exact = bool(int(count) == n_in
+                      and torch.equal(keys[:n_in], p_keys)
+                      and torch.equal(vals[:n_in], p_vals))
     got = eb_ops.embedding_bag_window(ids, table, lo)
     want = embedding_bag_window_ref(ids, table, lo)
     exact = bool(torch.equal(got, want))
@@ -4433,13 +4448,29 @@ def m_window_check(ids, table, lo: int, label: str) -> dict:
     bitwise = bool(torch.equal(gb, again))
     del w64, mag, again
     # the kernels' device time (at a rank's 106,496 ids a call's host time
-    # hides them, `_device_ms`): the lookup's kernel; the backward's sort
-    # and its two passes into a gradient already zero (the wrapper's zero
-    # fill of the shard's n_local x D floats is left out), the sort alone
-    # beside. The plain versions and the whole calls between CUDA events.
+    # hides them, `_device_ms`): the lookup's kernel; the backward's index
+    # preparation and its two passes into a gradient already zero (the
+    # wrapper's zero fill of the shard's n_local x D floats is left out),
+    # each part alone beside. The plain versions and the whole calls
+    # between CUDA events.
     ms = _device_ms(lambda: eb_ops._launch(ids, table, None, lo))
     ms_b = _device_ms(lambda: eb_ops._launch_backward(ids, g, gb, None, lo))
     sort_b = _device_ms(lambda: torch.sort(ids.reshape(-1), stable=True))
+    flat = ids.reshape(-1)
+    prep_ms = _device_ms(lambda: eb_ops._launch_window_sort(flat, lo,
+                                                            n_local))
+    compact_ms = _device_ms(lambda: eb_ops._launch_window_sort(
+        flat, lo, n_local, passes=1))
+    passes_ms = _device_ms(lambda: eb_ops._launch_window_passes(
+        keys, vals, count, ids, g, gb, None))
+    prep_plain = time_ms(lambda: window_sort_ref(ids, lo, n_local), 5)
+    # the library: one index_add_ into [n_local + 1, D], the ids outside
+    # mapped to the spare last row (the mapping not timed)
+    spare = torch.zeros((n_local + 1, dim), device=ids.device)
+    local = flat.long() - lo
+    local = torch.where((local >= 0) & (local < n_local), local, n_local)
+    lib_b = _device_ms(lambda: spare.index_add_(0, local, g))
+    del spare, local
     plain_ms = time_ms(lambda: embedding_bag_window_ref(ids, table, lo), 5)
     plain_b = time_ms(lambda: embedding_bag_backward_window_ref(
         ids, g, lo, n_local), 5)
@@ -4450,7 +4481,9 @@ def m_window_check(ids, table, lo: int, label: str) -> dict:
         lambda: eb_ops._lookup_cost(ids, got, lo, n_local))
     bwd_b, bwd_by = _window_bound(
         lambda: eb_ops._backward_cost(ids, dim, lo, n_local))
-    n_in = int(inside.sum())
+    # the preparation: each id read once, each key and value written once
+    prep_b, prep_by = bound(4 * (flat.numel() + 2 * n_in) / HBM_BYTES_PER_S
+                            * 1e3, 0.0)
     log(f"[{CARD}] M-b {label} window [{lo:,}, {lo + n_local:,}) of "
         f"{ids.numel():,} ids ({n_in:,} inside): lookup bitwise vs plain "
         f"{exact}, outside ids give 0 {zero_out}, device {ms:.4f} ms "
@@ -4462,7 +4495,18 @@ def m_window_check(ids, table, lo: int, label: str) -> dict:
         f"(torch.sort alone {sort_b:.4f}; plain {plain_b:.4f}, bound "
         f"{bwd_b:.4f} by {bwd_by}; the whole call {call_b:.4f} ms between "
         f"CUDA events)")
+    log(f"[{CARD}] M-b {label} window backward split (device ms, queued "
+        f"behind a spin kernel): preparation {prep_ms:.4f} ("
+        f"{eb_ops.sort_passes(n_local)}"
+        f" digit passes; compaction, the histogram and the first pass, "
+        f"{compact_ms:.4f}; the other passes {prep_ms - compact_ms:.4f}), "
+        f"the two passes over the {n_in:,} entries inside {passes_ms:.4f}; "
+        f"beside torch.sort of all {flat.numel():,} ids alone {sort_b:.4f}"
+        f"; library index_add_ into [{n_local + 1:,}, {dim}] {lib_b:.4f}; "
+        f"preparation bitwise vs plain {prep_exact} (plain {prep_plain:.4f}"
+        f" ms, bound {prep_b:.4f} by {prep_by})")
     check(exact and zero_out, f"M-b {label}: window lookup vs plain")
+    check(prep_exact, f"M-b {label}: window preparation vs plain")
     check(share <= EB_BWD_TOL and zero_rows and bitwise,
           f"M-b {label}: window backward {share:.3e}, rows {zero_rows}, "
           f"bitwise {bitwise}")
@@ -4472,7 +4516,12 @@ def m_window_check(ids, table, lo: int, label: str) -> dict:
                         (got - want).abs().max())},
             "bwd": {"ms": ms_b, "plain_ms": plain_b, "bound_ms": bwd_b,
                     "bound_by": bwd_by, "call_ms": call_b,
-                    "sort_ms": sort_b, "err": err_b}}
+                    "library_ms": lib_b, "torch_sort_ms": sort_b,
+                    "split_ms": {"compaction": compact_ms,
+                                 "sort": prep_ms - compact_ms,
+                                 "passes": passes_ms}, "err": err_b},
+            "prep": {"ms": prep_ms, "plain_ms": prep_plain,
+                     "bound_ms": prep_b, "bound_by": prep_by, "err": 0.0}}
 
 
 def _device_ms(fn, calls: int = 20) -> float:
@@ -4537,7 +4586,8 @@ def phase_slice_m_ranks() -> dict:
     specs = sh.dlrm_param_specs(params, False)
     opt_cfg = AdamWConfig(lr=1e-3)
     launches, windows = {"embedding_bag_window": 0,
-                         "embedding_bag_window_backward": 0}, {}
+                         "embedding_bag_window_backward": 0,
+                         "embedding_bag_window_sort": 0}, {}
     for rank in (0, 255):
         mesh = make_production_mesh(device=dev, fake=True, rank=rank)
         try:
@@ -4559,6 +4609,7 @@ def phase_slice_m_ranks() -> dict:
                     launches[k] += n[k]
                 check(n["embedding_bag_window"] >= 1 and
                       n["embedding_bag_window_backward"] >= 1 and
+                      n["embedding_bag_window_sort"] >= 1 and
                       n["embedding_bag"] == n["embedding_bag_backward"] == 0,
                       f"M-b DLRM rank {rank}: launches {n}")
                 loss = float(metrics["loss"])
@@ -4572,7 +4623,8 @@ def phase_slice_m_ranks() -> dict:
                     f"{lo + local['table'].shape[0]:,}), local loss "
                     f"{loss:.6f}; launches {n['embedding_bag_window']} "
                     f"window lookup, {n['embedding_bag_window_backward']} "
-                    f"window backward")
+                    f"window backward, {n['embedding_bag_window_sort']} "
+                    f"window sort")
                 check(np.isfinite(loss), f"M-b DLRM rank {rank}: loss")
                 ids = mine["sparse_ids"].reshape(-1, cfg.bag_size)
                 windows[rank] = m_window_check(ids, local["table"], lo,
@@ -5152,10 +5204,23 @@ def main() -> int:
              "embedding_bag_window_backward"]},
          "max_abs_err": m_win["bwd"]["err"],
          "ms": m_win["bwd"]["ms"], "call_ms": m_win["bwd"]["call_ms"],
-         "sort_ms": m_win["bwd"]["sort_ms"],
+         "split_ms": m_win["bwd"]["split_ms"],
+         "torch_sort_ms": m_win["bwd"]["torch_sort_ms"],
          "plain_ms": m_win["bwd"]["plain_ms"],
          "bound_ms": m_win["bwd"]["bound_ms"],
-         "bound_by": m_win["bwd"]["bound_by"], "library_ms": None},
+         "bound_by": m_win["bwd"]["bound_by"],
+         "library_ms": m_win["bwd"]["library_ms"]},
+        {"name": "embedding_bag_window_sort", "route": "cuda",
+         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                   "embedding_bag_backward.cu",
+         "replaces": "src/repro/models/recsys/dlrm.py:104",
+         "launches": m["launches"]["embedding_bag_window_sort"],
+         "launches_by_path": {"slice_m": m["launches"][
+             "embedding_bag_window_sort"]},
+         "max_abs_err": m_win["prep"]["err"],
+         "ms": m_win["prep"]["ms"], "plain_ms": m_win["prep"]["plain_ms"],
+         "bound_ms": m_win["prep"]["bound_ms"],
+         "bound_by": m_win["prep"]["bound_by"], "library_ms": None},
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

@@ -18,13 +18,18 @@ Window variants. Under the row-sharded layout P("model", None) a rank
 holds rows [row_lo, row_lo + n_local) of the table. `embedding_bag_window`
 and `embedding_bag_backward_window` take that shard: an id outside the
 window adds nothing to the lookup and writes nothing in the backward
-(the test is in each kernel's inner loop; `ref.py` has their plain
-versions). They launch the same two kernels, instantiated with the test
-(`embedding_bag_window_f32`, `embedding_bag_backward_window_f32`), and
-count on counters of their own (`window_launches`,
-`window_backward_launches`). The whole-table entry points are the window
-[0, V), which every id passes: there the kernels are instantiated
-without the test, as before they took a window (the same bits).
+(`ref.py` has their plain versions). The lookup launches its kernel
+instantiated with the test in its inner loop (`embedding_bag_window_f32`).
+The backward first compacts the entries inside the window and sorts their
+local rows on the card (`window_sort`, kernels of its own at the end of
+`csrc/embedding_bag_backward.cu`, counted by `window_sort_launches`), then
+launches its window passes over them only
+(`embedding_bag_backward_window_f32`), which compute their chunk plan from
+the count of those entries on the card: no host read. Each counts on a
+counter of its own (`window_launches`, `window_backward_launches`). The
+whole-table entry points are the window [0, V), which every id passes: the
+lookup's kernel is instantiated there without the test, and the window
+backward gives the whole-table kernel's bits.
 
 On meta tensors (the dry-run) nothing is launched or counted: the
 wrappers return meta outputs and report the cost the kernel would have,
@@ -40,12 +45,13 @@ import torch
 from repro_torch.kernels import _build, cost
 from repro_torch.kernels.embedding_bag.ref import (
     embedding_bag_backward_ref, embedding_bag_backward_window_ref,
-    embedding_bag_ref, embedding_bag_window_ref)
+    embedding_bag_ref, embedding_bag_window_ref, window_sort_ref)
 
 __all__ = ["embedding_bag", "embedding_bag_backward", "embedding_bag_window",
            "embedding_bag_backward_window", "backward_plan", "launches",
            "backward_launches", "window_launches",
-           "window_backward_launches", "reset_launches"]
+           "window_backward_launches", "window_sort", "sort_passes",
+           "window_sort_launches", "reset_launches"]
 
 # The backward kernel's chunk plan (csrc/embedding_bag_backward.cu): one
 # warp per chunk of sorted entries, each chunk at least TILE entries (the
@@ -55,10 +61,18 @@ __all__ = ["embedding_bag", "embedding_bag_backward", "embedding_bag_window",
 TILE = 256
 CHUNKS = 132 * 4 * 8
 
+# The window's index preparation (embedding_bag_window_sort): an LSD
+# radix sort of SORT_DIGIT_BITS bits a pass over tiles of SORT_TILE entries;
+# its scratch is SORT_HEAD words (the count, tickets, digit counts), then
+# each pass's look-back words, 2^SORT_DIGIT_BITS per tile.
+SORT_TILE = 2048
+SORT_DIGIT_BITS = 8
+SORT_HEAD = 1032
+
 # launches since the last reset_launches(), by (kernel, entry point)
 _COUNTS = {"lookup": 0, "backward": 0, "lookup_window": 0,
-           "backward_window": 0}
-_FNS: dict = {}       # (library, window) -> the bound C function
+           "backward_window": 0, "window_sort": 0}
+_FNS: dict = {}       # C function name -> the bound function
 
 
 def launches() -> int:
@@ -80,8 +94,16 @@ def window_launches() -> int:
 
 def window_backward_launches() -> int:
     """Backward kernel launches of `embedding_bag_backward_window` (and of
-    the window lookup's autograd backward)."""
+    the window lookup's autograd backward): one per call, its
+    preparation and its two passes together."""
     return _COUNTS["backward_window"]
+
+
+def window_sort_launches() -> int:
+    """Launches of the window's index preparation (`window_sort`, and one
+    in each window backward call): one per call, its histogram and digit
+    passes together."""
+    return _COUNTS["window_sort"]
 
 
 def reset_launches() -> None:
@@ -90,18 +112,16 @@ def reset_launches() -> None:
         _COUNTS[k] = 0
 
 
-def _c_function(lib: str, window: bool, n_ptrs: int, n_ints: int):
-    """The C entry point of library `lib` (its window variant, which takes
-    row_lo and n_local after the other integers), bound once."""
-    key = (lib, window)
-    if key not in _FNS:
-        fn = getattr(_build.library(lib),
-                     lib + ("_window_f32" if window else "_f32"))
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] * (
-            n_ints + (2 if window else 0)) + [ctypes.c_void_p]
+def _c_function(lib: str, name: str, n_ptrs: int, n_ints: int):
+    """The C entry point `name` of library `lib`, taking n_ptrs pointers,
+    n_ints int64 and the stream, bound once."""
+    if name not in _FNS:
+        fn = getattr(_build.library(lib), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int64] * \
+            n_ints + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _FNS[key] = fn
-    return _FNS[key]
+        _FNS[name] = fn
+    return _FNS[name]
 
 
 def _check(ids: torch.Tensor, table: torch.Tensor,
@@ -148,7 +168,8 @@ def _launch(ids: torch.Tensor, table: torch.Tensor,
     if out.numel() == 0:
         return out
     window = row_lo is not None
-    fn = _c_function("embedding_bag", window, 4, 3)
+    fn = _c_function("embedding_bag", "embedding_bag_window_f32" if window
+                     else "embedding_bag_f32", 4, 5 if window else 3)
     rows = (row_lo, table.shape[0]) if window else ()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
@@ -218,26 +239,98 @@ def backward_plan(n: int) -> tuple[int, int]:
     return chunk, -(-n // chunk)
 
 
-def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
-                     grad: torch.Tensor, weights: torch.Tensor | None,
-                     row_lo: int | None = None) -> torch.Tensor:
-    """Write every row of grad [V, D] (or, row_lo given, of grad [n_local,
-    D], rows [row_lo, row_lo + n_local) of the table's gradient) that
-    `ids` touch (the other rows are left as they are: the caller
-    zero-fills them) and return grad."""
-    _check(ids, grad, weights)
-    if grad_out.dtype != torch.float32 or grad_out.device != grad.device \
-            or not grad_out.is_contiguous() or \
-            tuple(grad_out.shape) != (ids.shape[0], grad.shape[1]):
-        raise ValueError(f"embedding_bag backward: grad_out must be "
-                         f"contiguous float32 {(ids.shape[0], grad.shape[1])}"
-                         f" on {grad.device}, got {grad_out.dtype} "
-                         f"{tuple(grad_out.shape)} on {grad_out.device}")
+def sort_passes(n_local: int) -> int:
+    """Digit passes of the window's sort: enough SORT_DIGIT_BITS digits for
+    the significant bits of the largest local row, n_local - 1 (at least
+    one pass, which also compacts)."""
+    bits = max(int(n_local) - 1, 0).bit_length()
+    return max(1, -(-bits // SORT_DIGIT_BITS))
+
+
+def _launch_window_sort(ids: torch.Tensor, row_lo: int, n_local: int,
+                        passes: int | None = None):
+    """The window's index preparation on the card over the flat int32 ids
+    [n]: (keys, vals, n_in), each int32, keys and vals [n] of which the
+    first n_in (a [1] tensor, never read back here) hold the result.
+    `passes` (default `sort_passes(n_local)`) is lowered only to time the
+    first pass alone: the keys are then sorted by their low digit only."""
+    n = ids.numel()
+    if n >= 1 << 30:
+        raise ValueError(f"window_sort: {n} ids, at most 2^30 - 1")
+    if row_lo < 0 or n_local < 1:
+        raise ValueError(f"window_sort: window [{row_lo}, "
+                         f"{row_lo + n_local})")
+    passes = passes or sort_passes(n_local)
+    buf = torch.empty((4, n), dtype=torch.int32, device=ids.device)
+    scratch = torch.empty(SORT_HEAD + passes * -(-n // SORT_TILE)
+                          * 2 ** SORT_DIGIT_BITS, dtype=torch.int32,
+                          device=ids.device)
+    fn = _c_function("embedding_bag_backward", "embedding_bag_window_sort",
+                     6, 5)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream(ids.device).cuda_stream
+        err = fn(ids.data_ptr(), *(b.data_ptr() for b in buf),
+                 scratch.data_ptr(), n, row_lo, n_local, passes,
+                 scratch.numel(), stream)
+    if err != 0:
+        raise RuntimeError(f"window_sort: kernel launch failed with CUDA "
+                           f"error {err}")
+    _COUNTS["window_sort"] += 1
+    return buf[0], buf[1], scratch[:1]
+
+
+def window_sort(ids: torch.Tensor, row_lo: int, n_local: int):
+    """The window backward's index preparation: of the flat ids, the
+    entries whose id lies in [row_lo, row_lo + n_local), as (keys, vals,
+    n_in): keys their local rows id - row_lo in ascending order, vals their
+    flat positions (int32), in position order among equal keys (a stable
+    sort), n_in their count (int32 [1]). On CPU tensors the plain version
+    (`ref.window_sort_ref`: keys and vals [n_in]); on CUDA tensors the
+    compaction and radix sort kernels, which leave n_in on the card, so
+    keys and vals keep the length n of the ids and only their first n_in
+    entries are the result."""
+    ids = ids.to(torch.int32)
+    if ids.device.type == "cuda":
+        return _launch_window_sort(ids.reshape(-1).contiguous(), int(row_lo),
+                                   int(n_local))
+    if ids.device.type == "cpu":
+        return window_sort_ref(ids, int(row_lo), int(n_local))
+    raise ValueError(f"window_sort: ids on {ids.device}")
+
+
+def _launch_window_passes(keys: torch.Tensor, perm: torch.Tensor,
+                          n_in: torch.Tensor, ids: torch.Tensor,
+                          grad_out: torch.Tensor, grad: torch.Tensor,
+                          weights: torch.Tensor | None) -> None:
+    """The window backward's two passes over `_launch_window_sort`'s output
+    for `ids` into the window's grad [n_local, D]."""
     n, dim = ids.numel(), grad.shape[1]
-    if n == 0 or dim == 0:
-        return grad
-    window = row_lo is not None
-    fn = _c_function("embedding_bag_backward", window, 7, 4)
+    # each chunk's head and tail partials and the piece it carries from one
+    # staged tile to the next, sized for the plan of all n
+    parts = torch.empty((3, min(CHUNKS, -(-n // TILE)), dim),
+                        dtype=torch.float32, device=grad.device)
+    fn = _c_function("embedding_bag_backward",
+                     "embedding_bag_backward_window_f32", 9, 3)
+    with torch.cuda.device(grad.device):
+        stream = torch.cuda.current_stream(grad.device).cuda_stream
+        err = fn(keys.data_ptr(), perm.data_ptr(), n_in.data_ptr(),
+                 None if weights is None else weights.data_ptr(),
+                 grad_out.data_ptr(), grad.data_ptr(),
+                 *(part.data_ptr() for part in parts), n, ids.shape[1], dim,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"embedding_bag backward: kernel launch failed "
+                           f"with CUDA error {err}")
+
+
+def _launch_whole_table(ids: torch.Tensor, grad_out: torch.Tensor,
+                        grad: torch.Tensor,
+                        weights: torch.Tensor | None) -> None:
+    """The whole-table backward: torch.sort of the flat ids, then the
+    kernel's two passes into grad [V, D]."""
+    n, dim = ids.numel(), grad.shape[1]
+    fn = _c_function("embedding_bag_backward", "embedding_bag_backward_f32",
+                     7, 4)
     # index preparation: the entries of one id, in position order
     sorted_ids, perm = torch.sort(ids.reshape(-1), stable=True)
     chunk, n_chunks = backward_plan(n)
@@ -249,12 +342,40 @@ def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
         err = fn(sorted_ids.data_ptr(), perm.data_ptr(),
                  None if weights is None else weights.data_ptr(),
                  grad_out.data_ptr(), grad.data_ptr(), head.data_ptr(),
-                 tail.data_ptr(), n, chunk, ids.shape[1], dim,
-                 *((row_lo, grad.shape[0]) if window else ()), stream)
+                 tail.data_ptr(), n, chunk, ids.shape[1], dim, stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag backward: kernel launch failed "
                            f"with CUDA error {err}")
-    _COUNTS["backward_window" if window else "backward"] += 1
+
+
+def _launch_backward(ids: torch.Tensor, grad_out: torch.Tensor,
+                     grad: torch.Tensor, weights: torch.Tensor | None,
+                     row_lo: int | None = None) -> torch.Tensor:
+    """Write every row of grad [V, D] (or, row_lo given, of grad [n_local,
+    D], rows [row_lo, row_lo + n_local) of the table's gradient) that
+    `ids` touch (the other rows are left as they are: the caller
+    zero-fills them) and return grad. Nothing is read back to the host."""
+    _check(ids, grad, weights)
+    if grad_out.dtype != torch.float32 or grad_out.device != grad.device \
+            or not grad_out.is_contiguous() or \
+            tuple(grad_out.shape) != (ids.shape[0], grad.shape[1]):
+        raise ValueError(f"embedding_bag backward: grad_out must be "
+                         f"contiguous float32 {(ids.shape[0], grad.shape[1])}"
+                         f" on {grad.device}, got {grad_out.dtype} "
+                         f"{tuple(grad_out.shape)} on {grad_out.device}")
+    n, dim = ids.numel(), grad.shape[1]
+    window = row_lo is not None
+    if n == 0 or dim == 0 or grad.shape[0] == 0:
+        return grad
+    if window:
+        keys, perm, n_in = _launch_window_sort(ids.reshape(-1), row_lo,
+                                               grad.shape[0])
+        _launch_window_passes(keys, perm, n_in, ids, grad_out, grad,
+                              weights)
+        _COUNTS["backward_window"] += 1
+    else:
+        _launch_whole_table(ids, grad_out, grad, weights)
+        _COUNTS["backward"] += 1
     if cost.active():
         n_local = grad.shape[0] if window else None
         cost.report("embedding_bag_backward",
@@ -317,9 +438,10 @@ def embedding_bag_backward_window(ids: torch.Tensor, grad_out: torch.Tensor,
     """`embedding_bag_backward` into rows [row_lo, row_lo + n_local) of the
     table's gradient only: a dense float32 [n_local, D] where an id
     outside the window writes nothing. On CPU tensors the plain version
-    (`ref.embedding_bag_backward_window_ref`), on CUDA tensors the
-    backward kernel with that window; `n_rows_total` serves only a meta
-    call's cost estimate."""
+    (`ref.embedding_bag_backward_window_ref`), on CUDA tensors
+    `window_sort` and the backward kernel's window passes over the entries
+    inside, with no host read; `n_rows_total` serves only a meta call's
+    cost estimate."""
     share = n_local / n_rows_total if n_rows_total else 1.0
     return _backward(ids, grad_out, int(n_local), weights, int(row_lo),
                      share)

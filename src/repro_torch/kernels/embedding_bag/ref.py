@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the embedding-bag lookup, gather + weighted
 sum (the same function as `repro.kernels.embedding_bag.ref`), and of its
-table gradient, a scatter-add (`index_add_`); and of both over a window of
+table gradient, a scatter-add (`index_add_`); of both over a window of
 the table's rows (one rank's row shard), where an id outside the window
-adds nothing."""
+adds nothing; and of the window backward's index preparation."""
 from __future__ import annotations
 
 import torch
@@ -61,6 +61,19 @@ def embedding_bag_window_ref(ids: torch.Tensor, table: torch.Tensor,
     return rows.sum(dim=1)
 
 
+def window_sort_ref(ids: torch.Tensor, row_lo: int, n_local: int):
+    """The window backward's index preparation: of the flat ids, the
+    entries whose id lies in [row_lo, row_lo + n_local), as (keys, vals,
+    n_in): keys int32 [n_in] their local rows id - row_lo in ascending
+    order, vals int32 [n_in] their flat positions, in position order among
+    equal keys (a stable sort), n_in int32 [1] their count."""
+    flat = ids.reshape(-1).long()
+    pos = torch.nonzero((flat >= row_lo) & (flat < row_lo + n_local))[:, 0]
+    keys, order = torch.sort(flat[pos] - row_lo, stable=True)
+    n_in = torch.tensor([pos.numel()], dtype=torch.int32, device=ids.device)
+    return keys.to(torch.int32), pos[order].to(torch.int32), n_in
+
+
 def embedding_bag_backward_window_ref(ids: torch.Tensor,
                                       grad_out: torch.Tensor, row_lo: int,
                                       n_local: int,
@@ -68,14 +81,15 @@ def embedding_bag_backward_window_ref(ids: torch.Tensor,
                                       ) -> torch.Tensor:
     """`embedding_bag_backward_ref` into rows [row_lo, row_lo + n_local)
     of the table's gradient: [n_local, D], an id outside the window
-    writing nothing."""
-    b, bag = ids.shape
-    inside, local = _window(ids, row_lo, n_local)
-    contrib = grad_out[:, None, :].expand(b, bag, grad_out.shape[1])
+    writing nothing. Through the index preparation (`window_sort_ref`):
+    one `index_add_` of the entries inside, each row's terms in position
+    order."""
+    keys, pos, _ = window_sort_ref(ids, row_lo, n_local)
+    pos = pos.long()
+    contrib = grad_out.index_select(0, pos // ids.shape[1])
     if weights is not None:
-        contrib = contrib * weights.unsqueeze(-1).to(grad_out.dtype)
-    keep = inside.reshape(-1)
+        contrib = contrib * weights.reshape(-1)[pos].unsqueeze(-1).to(
+            grad_out.dtype)
     grad = torch.zeros((n_local, grad_out.shape[1]), dtype=grad_out.dtype,
                        device=grad_out.device)
-    return grad.index_add_(0, local.reshape(-1)[keep],
-                           contrib.reshape(b * bag, -1)[keep])
+    return grad.index_add_(0, keys.long(), contrib)

@@ -6,6 +6,10 @@ package, so it also runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import hashlib
+import json
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +24,34 @@ from repro_torch.kernels.cheb_step.ref import cheb_step_ref
 from repro_torch.kernels.embedding_bag import ops as eb_ops
 from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+
+
+# One seeded train_batch-shaped case of the whole-table backward: DLRM-RM2's
+# 1,703,936 entries (65,536 samples x 26 bags of one row) of power-law ids
+# over 2^22 rows, D = 64. tests/fixtures/eb_backward_whole_table.json holds
+# it and the digest of the kernel's output from the source before the window
+# backward's redesign (probes/eb_window_backward_probe.py wrote it).
+WHOLE_TABLE_CASE = {"seed": 0, "entries": 65_536 * 26, "rows": 1 << 22,
+                    "dim": 64, "power": 3}
+
+
+def whole_table_case(device):
+    """(spec, ids [n, 1] int32, grad_out [n, D] f32) of WHOLE_TABLE_CASE,
+    made with numpy, on `device`."""
+    spec = dict(WHOLE_TABLE_CASE)
+    rng = np.random.default_rng(spec["seed"])
+    ids = (spec["rows"] * rng.random((spec["entries"], 1))
+           ** spec["power"]).astype(np.int32)
+    g = rng.standard_normal((spec["entries"], spec["dim"]), dtype=np.float32)
+    return (spec, torch.from_numpy(ids).to(device),
+            torch.from_numpy(g).to(device))
+
+
+def touched_digest(grad: torch.Tensor, ids: torch.Tensor) -> str:
+    """sha256 of the bytes of the rows of grad that ids touch, in row
+    order."""
+    rows = torch.unique(ids.reshape(-1)).long()
+    return hashlib.sha256(grad[rows].cpu().numpy().tobytes()).hexdigest()
 
 
 @pytest.fixture
@@ -1011,7 +1043,10 @@ class TestWindowKernelsOnCard:
     bag size 1 (and within 1e-5 at larger bags), the backward within 1e-5
     of the sum of |terms| of a float64 plain window version and bitwise
     from run to run, an id outside the window adding nothing and writing
-    nothing; the whole-table entry points are the window [0, V)."""
+    nothing; the backward's index preparation (compaction and radix sort)
+    bitwise against its plain version, and no host read on its path; the
+    whole-table entry points are the window [0, V), and the whole-table
+    backward keeps its bits."""
 
     @staticmethod
     def _case(cuda, rows: int, n_bags: int, bag: int, dim: int, seed: int):
@@ -1076,6 +1111,123 @@ class TestWindowKernelsOnCard:
         inside = ids[(ids >= row_lo) & (ids < row_lo + n_local)]
         read[(inside - row_lo).long()] = True
         assert not got[~read].any()
+
+    @pytest.mark.parametrize("row_lo,n_local", [(0, 300), (300, 300),
+                                                (900, 100), (0, 1000),
+                                                (2000, 100), (0, 1 << 26)])
+    @pytest.mark.parametrize("n_bags,bag", [(5000, 1), (70_000, 1),
+                                            (3000, 4)])
+    def test_window_sort_vs_plain(self, cuda, row_lo, n_local, n_bags, bag):
+        """The compaction and radix sort bitwise against the plain
+        preparation: windows of 1 to 4 digit passes, one no id lies in
+        (n_in = 0), 3 to 35 tiles."""
+        from repro_torch.kernels.embedding_bag.ops import window_sort
+        from repro_torch.kernels.embedding_bag.ref import window_sort_ref
+        _, ids, _ = self._case(cuda, 1000, n_bags, bag, 64, n_bags + row_lo)
+        before = eb_ops.window_sort_launches()
+        keys, vals, n_in = window_sort(ids, row_lo, n_local)
+        torch.cuda.synchronize()
+        assert eb_ops.window_sort_launches() == before + 1
+        want_keys, want_vals, want_n = window_sort_ref(ids, row_lo, n_local)
+        n = int(want_n)
+        assert int(n_in) == n and keys.shape == vals.shape == (ids.numel(),)
+        assert torch.equal(keys[:n], want_keys)
+        assert torch.equal(vals[:n], want_vals)
+
+    def test_window_sort_at_train_batch_size(self, cuda):
+        """1,703,936 uniform ids over 2^25 rows, a window of 2^24 of them
+        from 2^23 (3 digit passes over ~half of the ids, 832 tiles of
+        look-back), bitwise against the plain preparation."""
+        from repro_torch.kernels.embedding_bag.ops import window_sort
+        from repro_torch.kernels.embedding_bag.ref import window_sort_ref
+        rng = np.random.default_rng(17)
+        ids = torch.from_numpy(rng.integers(0, 1 << 25, (65_536 * 26, 1))
+                               .astype(np.int32)).to(cuda)
+        keys, vals, n_in = window_sort(ids, 1 << 23, 1 << 24)
+        want_keys, want_vals, want_n = window_sort_ref(ids, 1 << 23,
+                                                       1 << 24)
+        n = int(want_n)
+        assert int(n_in) == n and 0.4 * ids.numel() < n < 0.6 * ids.numel()
+        assert torch.equal(keys[:n], want_keys)
+        assert torch.equal(vals[:n], want_vals)
+
+    @pytest.mark.parametrize("dim,weighted,power", [(8, False, 1.0),
+                                                    (3, True, 3.0)])
+    def test_window_chunks_of_several_tiles(self, cuda, dim, weighted,
+                                            power):
+        """8,840,000 entries all inside [0, 1000): chunks of 2,093 entries,
+        more than one block stages at once, so pieces run on from tile to
+        tile (every row has ~8,840 entries); bitwise the whole-table
+        kernel."""
+        from repro_torch.kernels.embedding_bag.ops import (
+            embedding_bag_backward, embedding_bag_backward_window)
+        assert eb_ops.backward_plan(340_000 * 26)[0] > 8 * eb_ops.TILE
+        rng = np.random.default_rng(dim)
+        ids = (1000 * rng.random((340_000, 26)) ** power).astype(np.int32)
+        ids, g, w = TestTrainingOnCard._case(cuda, ids, dim, weighted, rng)
+        got = embedding_bag_backward_window(ids, g, 0, 1000, w)
+        assert torch.equal(got, embedding_bag_backward(ids, g, 1000, w))
+
+    def test_backward_window_a_warp_to_a_chunk(self, cuda):
+        """300,000 ids: a plan of more than 528 chunks, so the window's
+        pieces pass gives each chunk one warp (fewer, a block); held as the
+        block's path is, and bitwise the whole-table kernel on [0, V)."""
+        from repro_torch.kernels.embedding_bag.ops import (
+            embedding_bag_backward, embedding_bag_backward_window)
+        from repro_torch.kernels.embedding_bag.ref import \
+            embedding_bag_backward_window_ref
+        _, ids, g = self._case(cuda, 1000, 300_000, 1, 64, 21)
+        assert -(-ids.numel() // eb_ops.TILE) > 132 * 4
+        got = embedding_bag_backward_window(ids, g, 300, 300)
+        assert torch.equal(got, embedding_bag_backward_window(ids, g, 300,
+                                                              300))
+        want = embedding_bag_backward_window_ref(ids, g.double(), 300, 300)
+        mag = embedding_bag_backward_window_ref(ids, g.double().abs(), 300,
+                                                300)
+        assert bool(((got.double() - want).abs() <= 1e-5 * mag
+                     + 1e-30).all())
+        assert torch.equal(embedding_bag_backward_window(ids, g, 0, 1000),
+                           embedding_bag_backward(ids, g, 1000))
+
+    def test_backward_window_with_no_id_inside(self, cuda):
+        from repro_torch.kernels.embedding_bag.ops import \
+            embedding_bag_backward_window
+        _, ids, g = self._case(cuda, 1000, 5000, 2, 64, 11)
+        before = eb_ops.window_backward_launches()
+        got = embedding_bag_backward_window(ids, g, 5000, 200)
+        torch.cuda.synchronize()
+        assert eb_ops.window_backward_launches() == before + 1
+        assert got.shape == (200, 64) and not got.any()
+
+    def test_backward_window_reads_nothing_back(self, cuda):
+        """The window backward, alone and as the window lookup's autograd
+        backward, under the sync debug mode "error": no host read."""
+        from repro_torch.kernels.embedding_bag.ops import (
+            embedding_bag_backward_window, embedding_bag_window)
+        table, ids, g = self._case(cuda, 1000, 20_000, 1, 64, 13)
+        local = table[300:600].clone().requires_grad_(True)
+        want = embedding_bag_backward_window(ids, g, 300, 300)   # warm
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = embedding_bag_backward_window(ids, g, 300, 300)
+            (embedding_bag_window(ids, local, 300) * g).sum().backward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(got, want) and torch.equal(local.grad, want)
+
+    def test_whole_table_backward_bits_unchanged(self, cuda):
+        """The whole-table kernel gives the bits it gave before the window
+        backward's redesign: the digest of its touched rows on
+        WHOLE_TABLE_CASE, saved from the earlier source."""
+        from repro_torch.kernels.embedding_bag.ops import \
+            embedding_bag_backward
+        fixture = json.loads((Path(__file__).parent / "fixtures" /
+                              "eb_backward_whole_table.json").read_text())
+        spec, ids, g = whole_table_case(cuda)
+        assert {k: fixture[k] for k in spec} == spec
+        got = embedding_bag_backward(ids, g, spec["rows"])
+        assert touched_digest(got, ids) == fixture["sha256"]
 
     def test_whole_table_is_the_window_from_zero(self, cuda):
         from repro_torch.kernels.embedding_bag.ops import (
