@@ -203,8 +203,7 @@ package. Phases, each of which must pass:
      mesh}.py`; no kernel of its own), TF32 off:
      - K-a: every registry cell, single-pod and multi-pod, through the
        dry-run's abstract pass under the production mesh (the plan's
-       per-device argument bytes from the specs; the GNN and cpaa cells a
-       skip naming the next slice) and
+       per-device argument bytes from the specs) and
        the card's (1, 1) mesh (a skip only for "does not fit", naming
        both byte counts): every plan on meta tensors, no error, the fit
        table printed; qwen2.5-32b, qwen3-moe-235b-a22b and deepseek-7b's
@@ -245,10 +244,13 @@ package. Phases, each of which must pass:
        1 (1D and 2D rel err <= 1e-5 vs the single-device solve).
  15. slice M, tensor and FSDP parallelism under the reference's sharding
      plans (`distributed/{sharding,parallel}.py`, the sharded models, the
-     window variants of both embedding_bag kernels):
+     window variants of both embedding_bag kernels), and the GNNs'
+     partitioned message passing and the rank-local CPAA steps (no kernel
+     of their own: the reference runs them on XLA ops):
      - M-a: the production dry-run (`run_cell(...,
-       mesh="production")`) of every dlrm-rm2, h2o-danube-1.8b and
-       granite-moe-3b-a800m cell on the (16, 16) and (2, 16, 16) meshes
+       mesh="production")`) of every dlrm-rm2, h2o-danube-1.8b,
+       granite-moe-3b-a800m, meshgraphnet, pna, dimenet, graphcast and
+       cpaa-pagerank cell on the (16, 16) and (2, 16, 16) meshes
        of a fake world in this process, on meta tensors: each ok (or its
        cell's own skip), argument bytes equal to `per_device_bytes`;
        prints per-device argument, peak temp and total bytes, the fit on
@@ -264,11 +266,16 @@ package. Phases, each of which must pass:
        sum |terms| vs float64, unread rows 0, bitwise again; their
        device time, queued behind a spin kernel, beside their plain
        versions and bounds); danube train_4k's rank 0, one step and its
-       own peak memory;
+       own peak memory; rank 0 of meshgraphnet ogb_products (9,568 nodes
+       and 241,640 edges, the all-gathered h 1.25 GB a layer) and of cpaa
+       pr_mesh_67m_2d (1,808,896 edges, vectors of 4,194,304 rows), each
+       from its plan's `make_args` pieces: one step after a warm-up (CUDA
+       events) and its own peak memory;
      - M-c: a (1, 1) NCCL mesh at world size 1, deterministic algorithms
-       on: one sharded DLRM-RM2 step (full table, batch 8,192) and one
-       sharded danube step (full width, 2 layers, 1 x 512, f32) give the
-       unsharded step's loss to rel <= 1e-6.
+       on: one sharded DLRM-RM2 step (full table, batch 8,192), one
+       sharded danube step (full width, 2 layers, 1 x 512, f32) and one
+       sharded PNA molecule step (the plan's layout, the GNN gradient
+       sum) give the unsharded step's loss to rel <= 1e-6.
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
@@ -4157,8 +4164,7 @@ def phase_slice_k_abstract() -> dict:
     """K-a: every registry cell, single-pod and multi-pod, through the
     dry-run's abstract pass under both meshes: each plan not skipped by
     its cell builds on meta tensors; the production mesh's plan states
-    `per_device_bytes` (GNN and cpaa cells: a skip naming the next
-    slice; slice M runs the others); the card skips only what does not fit,
+    `per_device_bytes` (slice M runs them); the card skips only what does not fit,
     naming both byte counts; no error. Prints the fit table; returns the
     card's skip records (single-pod) for K-c."""
     import torch
@@ -4184,16 +4190,10 @@ def phase_slice_k_abstract() -> dict:
                       pytree.tree_leaves(plan.abstract_args)
                       if isinstance(x, torch.Tensor)),
                   f"K-a {arch} {cell.shape}: a plan leaf is not on meta")
-            if prod["status"] == "skipped":     # slice M runs the others
-                check("next slice" in prod["reason"],
-                      f"K-a {arch} {cell.shape}: production {prod}")
-                prod["memory"] = {"argument_bytes":
-                                  dryrun.per_device_bytes(plan, mp)}
-            else:
-                check(prod["status"] == "fits" and
-                      prod["memory"]["argument_bytes"] ==
-                      dryrun.per_device_bytes(plan, mp),
-                      f"K-a {arch} {cell.shape}: production {prod}")
+            check(prod["status"] == "fits" and
+                  prod["memory"]["argument_bytes"] ==
+                  dryrun.per_device_bytes(plan, mp),
+                  f"K-a {arch} {cell.shape}: production {prod}")
             need = card["memory"]["argument_bytes"] + \
                 card["memory"]["stated_output_bytes"] + \
                 card["memory"]["stated_temp_bytes"]
@@ -4326,7 +4326,11 @@ def phase_slice_k() -> dict:
 
 # ---------------------------------------------------------------- slice M --
 # M-a: the production dry-run of these cells on both production meshes
-M_ARCHS = ("dlrm-rm2", "h2o-danube-1.8b", "granite-moe-3b-a800m")
+M_ARCHS = ("dlrm-rm2", "h2o-danube-1.8b", "granite-moe-3b-a800m",
+           "meshgraphnet", "pna", "dimenet", "graphcast", "cpaa-pagerank")
+# M-b: rank 0 of these (arch, shape) cells of the (16, 16) mesh on the card
+M_PLAN_RANKS = (("meshgraphnet", "ogb_products"),
+                ("cpaa-pagerank", "pr_mesh_67m_2d"))
 M_EB_BATCH = 65_536    # M-b: DLRM-RM2 train_batch (4,096 rows per rank)
 M_DANUBE_SHAPE = "train_4k"
 M_C_DLRM_BATCH = 8_192
@@ -4341,10 +4345,10 @@ def phase_slice_m_dryrun() -> dict:
     mesh="production")` on the (16, 16) and (2, 16, 16)
     meshes of a fake world in this process: each ok (long_500k of a
     full-attention arch keeps its own skip) with argument bytes equal to
-    `per_device_bytes` of the same plan. Prints per cell the per-device
-    argument, peak temp and total bytes, the fit on this card, the
-    compute / memory / collective terms and the collective bytes by
-    axis."""
+    `per_device_bytes` of the same plan, and a GNN or cpaa record's
+    collective bytes > 0. Prints per cell the per-device argument, peak
+    temp and total bytes, the fit on this card, the compute / memory /
+    collective terms and the collective bytes by axis."""
     import torch
     from repro_torch.configs.registry import get
     from repro_torch.launch import dryrun
@@ -4370,6 +4374,11 @@ def phase_slice_m_dryrun() -> dict:
                       f"M-a {arch} {cell.shape}: argument bytes "
                       f"{mem['argument_bytes']:,} != per_device_bytes "
                       f"{want:,}")
+                if get(arch).FAMILY in ("gnn", "pagerank"):
+                    moved = sum(v for k, v in rec["collectives"].items()
+                                if not k.startswith("n_"))
+                    check(moved > 0, f"M-a {arch} {cell.shape}: no "
+                          f"collective bytes")
                 fits = mem["peak_per_device"] <= total
                 axes = {a: {k: f"{v:.4g}" for k, v in per.items()}
                         for a, per in rec["collectives_by_axis"].items()}
@@ -4682,19 +4691,99 @@ def phase_slice_m_ranks() -> dict:
     return {"launches": launches, "windows": windows, "seconds": secs}
 
 
+def phase_slice_m_plan_ranks() -> dict:
+    """M-b's GNN and cpaa ranks: rank 0 of each M_PLAN_RANKS cell of the
+    (16, 16) production mesh on the card, on a fake world in this process:
+    the pieces of its plan's `make_args` under the plan's specs (copied,
+    the whole arguments freed), one warm-up step and one step timed with
+    CUDA events, and the step's own peak memory: the most allocated over
+    it less what was allocated just before (the arguments among it, and
+    whatever earlier slices still hold), beside the arguments' bytes.
+    The ms are one rank's device work with no collective time: the fake
+    world moves nothing. The loss (GNN) or pi (cpaa) must be finite."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.configs.registry import get
+    from repro_torch.core import distributed as cdist
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import make_production_mesh
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    out = {}
+    for arch, shape in M_PLAN_RANKS:
+        plan = get(arch).build(shape, False)
+        mesh = make_production_mesh(device=dev, fake=True, rank=0)
+        try:
+            with sh.use_mesh(mesh, sharded=True):
+                t1 = time.perf_counter()
+                whole = plan.static["make_args"](seed=0, device=dev)
+                args = pytree.tree_map(
+                    lambda x: x.clone() if isinstance(x, torch.Tensor)
+                    else x, sh.shard_tree(tuple(whole),
+                                          tuple(plan.in_specs), mesh))
+                del whole
+                torch.cuda.synchronize()
+                args_s = time.perf_counter() - t1
+                torch.cuda.empty_cache()
+                arg_bytes = sum(x.numel() * x.element_size()
+                                for x in pytree.tree_leaves(args)
+                                if isinstance(x, torch.Tensor))
+                step = plan.step or plan.static["step_builder"](mesh)
+                step(*args)                                   # warm-up
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                ms, res = _step_ms(step, *args)
+                peak = torch.cuda.max_memory_allocated(dev) - before
+                if plan.step is not None:        # a GNN train step
+                    batch = args[-1]
+                    value = float(res[2]["loss"])
+                    what = (f"{batch['node_feat'].shape[0]:,} nodes and "
+                            f"{batch['senders'].shape[0]:,} edges, local "
+                            f"loss {value:.6f}")
+                else:                            # cpaa: pi's local piece
+                    value = float(res.sum())
+                    check(bool(torch.isfinite(res).all()),
+                          f"M-b {arch} {shape}: pi not finite")
+                    what = (f"{args[1].shape[-1]:,} edges, vectors of "
+                            f"{args[0].shape[0]:,} rows, local pi sum "
+                            f"{value:.6f}")
+                check(np.isfinite(value), f"M-b {arch} {shape}: {value}")
+                log(f"[{CARD}] M-b {arch} {shape} rank 0 of (16, 16): "
+                    f"one step after a warm-up {ms:.3f} ms (CUDA events; "
+                    f"one rank's device work, no collective time: the fake "
+                    f"world moves nothing) on {what}; local arguments "
+                    f"{arg_bytes:,} B (made and cut in {args_s:.1f} s), "
+                    f"the step's own peak {peak:,} B (the most allocated "
+                    f"over it less the {before:,} B allocated before it)")
+                out[f"{arch}:{shape}"] = {"ms": ms, "peak": peak,
+                                          "arg_bytes": arg_bytes}
+                del args, res, step
+        finally:
+            cdist.destroy_world()
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    log(f"[{CARD}] M-b GNN and cpaa ranks: {secs:.1f} s")
+    return {"ranks": out, "seconds": secs}
+
+
 def phase_slice_m_nccl() -> dict:
     """M-c: the sharded path on a real (1, 1) NCCL mesh at world size 1,
     deterministic algorithms on: one DLRM-RM2 step (full table, a batch of
-    M_C_DLRM_BATCH) and one danube step (full width, M_C_LAYERS layers,
-    one sequence of M_C_SEQ) give the unsharded step's loss within
-    M_C_TOL (relative)."""
+    M_C_DLRM_BATCH), one danube step (full width, M_C_LAYERS layers,
+    one sequence of M_C_SEQ) and one PNA molecule step (the plan's batch
+    layout and its GNN gradient sum) give the unsharded step's loss
+    within M_C_TOL (relative)."""
     import dataclasses
     import torch
     from functools import partial
     from repro_torch.configs import dlrm_rm2, h2o_danube_1_8b
+    from repro_torch.configs import pna as pna_cfg
+    from repro_torch.configs.gnn_common import GNN_SHAPES
     from repro_torch.core import distributed as cdist
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import transformer as tf
+    from repro_torch.models.gnn import pna
     from repro_torch.models.recsys import dlrm
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.train_loop import make_train_step
@@ -4703,14 +4792,17 @@ def phase_slice_m_nccl() -> dict:
     mesh = cdist.init_mesh((1, 1), ("data", "model"), dev)
     out = {}
 
-    def both(label, loss_fn, params, specs, batch, opt_cfg):
+    def both(label, loss_fn, params, specs, batch, opt_cfg,
+             sharded_loss=None, batch_specs=None, rule="mean"):
         plain = make_train_step(loss_fn, opt_cfg, donate=False)
         _, _, m0 = plain(params, adamw_init(params, opt_cfg), batch)
         with sh.use_mesh(mesh, sharded=True):
             local = sh.shard_tree(params, specs, mesh)
-            sharded = make_train_step(loss_fn, opt_cfg, donate=False,
-                                      grad_specs=specs)
-            _, _, m1 = sharded(local, adamw_init(local, opt_cfg), batch)
+            mine = sh.shard_tree(batch, batch_specs, mesh)
+            sharded = make_train_step(sharded_loss or loss_fn, opt_cfg,
+                                      donate=False, grad_specs=specs,
+                                      grad_rule=rule)
+            _, _, m1 = sharded(local, adamw_init(local, opt_cfg), mine)
         l0, l1 = float(m0["loss"]), float(m1["loss"])
         g0, g1 = float(m0["grad_norm"]), float(m1["grad_norm"])
         rel = abs(l1 - l0) / abs(l0)
@@ -4748,6 +4840,15 @@ def phase_slice_m_nccl() -> dict:
              sh.lm_param_specs(dcfg, False), {"tokens": tokens},
              AdamWConfig(lr=I_LR))
         del whole
+        plan = pna_cfg.build("molecule", False)
+        pcfg = pna_cfg.full_config(d_in=GNN_SHAPES["molecule"]["d_feat"])
+        params, _, batch = plan.static["make_args"](seed=0, device=dev)
+        both("PNA molecule", partial(pna.loss_fn, cfg=pcfg), params,
+             plan.in_specs[0], batch, AdamWConfig(lr=1e-3),
+             sharded_loss=partial(pna.loss_fn, cfg=pcfg,
+                                  layout=plan.static["layout"]),
+             batch_specs=plan.in_specs[2], rule="sum")
+        del params, batch
     finally:
         torch.use_deterministic_algorithms(was)
     torch.cuda.empty_cache()
@@ -4757,19 +4858,22 @@ def phase_slice_m_nccl() -> dict:
 
 
 def phase_slice_m() -> dict:
-    """Slice M, tensor and FSDP parallelism under the production plans:
-    M-a (the production dry-run on a fake world), M-b (ranks of the
-    production mesh on the card), M-c (the sharded path on a real (1, 1)
-    NCCL mesh)."""
+    """Slice M, tensor, FSDP and graph parallelism under the production
+    plans: M-a (the production dry-run on a fake world), M-b (ranks of
+    the production mesh on the card: DLRM-RM2, danube, MeshGraphNet,
+    cpaa), M-c (the sharded path on a real (1, 1) NCCL mesh)."""
     t0 = time.perf_counter()
     a = phase_slice_m_dryrun()
     b = phase_slice_m_ranks()
+    b2 = phase_slice_m_plan_ranks()
     c = phase_slice_m_nccl()
     secs = time.perf_counter() - t0
     log(f"[{CARD}] slice M: {secs:.1f} s (M-a {a['seconds']:.1f}, M-b "
-        f"{b['seconds']:.1f}, M-c {c['seconds']:.1f})")
-    return {"dryrun": a, "ranks": b, "nccl": c, "launches": b["launches"],
-            "windows": b["windows"], "seconds": secs}
+        f"{b['seconds']:.1f} + {b2['seconds']:.1f}, M-c "
+        f"{c['seconds']:.1f})")
+    return {"dryrun": a, "ranks": b, "plan_ranks": b2, "nccl": c,
+            "launches": b["launches"], "windows": b["windows"],
+            "seconds": secs}
 
 
 # ---------------------------------------------------------------- slice L --

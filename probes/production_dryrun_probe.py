@@ -1,9 +1,14 @@
 """The production-mesh dry-run of the LM configs chip_smoke's slice M does
-not run (deepseek-7b, qwen2.5-32b, qwen3-moe-235b-a22b), on the (16, 16)
-and (2, 16, 16) meshes of a fake world in this one process, then
-`launch/roofline.py` over their records.
+not run (deepseek-7b, qwen2.5-32b, qwen3-moe-235b-a22b), or of any
+`--archs`, on the (16, 16) and (2, 16, 16) meshes of a fake world in this
+one process, then `launch/roofline.py` over their records.
 
     python3 probes/production_dryrun_probe.py [--out DIR] [--archs NAME ...]
+        [--whole]
+
+`--whole` also counts the whole step of every cell whose counts come
+from the probes and prints its peak temp bytes, FLOPs, bytes and
+collective bytes beside the record's estimate.
 
 Each cell runs `launch/dryrun.run_cell(..., mesh="production")` on meta
 tensors, which takes a deep step's counts from the plan's reduced probes
@@ -33,11 +38,33 @@ def est(rec: dict) -> str:
     return " (estimated)" if rec["memory"]["peak_estimated"] else ""
 
 
+def whole(rec: dict, plan, multi_pod: bool) -> None:
+    """Print a whole count of the cell's step beside the record's
+    estimate from the probes."""
+    t0 = time.perf_counter()
+    run = dryrun._count_production(plan, multi_pod, 0)
+    moved = sum(v for k, v in run["coll"].items() if not k.startswith("n_"))
+    est_moved = sum(v for k, v in rec["collectives"].items()
+                    if not k.startswith("n_"))
+
+    def rel(a, b):
+        return f"{(b - a) / a:+.2%}" if a else "n/a"
+    print(f"    whole count ({time.perf_counter() - t0:.1f} s): peak temp "
+          f"{run['peak']:,} B (estimate {rec['memory']['temp_bytes']:,}, "
+          f"{rel(run['peak'], rec['memory']['temp_bytes'])}), FLOPs "
+          f"{run['cost']['flops']:.6g} ({rel(run['cost']['flops'], rec['cost']['flops'])}), "
+          f"bytes {run['cost']['bytes accessed']:.6g} "
+          f"({rel(run['cost']['bytes accessed'], rec['cost']['bytes_accessed'])}), "
+          f"collective bytes {moved:.6g} ({rel(moved, est_moved)})",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" /
                                          "production_dryrun"))
     ap.add_argument("--archs", nargs="*", default=list(ARCHS))
+    ap.add_argument("--whole", action="store_true")
     args = ap.parse_args(argv)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
@@ -68,6 +95,8 @@ def main(argv=None) -> int:
                           f"{est(rec)}, fits "
                           f"{rec['memory']['fits']}, "
                           f"{time.perf_counter() - t0:.1f} s", flush=True)
+                    if args.whole and rec["memory"]["peak_estimated"]:
+                        whole(rec, get(arch).build(cell.shape, mp), mp)
                 elif rec["status"] == "error":
                     n_bad += 1
                     print(f"  {arch} {cell.shape} multi_pod={mp}: ERROR "

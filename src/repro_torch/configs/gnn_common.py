@@ -29,6 +29,7 @@ from repro_torch.configs.base import Cell, DryRunPlan, abstract_call, \
 from repro_torch.device import resolve_device
 from repro_torch.distributed import sharding as shard
 from repro_torch.distributed.sharding import P
+from repro_torch.models.gnn.common import GraphLayout
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import make_train_step
 
@@ -136,9 +137,14 @@ def build_gnn_plan(arch_cfg, init_params, loss_fn, batch_builder,
     """The dry-run plan of one GNN cell: one donated AdamW train step on
     the shape's batch (`batch_builder(cfg, dims, abstract=True)`),
     parameters whole, node/edge arrays over every mesh axis where they
-    tile it. `static["make_args"](seed, device)` draws the parameters from
-    a generator seeded with `seed` and the batch through
-    `batch_builder(cfg, dims, seed=seed, device=device)`."""
+    tile it. The step's loss takes the batch's `GraphLayout` (the global
+    counts and which leaves the specs shard), which the models follow
+    under a sharded mesh (the production mesh) and ignore otherwise (the
+    card's), and the step sums the ranks' gradients (`grad_rule="sum"`).
+    `static["make_args"](seed, device)` draws the parameters from a
+    generator seeded with `seed` and the batch through
+    `batch_builder(cfg, dims, seed=seed, device=device)`;
+    `static["layout"]` is the layout."""
     import dataclasses as dc
     dims = GNN_SHAPES[shape]
     if _probe_layers is not None:
@@ -148,11 +154,13 @@ def build_gnn_plan(arch_cfg, init_params, loss_fn, batch_builder,
     pspecs = shard.replicated_specs(aparams)
     batch = batch_builder(arch_cfg, dims, abstract=True)
     bspecs = shard.gnn_batch_specs(batch, multi_pod)
+    layout = GraphLayout.of(batch, bspecs)
     opt_cfg = AdamWConfig()
     aopt = abstract_call(adamw_init, aparams, opt_cfg)
     ospecs = {"step": P(), "m": pspecs, "v": pspecs}
-    step = make_train_step(partial(loss_fn, cfg=arch_cfg), opt_cfg,
-                           num_microbatches=1, donate=True)
+    step = make_train_step(partial(loss_fn, cfg=arch_cfg, layout=layout),
+                           opt_cfg, num_microbatches=1, donate=True,
+                           grad_rule="sum")
 
     def make_args(seed: int = 0, device=None):
         dev = resolve_device(device)
@@ -166,7 +174,7 @@ def build_gnn_plan(arch_cfg, init_params, loss_fn, batch_builder,
                       model_flops=3.0 * mf,  # train = fwd + ~2x fwd for bwd
                       note=dims["note"],
                       static={"compute_dtype": "float32",
-                              "make_args": make_args,
+                              "make_args": make_args, "layout": layout,
                               "temp_abstract": grad_abstract(aparams)})
     if _probe_layers is None:
         plan.cost_model = {

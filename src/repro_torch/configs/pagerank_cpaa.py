@@ -16,12 +16,18 @@ The constants, `SHAPES`, the abstract partitions, `full_config`,
 `smoke_config` and `model_flops` are copies of the reference's;
 `smoke_run` solves on a device through the port's `select_engine`;
 `cells` lists one cell per shape. `build` is a cell's dry-run plan: the
-fixed-round distributed CPAA (`core.distributed.cpaa_distributed_1d` /
-`_2d`) over edge arrays stacked as the production mesh's partition
-([n_dev, E] or [R, C, E]); `static["step_builder"](mesh)` makes the step
-for a mesh of one rank, which merges all the shards into one on its
-first call with them and reuses the merged copy after (the port runs no
-production mesh: `launch/dryrun.py`).
+fixed-round distributed CPAA over edge arrays stacked as the production
+mesh's partition ([n_dev, E] or [R, C, E]); `static["step_builder"](mesh)`
+makes the step for a mesh:
+  * of more than one rank (the production mesh, on a fake world in
+    `launch/dryrun.py`): the reference's production step, each rank on
+    its own pieces of the vectors and its [1, E] / [1, 1, E] edge slice
+    (`core.distributed.cpaa_local_1d` / `_2d`; the 2D grid on the
+    mesh's (rows, "model") view, `grid_view`, rows ("pod", "data") on
+    two pods);
+  * of one rank (the card): the whole-vector builders
+    (`cpaa_distributed_1d` / `_2d`) over all the shards merged into one,
+    on the first call with them, the merged copy reused after.
 """
 from __future__ import annotations
 
@@ -141,13 +147,6 @@ def model_flops(n: int, m: int, rounds: int, batch: int | None) -> float:
     return rounds * (2.0 * m + 2.0 * n) * b
 
 
-def _one_rank(mesh, shape: str) -> None:
-    if mesh.size() != 1:
-        raise NotImplementedError(
-            f"{shape}: the port runs a cpaa-pagerank plan on a mesh of one "
-            f"rank (all shards merged), not on {mesh.size()} ranks")
-
-
 def _merge_1d(part, src, dst_local, weight):
     """A block of k stacked 1D shards [k, E] (rows_per_dev rows each) as
     one shard of k * rows_per_dev rows: chunk-local destinations offset by
@@ -213,7 +212,8 @@ def build(shape: str, multi_pod: bool, _rounds: int | None = None):
         rows, src_hi = part.rows_per_dev, n
 
         def step_builder(mesh):
-            _one_rank(mesh, shape)
+            if mesh.size() > 1:
+                return dist.cpaa_local_1d(mesh, part, sched)
             one = _AbstractPart1D(n=part.n, n_orig=part.n_orig, n_dev=1,
                                   rows_per_dev=part.n,
                                   edges_per_dev=n_dev * part.edges_per_dev)
@@ -230,7 +230,10 @@ def build(shape: str, multi_pod: bool, _rounds: int | None = None):
         rows, src_hi = part.rows_per_chunk, part.cols_per_chunk
 
         def step_builder(mesh):
-            _one_rank(mesh, shape)
+            if mesh.size() > 1:
+                return dist.cpaa_local_2d(
+                    dist.grid_view(mesh, row_axis, "model"), part, sched,
+                    comm_dtype=cdt)
             one = _AbstractPart2D(n=part.n, n_orig=part.n_orig, grid=(1, 1),
                                   rows_per_chunk=part.n,
                                   cols_per_chunk=part.n, sub=part.n,

@@ -30,7 +30,13 @@ Chebyshev recurrence lives in `core.pagerank.cpaa_fixed` and reaches these
 bodies through the `Sharded1DEngine` / `Sharded2DEngine` wrappers in
 `core.engine`. `cpaa_distributed_1d` / `cpaa_distributed_2d` are the
 array-passing builders: they wrap the passed shards in an engine and run
-the shared solver.
+the shared solver on the whole vector. `cpaa_local_1d` / `cpaa_local_2d`
+are the reference's production convention: each rank passes and gets
+back its own piece of the vectors (`P(axes)`, or `P("model")` down the
+grid columns) and its [1, E] / [1, 1, E] slice of the stacked edge
+arrays, with no whole-vector trip at either end; `grid_view` gives a
+mesh of more than two axes the 2-D (rows, columns) view the grid
+partition needs.
 
 A shard body runs the port's own gather + `index_add_`
 (`graph.ops.edge_matmul`), the same code as `CooEngine`. The bf16
@@ -74,6 +80,9 @@ __all__ = [
     "spmv_2d_shard",
     "cpaa_distributed_1d",
     "cpaa_distributed_2d",
+    "cpaa_local_1d",
+    "cpaa_local_2d",
+    "grid_view",
     "put_partition_1d",
     "put_partition_2d",
     "pad_personalization",
@@ -298,6 +307,32 @@ def flat_rank(mesh) -> tuple[object, int, int]:
     return dist.group.WORLD, flat.index(dist.get_rank()), mesh.size()
 
 
+def grid_view(mesh, rows: tuple, col: str):
+    """`mesh` as the 2-D (rows, col) mesh of a grid partition: the mesh
+    itself when it has exactly those two axes, else a mesh over the same
+    ranks whose first dimension flattens the `rows` axes in row-major
+    order (("pod", "data") of the (2, 16, 16) production mesh: 32 rows).
+    The axes must be the mesh's, rows first. Every rank must call it (a
+    new mesh makes its groups collectively).
+
+    Raises:
+        ValueError: the axes are not the mesh's in that order, or the mesh
+            does not lay its ranks out in row-major order.
+    """
+    names = tuple(mesh.mesh_dim_names or ())
+    rows = (rows,) if isinstance(rows, str) else tuple(rows)
+    if names != rows + (col,):
+        raise ValueError(f"a grid view of mesh axes {names} needs rows "
+                         f"{rows} then column {col!r}")
+    if len(rows) == 1:
+        return mesh
+    if mesh.mesh.flatten().tolist() != list(range(mesh.size())):
+        raise ValueError("a grid view needs a mesh of row-major ranks")
+    shape = tuple(int(s) for s in mesh.mesh.shape)
+    return init_mesh((int(np.prod(shape[:-1])), shape[-1]),
+                     ("+".join(rows), col), mesh.device_type)
+
+
 def grid_coordinate(mesh) -> tuple[int, int]:
     """This rank's (r, c) on a 2-D mesh."""
     if mesh.ndim != 2:
@@ -494,5 +529,75 @@ def cpaa_distributed_2d(mesh, part: Partition2D, sched: ChebSchedule,
                               rows_per_chunk=part.rows_per_chunk,
                               comm_dtype=comm_dtype)
         return _solve(eng, sched, p_col, dtype, adaptive, tol, chunk)
+
+    return solve
+
+
+# ------------------------------------------------------------- rank-local --
+
+def _fixed_local(eng, sched: ChebSchedule, p, dtype):
+    from repro_torch.core.pagerank import cpaa_fixed_local
+    p = p.to(dtype)
+    coeffs = torch.as_tensor(sched.coeffs, dtype=dtype).to(p.device)
+    return cpaa_fixed_local(eng, coeffs, p, rounds=sched.rounds)
+
+
+def cpaa_local_1d(mesh, part, sched: ChebSchedule, dtype=torch.float32,
+                  comm_dtype=None):
+    """1D distributed CPAA in the reference's production layout.
+
+    Returned fn(p, src, dst_local, weight) -> pi, called on every rank:
+      p:   [rows_per_dev] (or [rows_per_dev, B]), this rank's piece of the
+           padded vector under P(axes) (the mesh flattened row-major).
+      edge arrays: [1, E], this rank's slice of the stacked [n_dev, E]
+           partition under P(axes).
+      pi:  this rank's piece, column-normalized over every rank's rows.
+
+    Fixed rounds; each round all-gathers x (n floats per column), the
+    normalization all-reduces the column sums; nothing gathers the whole
+    vector. `part` needs `n` and `rows_per_dev`.
+    """
+    from repro_torch.core.engine import Sharded1DEngine
+
+    def solve(p, src, dst_local, weight):
+        eng = Sharded1DEngine(mesh=mesh, src=src[0], dst_local=dst_local[0],
+                              weight=weight[0], n_orig=part.n, n_pad=part.n,
+                              rows_per_dev=part.rows_per_dev,
+                              comm_dtype=comm_dtype)
+        return _fixed_local(eng, sched, p, dtype)
+
+    return solve
+
+
+def cpaa_local_2d(mesh, part, sched: ChebSchedule, dtype=torch.float32,
+                  comm_dtype=None):
+    """2D distributed CPAA in the reference's production layout, on the
+    2-D (rows, columns) mesh of the grid (`grid_view`).
+
+    Returned fn(p_col, src_local, dst_local, weight) -> pi_col, on every
+    rank:
+      p_col: [cols_per_chunk] (or [.., B]), this rank's column chunk of
+             the padded vector in column layout (original[col_layout_perm])
+             under P(col axis), the same down each grid column.
+      edge arrays: [1, 1, E], this rank's slice of the stacked [R, C, E]
+             partition.
+      pi_col: this rank's column chunk, column-normalized over the grid
+             row's chunks.
+
+    Fixed rounds; each round reduce-scatters the partial rows over the
+    column group (rows_per_chunk floats per column) and all-gathers the
+    sub-chunks over the row group (cols_per_chunk floats). `part` needs
+    `n` and `rows_per_chunk`.
+    """
+    from repro_torch.core.engine import Sharded2DEngine
+
+    def solve(p_col, src_local, dst_local, weight):
+        eng = Sharded2DEngine(mesh=mesh, src_local=src_local[0, 0],
+                              dst_local=dst_local[0, 0],
+                              weight=weight[0, 0], perm=None, inv_perm=None,
+                              n_orig=part.n, n_pad=part.n,
+                              rows_per_chunk=part.rows_per_chunk,
+                              comm_dtype=comm_dtype)
+        return _fixed_local(eng, sched, p_col, dtype)
 
     return solve

@@ -122,6 +122,23 @@ def _uniform_p(eng) -> torch.Tensor:
                       device=eng.device)
 
 
+def _cheb_sum(eng, coeffs: torch.Tensor, t_prev: torch.Tensor, rounds: int,
+              hist: list | None = None) -> torch.Tensor:
+    """The Chebyshev sum acc = sum_k coeffs[k] T_k(P) p of the internal-
+    layout T_0(P) p = t_prev; with `hist`, each round's acc is appended
+    to it in the original layout."""
+    acc = coeffs[0] * t_prev        # (c0/2) T_0 p
+    t_cur = eng.apply(t_prev)       # T_1(P) p = P p
+    acc = acc + coeffs[1] * t_cur
+    for k in range(2, rounds + 1):
+        y = eng.apply(t_cur)        # the round's only graph work
+        t_next, acc = eng.cheb_round(y, t_prev, acc, coeffs[k])
+        t_prev, t_cur = t_cur, t_next
+        if hist is not None:
+            hist.append(eng.from_internal(acc))
+    return acc
+
+
 def cpaa_fixed(dg, coeffs: torch.Tensor, p: torch.Tensor, rounds: int,
                keep_history: bool = False):
     """CPAA with a fixed round count.
@@ -133,22 +150,22 @@ def cpaa_fixed(dg, coeffs: torch.Tensor, p: torch.Tensor, rounds: int,
     Returns (pi, history) — history is [rounds-1, ...] when kept, else None.
     """
     eng = as_engine(dg)
-    t_prev = eng.to_internal(p)     # T_0(P) p
-    acc = coeffs[0] * t_prev        # (c0/2) T_0 p
-    t_cur = eng.apply(t_prev)       # T_1(P) p = P p
-    acc = acc + coeffs[1] * t_cur
-    hist = []
-    for k in range(2, rounds + 1):
-        y = eng.apply(t_cur)        # the round's only graph work
-        t_next, acc = eng.cheb_round(y, t_prev, acc, coeffs[k])
-        t_prev, t_cur = t_cur, t_next
-        if keep_history:
-            hist.append(eng.from_internal(acc))
+    hist = [] if keep_history else None
+    acc = _cheb_sum(eng, coeffs, eng.to_internal(p), rounds, hist)
     history = None
     if keep_history:
         history = torch.stack(hist) if hist else \
             acc.new_zeros((0,) + (eng.n,) + tuple(acc.shape[1:]))
     return _normalize(eng.from_internal(acc)), history
+
+
+def cpaa_fixed_local(eng, coeffs: torch.Tensor, p: torch.Tensor,
+                     rounds: int) -> torch.Tensor:
+    """`cpaa_fixed` on a sharded engine in the reference's production
+    layout: p is this rank's slice of the engine's internal layout, and
+    so is the returned pi, normalized over every rank's rows (the
+    engine's `colsum`). No layout trip at either end."""
+    return _normalize(_cheb_sum(eng, coeffs, p, rounds), eng.colsum)
 
 
 def cpaa(dg, c: float = 0.85, tol: float = 1e-6,

@@ -25,6 +25,36 @@ is the transpose collective, written out here:
                              backward the same (the MoE's load statistics
                              over the whole batch).
 
+The partitioned message passing of the GNNs (tag "gnn") runs over the
+flat axes, a tuple of every mesh axis whose ranks together span the
+world (`sharding.flat_axes`). There an activation is either this rank's
+`split` piece of a node or edge set or replicated (whole on every rank),
+and a replicated value's gradient is each rank's PARTIAL of it (its own
+rows' share of the one global loss), summed over the ranks where it
+meets a piece:
+
+  gather(x, dim, n, axes)    as above: the whole set from the pieces;
+                             backward reduce-scatters the partials.
+  scatter_sum(x, dim, axes)  the transpose of gather: each rank's partial
+                             of the whole set (n entries) reduce-scattered
+                             (summed) to its `split` piece; backward: the
+                             gradient all-gathered.
+  reduce_sum(x, axes)        each rank's partial summed and replicated
+                             (all-reduce); backward the same sum of the
+                             gradient's partials.
+  segment_extreme(...)       the per-segment maximum (minimum) over every
+                             rank's rows: a local scatter_reduce into the
+                             whole set, all-reduced with MAX (MIN); its
+                             gradient splits among the rows equal to the
+                             extreme, ties counted over every rank (an
+                             all-reduced count), as the unsharded
+                             `scatter_reduce` splits it.
+
+A group of several axes must be every axis of the mesh, in its order (the
+world group, whose rank order is the mesh's row-major order, the order of
+`sharding.local_shard`'s pieces); the counters name it by its axes joined
+with "+" ("data+model").
+
 An axis of size 1 needs no trip: each function is then the identity (the
 (1, 1) mesh runs the sharded code with no collective). `all_max` is the
 one collective outside autograd (a detached maximum).
@@ -37,21 +67,41 @@ import torch.distributed as dist
 from repro_torch.core import distributed as cdist
 from repro_torch.distributed.sharding import axis_index, axis_size, \
     current_mesh, split
+from repro_torch.graph.ops import segment_max, segment_min
 
 __all__ = ["size", "index", "batch_axes_of", "gather", "local_piece",
-           "enter", "leave", "mean_over", "all_max", "all_sum", "pad_to"]
+           "enter", "leave", "mean_over", "all_max", "all_sum", "pad_to",
+           "scatter_sum", "reduce_sum", "segment_extreme", "label"]
 
 
-def size(axis: str) -> int:
-    """Ranks along `axis` of the active mesh (1 without one)."""
+def _axes(axis) -> tuple:
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
+def label(axis) -> str:
+    """The counters' name of an axis or a tuple of axes ("data+model")."""
+    return "+".join(_axes(axis))
+
+
+def size(axis) -> int:
+    """Ranks along `axis` (a name, or a tuple of names: their product) of
+    the active mesh (1 without one)."""
     mesh = current_mesh()
-    return 1 if mesh is None else axis_size(mesh, axis)
+    n = 1
+    for a in _axes(axis):
+        n *= 1 if mesh is None else axis_size(mesh, a)
+    return n
 
 
-def index(axis: str) -> int:
-    """This rank's coordinate along `axis` of the active mesh."""
+def index(axis) -> int:
+    """This rank's coordinate along `axis` of the active mesh (over a tuple
+    of names, row-major in their order)."""
     mesh = current_mesh()
-    return 0 if mesh is None else axis_index(mesh, axis)
+    idx = 0
+    for a in _axes(axis):
+        idx = idx * (1 if mesh is None else axis_size(mesh, a)) + \
+            (0 if mesh is None else axis_index(mesh, a))
+    return idx
 
 
 def batch_axes_of() -> tuple:
@@ -61,8 +111,19 @@ def batch_axes_of() -> tuple:
     return tuple(a for a in ("pod", "data") if a in names)
 
 
-def _group(axis: str):
-    return current_mesh().get_group(axis)
+def _group(axis):
+    """The process group of `axis`: one mesh dimension's, or, for a tuple
+    naming every axis of the mesh in its order, the world's (module
+    docstring)."""
+    mesh = current_mesh()
+    names = tuple(mesh.mesh_dim_names or ())
+    axes = tuple(a for a in _axes(axis) if a in names)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    if axes != names:
+        raise ValueError(f"a group over axes {_axes(axis)} must span the "
+                         f"mesh's axes {names} in their order")
+    return cdist.flat_rank(mesh)[0]
 
 
 def pad_to(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
@@ -77,7 +138,7 @@ def pad_to(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
 
 def _all_gather_dim(x, dim, axis, tag, site):
     out = cdist.all_gather(x.movedim(dim, 0), _group(axis), tag=tag,
-                           site=site, dim=axis)
+                           site=site, dim=label(axis))
     return out.movedim(0, dim)
 
 
@@ -92,15 +153,17 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         full = pad_to(g, ctx.dim, ctx.k * ctx.c).movedim(ctx.dim, 0)
         out = cdist.reduce_scatter(full, ctx.group, tag=ctx.tag,
-                                   site=ctx.site + "_grad", dim=ctx.axis)
+                                   site=ctx.site + "_grad",
+                                   dim=label(ctx.axis))
         return out.movedim(0, ctx.dim), None, None, None, None, None
 
 
-def gather(x: torch.Tensor, dim: int, n: int, axis: str, tag: str,
+def gather(x: torch.Tensor, dim: int, n: int, axis, tag: str,
            site: str = "gather") -> torch.Tensor:
     """The whole dimension `dim` (n entries) from every rank's `split`
-    piece along `axis` (x holds this rank's, padded to the even count);
-    its gradient is reduce-scattered back to the pieces."""
+    piece along `axis` (a name or a tuple of names; x holds this rank's
+    piece, padded to the even count); its gradient is reduce-scattered
+    back to the pieces."""
     if size(axis) == 1:
         return x.narrow(dim, 0, n)
     return _Gather.apply(x, dim, n, axis, tag, site)
@@ -187,7 +250,7 @@ def _count(axes) -> int:
 def _sum_groups(x, groups, tag, site):
     for a, group in groups:
         cdist.all_reduce(x, group, dist.ReduceOp.SUM, tag=tag, site=site,
-                         dim=a)
+                         dim=label(a))
     return x
 
 
@@ -214,3 +277,133 @@ def all_max(x: torch.Tensor, axis: str, tag: str) -> torch.Tensor:
         return y
     return cdist.all_reduce(y, _group(axis), dist.ReduceOp.MAX, tag=tag,
                             site="max", dim=axis)
+
+
+# ------------------------------------------------- partitioned message passing --
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, axis, tag, site):
+        ctx.dim, ctx.axis, ctx.tag, ctx.site = dim, axis, tag, site
+        ctx.n, k = x.shape[dim], size(axis)
+        ctx.group = _group(axis)
+        full = pad_to(x, dim, k * -(-ctx.n // k)).movedim(dim, 0)
+        out = cdist.reduce_scatter(full, ctx.group, tag=tag, site=site,
+                                   dim=label(axis))
+        return out.movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        whole = _all_gather_dim(g.contiguous(), ctx.dim, ctx.axis, ctx.tag,
+                                ctx.site + "_grad")
+        return whole.narrow(ctx.dim, 0, ctx.n), None, None, None, None
+
+
+def scatter_sum(x: torch.Tensor, dim: int, axis, tag: str,
+                site: str = "scatter") -> torch.Tensor:
+    """The transpose of `gather`: x holds this rank's partial of the whole
+    dimension `dim` (n entries); returns this rank's `split` piece of the
+    sum over the ranks of `axis`, zero-padded to the even count
+    (a reduce-scatter); its gradient is all-gathered."""
+    if size(axis) == 1:
+        return x
+    return _ScatterSum.apply(x, dim, axis, tag, site)
+
+
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, tag, site):
+        ctx.axis, ctx.tag, ctx.site = axis, tag, site
+        ctx.group = _group(axis)
+        return cdist.all_reduce(x.contiguous().clone(), ctx.group,
+                                dist.ReduceOp.SUM, tag=tag, site=site,
+                                dim=label(axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        g = cdist.all_reduce(g.contiguous().clone(), ctx.group,
+                             dist.ReduceOp.SUM, tag=ctx.tag,
+                             site=ctx.site + "_grad", dim=label(ctx.axis))
+        return g, None, None, None
+
+
+def reduce_sum(x: torch.Tensor, axis, tag: str,
+               site: str = "sum") -> torch.Tensor:
+    """The sum over the ranks of `axis` of each rank's partial x, on every
+    rank (an all-reduce); its gradient's partials are summed the same
+    way (module docstring)."""
+    if size(axis) == 1:
+        return x
+    return _ReduceSum.apply(x, axis, tag, site)
+
+
+class _SegmentExtreme(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seg, valid, n, reduce, axis, sharded_out, tag,
+                site):
+        k = size(axis)
+        n_pad = k * -(-n // k)
+        fill = float("-inf") if reduce == "amax" else float("inf")
+        op = dist.ReduceOp.MAX if reduce == "amax" else dist.ReduceOp.MIN
+        idx = seg.long().reshape((-1,) + (1,) * (x.ndim - 1)).expand_as(x)
+        vals = x if valid is None else torch.where(
+            valid.reshape((-1,) + (1,) * (x.ndim - 1)), x, fill)
+        whole = x.new_full((n_pad,) + tuple(x.shape[1:]), fill)
+        whole = whole.scatter_reduce(0, idx, vals, reduce,
+                                     include_self=False)
+        group = _group(axis)
+        cdist.all_reduce(whole, group, op, tag=tag, site=site,
+                         dim=label(axis))
+        ctx.save_for_backward(x, seg, whole,
+                              torch.ones(()) if valid is None else valid)
+        ctx.has_valid = valid is not None
+        ctx.axis, ctx.tag, ctx.site, ctx.group = axis, tag, site, group
+        ctx.sharded_out, ctx.n = sharded_out, n
+        if sharded_out:
+            lo = index(axis) * (n_pad // k)
+            return whole.narrow(0, lo, n_pad // k).clone()
+        return whole.narrow(0, 0, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, seg, whole, valid = ctx.saved_tensors
+        lab = label(ctx.axis)
+        seg = seg.long()
+        hit = x == whole.index_select(0, seg)
+        if ctx.has_valid:
+            hit = hit & valid.reshape((-1,) + (1,) * (x.ndim - 1))
+        hit = hit.to(x.dtype)
+        ties = torch.zeros_like(whole).index_add_(0, seg, hit)
+        cdist.all_reduce(ties, ctx.group, dist.ReduceOp.SUM, tag=ctx.tag,
+                         site=ctx.site + "_ties", dim=lab)
+        if ctx.sharded_out:
+            g_whole = cdist.all_gather(g.contiguous(), ctx.group,
+                                       tag=ctx.tag,
+                                       site=ctx.site + "_grad", dim=lab)
+        else:    # a replicated output: each rank holds a partial
+            g_whole = cdist.all_reduce(
+                pad_to(g, 0, whole.shape[0]).contiguous().clone(),
+                ctx.group, dist.ReduceOp.SUM, tag=ctx.tag,
+                site=ctx.site + "_grad", dim=lab)
+        share = g_whole / torch.clamp(ties, min=1.0)
+        return (share.index_select(0, seg) * hit, None, None, None, None,
+                None, None, None, None)
+
+
+def segment_extreme(x: torch.Tensor, seg: torch.Tensor, n: int,
+                    reduce: str, axis, sharded_out: bool, tag: str,
+                    valid: torch.Tensor | None = None,
+                    site: str = "extreme") -> torch.Tensor:
+    """The maximum (reduce "amax") or minimum ("amin") of x's rows by
+    segment over every rank of `axis`: x [E, ...] this rank's rows, seg
+    their segments (< n), `valid` (None: all) which rows count. Returns
+    the whole [n, ...] (`sharded_out` False) or this rank's `split` piece
+    of it, padded with the identity (+-inf, an empty segment's value).
+    The gradient goes to the rows equal to their segment's extreme, split
+    evenly among them, ties counted over every rank. On one rank it is
+    `graph.ops`' segment_max / segment_min."""
+    if size(axis) == 1:
+        fn = segment_max if reduce == "amax" else segment_min
+        return fn(x, seg, int(n))
+    return _SegmentExtreme.apply(x, seg, valid, int(n), reduce, axis,
+                                 bool(sharded_out), tag, site)

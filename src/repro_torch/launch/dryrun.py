@@ -34,10 +34,11 @@ only):
               its peak temp bytes from a fit linear in the layers, which
               the record marks as estimated; where the sharded step would
               run fewer microbatches than the model names
-              (`_probes_hold`), the whole step is counted. The LM and
-              DLRM-RM2 cells run; the GNN and cpaa cells keep a skip
-              naming the slice they wait for, as the cells' own skip
-              reasons stay.
+              (`_probes_hold`), the whole step is counted. Every cell
+              runs but those the cell itself skips: the GNN steps with
+              their batch over every axis (partitioned message passing,
+              `models/gnn/common.py`), the cpaa steps on rank-local
+              vectors (`core.distributed.cpaa_local_1d` / `_2d`).
   card        the (1, 1) ("data", "model") mesh of one rank: build the
               plan on meta tensors; skip the cell, naming both byte
               counts, when its arguments, the outputs the plan states
@@ -87,15 +88,6 @@ __all__ = ["MESHES", "plan_cell", "run_cell", "run_plan", "run_production",
 
 MESHES = ("production", "card")
 TIMED_STEPS = 3
-# families whose production cells wait for a later slice, and why
-WAITING = {
-    "gnn": ("the production mesh's GNN cells wait for the next slice of "
-            "the port: gnn_batch_specs shards node and edge arrays over "
-            "every rank, so message passing needs partitioned gathers"),
-    "pagerank": ("the production mesh's cpaa cells wait for the next "
-                 "slice of the port: step_builder(mesh) over the sharded "
-                 "engines on the fake world"),
-}
 
 
 def card_name(dev: torch.device) -> str:
@@ -159,9 +151,8 @@ def plan_cell(arch: str, shape: str, multi_pod: bool = False,
               mesh: str = "production", device=None) -> tuple:
     """(record, plan): the cell's plan on meta tensors and what the mesh
     makes of it before anything runs. The record's status is "skipped"
-    (the cell's own reason, a production cell of a family that waits for
-    a later slice, or a card it does not fit) or "fits" (plan then not
-    None)."""
+    (the cell's own reason, or a card it does not fit) or "fits" (plan
+    then not None)."""
     if mesh not in MESHES:
         raise ValueError(f"mesh {mesh!r}: one of {MESHES}")
     mod = get(arch)
@@ -169,10 +160,6 @@ def plan_cell(arch: str, shape: str, multi_pod: bool = False,
     rec = _base(arch, shape, multi_pod, mesh, cell.kind)
     if cell.skip_reason:
         return {**rec, "status": "skipped", "reason": cell.skip_reason}, None
-    if mesh == "production" and mod.FAMILY in WAITING:
-        return {**rec, "status": "skipped",
-                "chips": production_ranks(multi_pod),
-                "reason": WAITING[mod.FAMILY]}, None
     t0 = time.perf_counter()
     plan = mod.build(shape, multi_pod)
     rec["build_s"] = round(time.perf_counter() - t0, 3)
@@ -354,14 +341,20 @@ def _local_rows(plan, multi_pod: bool) -> int:
 
 
 def _probes_hold(plan, multi_pod: bool) -> bool:
-    """Whether the reference's model a + M b + M L c fits the sharded
-    step: a rank holding fewer rows than microbatches runs one microbatch
-    a row (`make_train_step`), fewer than the model names, so the plan
-    and its probe of two microbatches must each hold at least as many
-    rows per rank as they name microbatches (qwen3's train_4k, 16
-    microbatches of 16 rows, on the 32 batch ranks of two pods does
-    not)."""
+    """Whether the reference's model a + M b + M L c, and the peak linear
+    in L, fit the sharded step. The peak grows with L where each layer
+    keeps its activations for a backward: a train step does, a solve
+    built per mesh (`static["step_builder"]`, cpaa) does not (its rounds
+    keep the same vectors live, so the fit made its 2D peaks 3.7x too
+    high); its whole step is counted, in hundredths of a second. A rank
+    holding fewer rows than microbatches runs one microbatch a row
+    (`make_train_step`), fewer than the model names, so the plan and its
+    probe of two microbatches must each hold at least as many rows per
+    rank as they name microbatches (qwen3's train_4k, 16 microbatches of
+    16 rows, on the 32 batch ranks of two pods does not)."""
     cm = plan.cost_model
+    if "step_builder" in plan.static:
+        return False
     if cm["M"] == 1:
         return True
     return _local_rows(plan, multi_pod) >= cm["M"] and \

@@ -7,7 +7,11 @@ The triplet list (edge k->j feeding edge j->i) is built host-side and capped
 at `max_triplets_per_edge`; `build_triplets` is a copy of the reference's
 (host numpy, the same arrays). The basis functions use sinusoidal radial /
 Chebyshev angular forms, as in the reference. Each interaction block is
-checkpointed, as the reference's scanned body is.
+checkpointed, as the reference's scanned body is. With a `GraphLayout`
+under a sharded mesh, the triplets gather the whole edge rows they read
+and scatter into the edge set's pieces, and the all-triplet norm sums its
+columns over every rank before the minimum (`common`'s partitioned
+message passing).
 """
 from __future__ import annotations
 
@@ -19,10 +23,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.graph.ops import segment_sum
-from repro_torch.models.gnn.common import (checkpointed, layer_slice,
-                                           mse_loss, n_stacked,
-                                           requires_grad, stack_layers)
+from repro_torch.models.gnn.common import (GraphLayout, Rows, checkpointed,
+                                           layer_slice, mse_loss, n_stacked,
+                                           requires_grad, rows_of,
+                                           stack_layers)
 from repro_torch.models.layers import mlp_apply, mlp_init
 
 __all__ = ["DimeNetConfig", "radial_basis", "spherical_basis",
@@ -85,66 +89,79 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((v + 1e-9).square().sum(-1))
 
 
-def _ord_minus_one_norm(v: torch.Tensor) -> torch.Tensor:
+def _ord_minus_one_norm(v: torch.Tensor, trips: Rows) -> torch.Tensor:
     """What the reference's `jnp.linalg.norm(v + 1e-9, -1)` computes: the
     -1 lands on `ord`, not `axis`, so it is the matrix norm of the whole
     [T, 3] array (the least column sum of |v + 1e-9|), one scalar for all
-    triplets. Kept, so both packages compute the same angles."""
-    return (v + 1e-9).abs().sum(0).min()
+    triplets (`trips`: the column sums over every rank's). Kept, so both
+    packages compute the same angles."""
+    return trips.total((v + 1e-9).abs()).min()
 
 
-def _block(bp, rbf, sbf, t_kj, t_ji, t_mask, rcv, n, n_edges, x, out_sum):
+def _block(bp, rbf, sbf, t_kj, t_ji, t_mask, rcv, nodes, edges, trips, x,
+           out_sum):
     g = mlp_apply(bp["w_rbf"], rbf)                            # [E, d]
     x_rbf = x * g
     # directional message: down-project, modulate by SBF, re-aggregate
-    m_kj = mlp_apply(bp["down"], x_rbf).index_select(0, t_kj)  # [T, nbi]
+    m_kj = edges.gather(mlp_apply(bp["down"], x_rbf), t_kj)    # [T, nbi]
     m_kj = m_kj * mlp_apply(bp["w_sbf"], sbf) * t_mask         # [T, nbi]
-    agg = segment_sum(m_kj, t_ji, n_edges)
+    agg = edges.scatter_sum(m_kj, t_ji, trips)
     x_new = x + mlp_apply(bp["mlp"], mlp_apply(bp["up"], agg),
                           act=F.silu, final_act=True)
-    out_sum = out_sum + segment_sum(mlp_apply(bp["out"], x_new), rcv, n)
+    out_sum = out_sum + nodes.scatter_sum(mlp_apply(bp["out"], x_new), rcv,
+                                          edges)
     return x_new, out_sum
 
 
-def forward(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
+def forward(params, batch, cfg: DimeNetConfig,
+            layout: GraphLayout | None = None) -> torch.Tensor:
     """batch: node_feat [N, d_in]; senders/receivers [E]; positions [N, 3];
     t_kj, t_ji [T] triplet edge indices (message k->j feeds edge j->i);
-    t_mask [T]. Returns per-node scalar predictions [N, 1]."""
+    t_mask [T]; `layout`: the batch's sharding (None: whole). Returns
+    per-node scalar predictions [N, 1]."""
     snd, rcv = batch["senders"], batch["receivers"]
     pos = batch["positions"]
     feat = batch["node_feat"]
-    n = feat.shape[0]
+    nodes = rows_of(batch, "node_feat", layout)
+    edges = rows_of(batch, "senders", layout)
+    trips = rows_of(batch, "t_kj", layout)
 
-    vec = pos.index_select(0, rcv) - pos.index_select(0, snd)
+    pos_w = nodes.whole(pos)
+    vec = pos_w.index_select(0, rcv) - pos_w.index_select(0, snd)
     dist = _norm(vec)                                          # [E]
     rbf = radial_basis(dist, cfg.n_radial, cfg.cutoff)         # [E, R]
 
     # triplet angle between edge kj and edge ji
     t_kj, t_ji = batch["t_kj"], batch["t_ji"]
-    v1 = vec.index_select(0, t_kj)
-    v2 = -vec.index_select(0, t_ji)
-    cosang = (v1 * v2).sum(-1) / (_ord_minus_one_norm(v1) *
-                                  _ord_minus_one_norm(v2))
+    vec_w = edges.whole(vec)
+    v1 = vec_w.index_select(0, t_kj)
+    v2 = -vec_w.index_select(0, t_ji)
+    cosang = (v1 * v2).sum(-1) / (_ord_minus_one_norm(v1, trips) *
+                                  _ord_minus_one_norm(v2, trips))
     angle = torch.arccos(torch.clamp(cosang, -1 + 1e-6, 1 - 1e-6))
-    sbf = spherical_basis(dist.index_select(0, t_kj), angle,
+    sbf = spherical_basis(edges.gather(dist, t_kj), angle,
                           cfg.n_spherical, cfg.n_radial, cfg.cutoff)
     t_mask = batch["t_mask"][:, None]
 
+    feat_w = nodes.whole(feat)
     x = mlp_apply(params["emb_edge"],
-                  torch.cat([feat.index_select(0, snd),
-                             feat.index_select(0, rcv), rbf], -1),
+                  torch.cat([feat_w.index_select(0, snd),
+                             feat_w.index_select(0, rcv), rbf], -1),
                   act=F.silu, final_act=True)                  # [E, d]
-    out_sum = x.new_zeros((n, cfg.d_hidden))
+    out_sum = x.new_zeros((feat.shape[0], cfg.d_hidden))
     for i in range(n_stacked(params["blocks"])):
         x, out_sum = checkpointed(
             partial(_block, layer_slice(params["blocks"], i), rbf, sbf,
-                    t_kj, t_ji, t_mask, rcv, n, snd.shape[0]), x, out_sum)
+                    t_kj, t_ji, t_mask, rcv, nodes, edges, trips), x,
+            out_sum)
     return mlp_apply(params["dec"], out_sum, act=F.silu)
 
 
-def loss_fn(params, batch, cfg: DimeNetConfig) -> torch.Tensor:
-    pred = forward(params, batch, cfg)
-    return mse_loss(pred, batch["targets"], batch.get("node_mask"))
+def loss_fn(params, batch, cfg: DimeNetConfig,
+            layout: GraphLayout | None = None) -> torch.Tensor:
+    pred = forward(params, batch, cfg, layout)
+    return mse_loss(pred, batch["targets"], batch.get("node_mask"),
+                    rows_of(batch, "node_feat", layout))
 
 
 def build_triplets(senders: np.ndarray, receivers: np.ndarray, n_nodes: int,

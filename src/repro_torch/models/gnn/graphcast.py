@@ -11,7 +11,10 @@ Mesh topology is synthesized host-side by icosahedron refinement; the grid
 <-> mesh bipartite edges are synthetic nearest-assignment. `mesh_topology`
 and `grid_mesh_edges` are copies of the reference's (host numpy, the same
 arrays). Each processor layer is checkpointed, as the reference's scanned
-body is; the encoder and decoder are not, in either package.
+body is; the encoder and decoder are not, in either package. With a
+`GraphLayout` under a sharded mesh, the grid, mesh and each edge set is
+sharded or whole by its own spec (`common`'s partitioned message
+passing); the clamp and drop bounds are the sets' global counts.
 """
 from __future__ import annotations
 
@@ -21,12 +24,12 @@ from functools import partial
 import numpy as np
 import torch
 
-from repro_torch.graph.ops import segment_sum
-from repro_torch.models.gnn.common import (checkpointed, interaction_apply,
+from repro_torch.models.gnn.common import (GraphLayout, Rows, checkpointed,
+                                           interaction_apply,
                                            interaction_init, layer_slice,
                                            lnmlp_apply, lnmlp_init, mse_loss,
                                            n_stacked, requires_grad,
-                                           stack_layers)
+                                           rows_of, stack_layers)
 from repro_torch.models.layers import mlp_apply, mlp_init
 
 __all__ = ["GraphCastConfig", "mesh_topology", "grid_mesh_edges",
@@ -110,23 +113,26 @@ def init_params(gen: torch.Generator, cfg: GraphCastConfig) -> dict:
     })
 
 
-def _gather_clamped(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[idx] with XLA's out-of-range rule: an index past the last row
-    reads the last row, and its gradient is dropped."""
-    valid = (idx < x.shape[0])[:, None]
-    rows = x.index_select(0, idx.clamp(max=x.shape[0] - 1))
+def _gather_clamped(x: torch.Tensor, idx: torch.Tensor,
+                    src: Rows) -> torch.Tensor:
+    """x[idx] of the whole set `src` with XLA's out-of-range rule: an
+    index past its last row reads the last row, and its gradient is
+    dropped."""
+    valid = (idx < src.n)[:, None]
+    rows = src.whole(x).index_select(0, idx.clamp(max=src.n - 1))
     return torch.where(valid, rows, rows.detach())
 
 
-def _segment_sum_dropped(x: torch.Tensor, seg: torch.Tensor, n: int):
-    """segment_sum that drops entries whose segment is >= n (XLA's
-    scatter rule), with a zero gradient for them."""
-    valid = (seg < n)[:, None]
-    return segment_sum(torch.where(valid, x, x.new_zeros(())),
-                       seg.clamp(max=n - 1), n)
+def _segment_sum_dropped(x: torch.Tensor, seg: torch.Tensor, dst: Rows,
+                         edges: Rows):
+    """segment_sum into the set `dst` that drops entries whose segment is
+    >= its global count (XLA's scatter rule), with a zero gradient for
+    them."""
+    return dst.scatter_sum(x, seg.clamp(max=dst.n - 1), edges,
+                           keep=seg < dst.n)
 
 
-def _bipartite(p, h_src, h_dst, e, senders, receivers, n_dst, aggregator):
+def _bipartite(p, h_src, h_dst, e, senders, receivers, sets, aggregator):
     """One-way interaction from src node set into dst node set (sum
     aggregation, whatever `aggregator` says, as in the reference).
 
@@ -134,24 +140,30 @@ def _bipartite(p, h_src, h_dst, e, senders, receivers, n_dst, aggregator):
     and receivers that are mesh ids (its make_batch's final reassignment),
     so indices can pass the node sets; XLA clamps such gathers and drops
     such scatters, and so does this function, to compute what the
-    reference computes."""
-    msg_in = torch.cat([e, _gather_clamped(h_src, senders),
-                        _gather_clamped(h_dst, receivers)], dim=-1)
+    reference computes. `sets`: the `Rows` of (src, dst, the edges)."""
+    src, dst, edges = sets
+    msg_in = torch.cat([e, _gather_clamped(h_src, senders, src),
+                        _gather_clamped(h_dst, receivers, dst)], dim=-1)
     e_new = e + lnmlp_apply(p["edge"], msg_in)
-    agg = _segment_sum_dropped(e_new, receivers, n_dst)
+    agg = _segment_sum_dropped(e_new, receivers, dst, edges)
     return h_dst + lnmlp_apply(p["node"], torch.cat([h_dst, agg], -1))
 
 
-def _layer(lp, snd, rcv, n_mesh, aggregator, hm, e):
-    return interaction_apply(lp, hm, e, snd, rcv, n_mesh, aggregator)
+def _layer(lp, snd, rcv, mesh, edges, aggregator, hm, e):
+    return interaction_apply(lp, hm, e, snd, rcv, mesh, aggregator, edges)
 
 
-def forward(params, batch, cfg: GraphCastConfig) -> torch.Tensor:
+def forward(params, batch, cfg: GraphCastConfig,
+            layout: GraphLayout | None = None) -> torch.Tensor:
     """batch keys: grid_feat [Ng, n_vars]; mesh_feat [Nm, 4];
     g2m_(senders->grid idx, receivers->mesh idx); mesh_(senders, receivers);
-    m2g_(senders->mesh idx, receivers->grid idx); *_edge_feat [E, 4]."""
-    n_grid = batch["grid_feat"].shape[0]
-    n_mesh = batch["mesh_feat"].shape[0]
+    m2g_(senders->mesh idx, receivers->grid idx); *_edge_feat [E, 4];
+    `layout`: the batch's sharding (None: whole)."""
+    grid = rows_of(batch, "grid_feat", layout)
+    mesh = rows_of(batch, "mesh_feat", layout)
+    g2m = rows_of(batch, "g2m_senders", layout)
+    m2m = rows_of(batch, "mesh_senders", layout)
+    m2g = rows_of(batch, "m2g_senders", layout)
     hg = lnmlp_apply(params["emb_grid"], batch["grid_feat"])
     hm = lnmlp_apply(params["emb_mesh"], batch["mesh_feat"])
     e_g2m = lnmlp_apply(params["emb_e_g2m"], batch["g2m_edge_feat"])
@@ -160,7 +172,7 @@ def forward(params, batch, cfg: GraphCastConfig) -> torch.Tensor:
 
     # encode grid -> mesh
     hm = _bipartite(params["g2m"], hg, hm, e_g2m, batch["g2m_senders"],
-                    batch["g2m_receivers"], n_mesh, cfg.aggregator)
+                    batch["g2m_receivers"], (grid, mesh, g2m), cfg.aggregator)
 
     # process on the multi-level mesh
     snd, rcv = batch["mesh_senders"], batch["mesh_receivers"]
@@ -168,14 +180,16 @@ def forward(params, batch, cfg: GraphCastConfig) -> torch.Tensor:
     for i in range(n_stacked(params["layers"])):
         hm, e = checkpointed(
             partial(_layer, layer_slice(params["layers"], i), snd, rcv,
-                    n_mesh, cfg.aggregator), hm, e)
+                    mesh, m2m, cfg.aggregator), hm, e)
 
     # decode mesh -> grid
     hg = _bipartite(params["m2g"], hm, hg, e_m2g, batch["m2g_senders"],
-                    batch["m2g_receivers"], n_grid, cfg.aggregator)
+                    batch["m2g_receivers"], (mesh, grid, m2g), cfg.aggregator)
     return mlp_apply(params["dec"], hg)
 
 
-def loss_fn(params, batch, cfg: GraphCastConfig) -> torch.Tensor:
-    pred = forward(params, batch, cfg)
-    return mse_loss(pred, batch["targets"], batch.get("node_mask"))
+def loss_fn(params, batch, cfg: GraphCastConfig,
+            layout: GraphLayout | None = None) -> torch.Tensor:
+    pred = forward(params, batch, cfg, layout)
+    return mse_loss(pred, batch["targets"], batch.get("node_mask"),
+                    rows_of(batch, "grid_feat", layout))

@@ -5,7 +5,9 @@
 LayerNorm, residual node+edge updates. The reference scans a
 `jax.checkpoint`ed body over the layer-stacked parameters; the port loops
 over the leading layer axis and checkpoints each layer, so the backward
-pass keeps only each layer's (h, e) carry.
+pass keeps only each layer's (h, e) carry. With a `GraphLayout` under a
+sharded mesh, each layer gathers the whole h and reduce-scatters its
+aggregate (`common`'s partitioned message passing).
 """
 from __future__ import annotations
 
@@ -14,11 +16,12 @@ from functools import partial
 
 import torch
 
-from repro_torch.models.gnn.common import (checkpointed, interaction_apply,
+from repro_torch.models.gnn.common import (GraphLayout, checkpointed,
+                                           interaction_apply,
                                            interaction_init, layer_slice,
                                            lnmlp_apply, lnmlp_init, mse_loss,
                                            n_stacked, requires_grad,
-                                           stack_layers)
+                                           rows_of, stack_layers)
 from repro_torch.models.layers import mlp_apply, mlp_init
 
 __all__ = ["MeshGraphNetConfig", "init_params", "forward", "loss_fn"]
@@ -52,24 +55,28 @@ def init_params(gen: torch.Generator, cfg: MeshGraphNetConfig) -> dict:
     })
 
 
-def forward(params, batch, cfg: MeshGraphNetConfig) -> torch.Tensor:
+def forward(params, batch, cfg: MeshGraphNetConfig,
+            layout: GraphLayout | None = None) -> torch.Tensor:
     """batch: node_feat [N, d_in_node], edge_feat [E, d_in_edge],
-    senders/receivers [E]."""
-    n = batch["node_feat"].shape[0]
+    senders/receivers [E]; `layout`: the batch's sharding (None: whole)."""
+    nodes = rows_of(batch, "node_feat", layout)
+    edges = rows_of(batch, "senders", layout)
     h = lnmlp_apply(params["enc_node"], batch["node_feat"])
     e = lnmlp_apply(params["enc_edge"], batch["edge_feat"])
     snd, rcv = batch["senders"], batch["receivers"]
     for i in range(n_stacked(params["layers"])):
         h, e = checkpointed(
-            partial(_layer, layer_slice(params["layers"], i), snd, rcv, n,
-                    cfg.aggregator), h, e)
+            partial(_layer, layer_slice(params["layers"], i), snd, rcv,
+                    nodes, edges, cfg.aggregator), h, e)
     return mlp_apply(params["dec"], h)
 
 
-def _layer(lp, snd, rcv, n, aggregator, h, e):
-    return interaction_apply(lp, h, e, snd, rcv, n, aggregator)
+def _layer(lp, snd, rcv, nodes, edges, aggregator, h, e):
+    return interaction_apply(lp, h, e, snd, rcv, nodes, aggregator, edges)
 
 
-def loss_fn(params, batch, cfg: MeshGraphNetConfig) -> torch.Tensor:
-    pred = forward(params, batch, cfg)
-    return mse_loss(pred, batch["targets"], batch.get("node_mask"))
+def loss_fn(params, batch, cfg: MeshGraphNetConfig,
+            layout: GraphLayout | None = None) -> torch.Tensor:
+    pred = forward(params, batch, cfg, layout)
+    return mse_loss(pred, batch["targets"], batch.get("node_mask"),
+                    rows_of(batch, "node_feat", layout))

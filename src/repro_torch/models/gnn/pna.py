@@ -5,7 +5,10 @@ Per layer: messages M(h_u, h_v) -> 4 aggregators (mean/max/min/std) x 3
 degree scalers (identity / amplification / attenuation) = 12 aggregated
 views, concatenated and mixed by a linear update U. deg-scalers use
 log(d+1)/delta with delta = mean log-degree of the training graph. Each
-layer is checkpointed, as the reference's scanned body is.
+layer is checkpointed, as the reference's scanned body is. With a
+`GraphLayout` under a sharded mesh the aggregators run over every rank's
+edges (`common`'s partitioned message passing; max and min split their
+gradient among ties counted over every rank).
 """
 from __future__ import annotations
 
@@ -14,11 +17,10 @@ from functools import partial
 
 import torch
 
-from repro_torch.graph.ops import segment_max, segment_min, segment_sum
-from repro_torch.models.gnn.common import (checkpointed, layer_slice,
-                                           mse_loss, n_stacked,
-                                           requires_grad, segment_std,
-                                           stack_layers)
+from repro_torch.models.gnn.common import (GraphLayout, checkpointed,
+                                           layer_slice, mse_loss, n_stacked,
+                                           requires_grad, rows_of,
+                                           segment_std, stack_layers)
 from repro_torch.models.layers import layer_norm, mlp_apply, mlp_init
 
 __all__ = ["PNAConfig", "init_params", "forward", "loss_fn"]
@@ -57,16 +59,17 @@ def _finite_or_zero(x: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(x), x, x.new_zeros(()))
 
 
-def _layer(lp, snd, rcv, n, s_amp, s_att, h):
-    msg = mlp_apply(lp["msg"], torch.cat([h.index_select(0, snd),
-                                          h.index_select(0, rcv)], -1),
+def _layer(lp, snd, rcv, nodes, edges, s_amp, s_att, h):
+    hw = nodes.whole(h)
+    msg = mlp_apply(lp["msg"], torch.cat([hw.index_select(0, snd),
+                                          hw.index_select(0, rcv)], -1),
                     act=torch.relu, final_act=True)
-    cnt = torch.clamp(segment_sum(msg.new_ones(rcv.shape), rcv, n),
+    cnt = torch.clamp(nodes.scatter_sum(msg.new_ones(rcv.shape), rcv, edges),
                       min=1.0)[:, None]
-    mean = segment_sum(msg, rcv, n) / cnt
-    mx = _finite_or_zero(segment_max(msg, rcv, n))
-    mn = _finite_or_zero(segment_min(msg, rcv, n))
-    sd = segment_std(msg, rcv, n)
+    mean = nodes.scatter_sum(msg, rcv, edges) / cnt
+    mx = _finite_or_zero(nodes.extreme(msg, rcv, edges, "amax"))
+    mn = _finite_or_zero(nodes.extreme(msg, rcv, edges, "amin"))
+    sd = segment_std(msg, rcv, nodes, src=edges)
     aggs = torch.cat([mean, mx, mn, sd], -1)                   # [N, 4d]
     scaled = torch.cat([aggs, aggs * s_amp, aggs * s_att], -1)
     h_new = mlp_apply(lp["upd"], torch.cat([h, scaled], -1),
@@ -74,9 +77,12 @@ def _layer(lp, snd, rcv, n, s_amp, s_att, h):
     return layer_norm(h + h_new, lp["ln"], lp["ln_b"])
 
 
-def forward(params, batch, cfg: PNAConfig) -> torch.Tensor:
-    """batch: node_feat [N, d_in], senders/receivers [E], deg [N] float."""
-    n = batch["node_feat"].shape[0]
+def forward(params, batch, cfg: PNAConfig,
+            layout: GraphLayout | None = None) -> torch.Tensor:
+    """batch: node_feat [N, d_in], senders/receivers [E], deg [N] float;
+    `layout`: the batch's sharding (None: whole)."""
+    nodes = rows_of(batch, "node_feat", layout)
+    edges = rows_of(batch, "senders", layout)
     snd, rcv = batch["senders"], batch["receivers"]
     h = mlp_apply(params["enc"], batch["node_feat"])
     logd = torch.log1p(batch["deg"]).to(h.dtype)[:, None]      # [N, 1]
@@ -84,10 +90,12 @@ def forward(params, batch, cfg: PNAConfig) -> torch.Tensor:
     s_att = cfg.delta / torch.clamp(logd, min=1e-3)
     for i in range(n_stacked(params["layers"])):
         h = checkpointed(partial(_layer, layer_slice(params["layers"], i),
-                                 snd, rcv, n, s_amp, s_att), h)
+                                 snd, rcv, nodes, edges, s_amp, s_att), h)
     return mlp_apply(params["dec"], h)
 
 
-def loss_fn(params, batch, cfg: PNAConfig) -> torch.Tensor:
-    pred = forward(params, batch, cfg)
-    return mse_loss(pred, batch["targets"], batch.get("node_mask"))
+def loss_fn(params, batch, cfg: PNAConfig,
+            layout: GraphLayout | None = None) -> torch.Tensor:
+    pred = forward(params, batch, cfg, layout)
+    return mse_loss(pred, batch["targets"], batch.get("node_mask"),
+                    rows_of(batch, "node_feat", layout))

@@ -35,6 +35,13 @@ step honours the specs, leaf by leaf (`_spec_mean`):
 The gradient norm of the clip is then the norm of the whole gradient
 (`optimizer.global_norm` with the specs), and AdamW's update runs on the
 local pieces.
+
+A GNN step shards its batch over every mesh axis and each rank's loss is
+its part of the one global loss (`models.gnn.common`), so its plan asks
+for `grad_rule="sum"`: sharded, every gradient leaf and the loss are
+summed over all the mesh's ranks (the world group, tag "train", site
+"grad_sum"), with no division (`_global_sum`). The default, "mean",
+keeps `_spec_mean` for the LM and DLRM plans.
 """
 from __future__ import annotations
 
@@ -130,8 +137,23 @@ def _spec_mean(grads: list, specs: list, loss: torch.Tensor):
     return loss / n
 
 
+def _global_sum(grads: list, loss: torch.Tensor) -> torch.Tensor:
+    """The GNN rule (module docstring): every gradient leaf and the loss
+    summed over all the active mesh's ranks, in place; returns the summed
+    loss."""
+    mesh = current_mesh()
+    axes = tuple(mesh.mesh_dim_names or ())
+    if parallel.size(axes) == 1:
+        return loss
+    for g in grads:
+        parallel.all_sum(g, (axes,), tag="train", site="grad_sum")
+    return parallel.all_sum(loss.detach().clone(), (axes,), tag="train",
+                            site="loss_sum")
+
+
 def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
-                    donate: bool = True, grad_specs=None):
+                    donate: bool = True, grad_specs=None,
+                    grad_rule: str = "mean"):
     """loss_fn(params, microbatch) -> scalar. Returns
     train_step(params, opt_state, batch) -> (params, opt_state, metrics)
     with metrics = {"loss", "grad_norm"} (0-dim tensors).
@@ -146,7 +168,10 @@ def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
     metrics then hold the mean loss. Sharded, `params` and `opt_state`
     are this rank's pieces under `grad_specs` (the parameters' specs) and
     the mean follows them (`_spec_mean`); without a sharded mesh the specs
-    change nothing."""
+    change nothing. `grad_rule="sum"` (a GNN plan's) makes a sharded
+    step sum the ranks' gradients and losses instead (`_global_sum`)."""
+    if grad_rule not in ("mean", "sum"):
+        raise ValueError(f"grad_rule {grad_rule!r}: 'mean' or 'sum'")
 
     def train_step(params, opt_state, batch):
         sharded = params_sharded()
@@ -185,8 +210,12 @@ def make_train_step(loss_fn, opt_cfg: AdamWConfig, num_microbatches: int = 1,
             loss = loss / n_micro
         del xs
         specs = spec_leaves(grad_specs, params) if sharded else None
-        loss = _spec_mean(grads, specs, loss) if sharded \
-            else _mesh_mean(grads, loss)
+        if sharded and grad_rule == "sum":
+            loss = _global_sum(grads, loss)
+        elif sharded:
+            loss = _spec_mean(grads, specs, loss)
+        else:
+            loss = _mesh_mean(grads, loss)
         params, opt_state, metrics = adamw_update(
             pytree.tree_unflatten(grads, spec), opt_state, params, opt_cfg,
             in_place=donate, grad_specs=specs)

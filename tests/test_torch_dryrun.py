@@ -333,11 +333,12 @@ class TestDryRun:
 
     def test_main_production_all_and_skip_done(self, tmp_path,
                                                monkeypatch):
-        """Every cell on the production mesh at smoke size: the LM and
-        DLRM-RM2 cells run (argument bytes equal to `per_device_bytes`),
-        the long_500k cells of full-attention archs keep their own skip,
-        and the GNN and cpaa cells a skip naming the next slice; a rerun
-        with --skip-done adds nothing."""
+        """Every cell on the production mesh at smoke size: all run
+        (argument bytes equal to `per_device_bytes`) but the long_500k
+        cells of full-attention archs, which keep their own skip; every
+        GNN and cpaa record counts collective bytes, its GNN trips over
+        the flat axes ("data+model"); a rerun with --skip-done adds
+        nothing."""
         _smoke_production(monkeypatch)
         out = tmp_path / "d.jsonl"
         assert dryrun.main(["--all", "--out", str(out)]) == 0
@@ -348,20 +349,23 @@ class TestDryRun:
         assert len(ok) + len(skips) == 47
         assert {r["arch"] for r in ok} == {
             "h2o-danube-1.8b", "deepseek-7b", "granite-moe-3b-a800m",
-            "qwen2.5-32b", "qwen3-moe-235b-a22b", "dlrm-rm2"}
-        assert len(ok) == 21
+            "qwen2.5-32b", "qwen3-moe-235b-a22b", "dlrm-rm2",
+            "meshgraphnet", "pna", "dimenet", "graphcast", "cpaa-pagerank"}
+        assert len(ok) == 43
         for r in ok:
             plan = registry.get(r["arch"]).build(r["shape"], False)
             assert r["memory"]["argument_bytes"] == \
                 dryrun.per_device_bytes(plan, False), (r["arch"], r["shape"])
             assert r["chips"] == 256 and r["roofline"]["chips"] == 256
-        own = [r for r in skips if r["shape"] == "long_500k"]
-        assert len(own) == 4 and all("full-attention" in r["reason"]
-                                     for r in own)
-        later = [r for r in skips if r["shape"] != "long_500k"]
-        assert len(later) == 22
-        assert all("next slice" in r["reason"] for r in later)
-        assert not any("this world has" in r["reason"] for r in skips)
+            if registry.get(r["arch"]).FAMILY in ("gnn", "pagerank"):
+                moved = sum(r["collectives"][k]
+                            for k in analysis.COLLECTIVES)
+                assert moved > 0, (r["arch"], r["shape"])
+            if registry.get(r["arch"]).FAMILY == "gnn":
+                assert r["collectives_by_axis"]["data+model"], r["shape"]
+        assert len(skips) == 4
+        assert all(r["shape"] == "long_500k" and "full-attention" in
+                   r["reason"] for r in skips)
         assert dryrun.main(["--all", "--out", str(out), "--skip-done"]) == 0
         assert len(out.read_text().splitlines()) == 47
 
@@ -409,6 +413,128 @@ class TestDryRun:
         }
         assert got == want
 
+    @pytest.mark.parametrize("shape", [(1, 3), (2, 4), (2, 2, 2)],
+                             ids=["1x3", "2x4", "2x2x2"])
+    def test_gnn_collective_bytes_per_layer_match_the_closed_form(
+            self, shape):
+        """meshgraphnet-smoke's forward as rank 0 on a fake world, its 512
+        nodes and 2,048 edges sharded over every axis: per layer, one
+        all-gather of the whole h and one reduce-scatter of the whole
+        aggregate over the flat axes, n_pad x d x 4 bytes each (n_pad the
+        ranks x ceil(n / ranks): 513 on the uneven (1, 3)), and nothing
+        else (the encoders, the decoder and the loss are local)."""
+        from repro_torch.configs import meshgraphnet as mgn_cfg
+        from repro_torch.distributed import sharding as sh
+        from repro_torch.models.gnn import meshgraphnet as mgn
+        from repro_torch.models.gnn.common import GraphLayout
+        cfg = mgn_cfg.smoke_config()
+        names = ("pod", "data", "model")[-len(shape):]
+        ranks = 1
+        for s in shape:
+            ranks *= s
+        n = 512
+        batch = mgn_cfg.make_batch(cfg, dict(n=n, e=2048, d_feat=12),
+                                   device="cpu")
+        params = mgn.init_params(torch.Generator().manual_seed(0), cfg)
+        specs = sh.gnn_batch_specs(batch, "pod" in names)
+        layout = GraphLayout.of(batch, specs)
+        assert layout.sharded == set(batch)
+        with cdist.fake_world(ranks):
+            mesh = cdist.init_mesh(shape, names, "cpu")
+            with sh.use_mesh(mesh, sharded=True), torch.no_grad():
+                local = sh.shard_tree(batch, specs, mesh)
+                cdist.reset_collective_counts()
+                mgn.forward(params, local, cfg, layout)
+                got = cdist.collective_counts()
+        n_l = cfg.n_layers
+        layer = ranks * -(-n // ranks) * cfg.d_hidden * 4
+        axis = "+".join(names)
+        assert got == {
+            f"gnn/gather/all_gather/{axis}": {"calls": n_l,
+                                              "bytes": n_l * layer},
+            f"gnn/scatter/reduce_scatter/{axis}": {"calls": n_l,
+                                                   "bytes": n_l * layer}}
+
+    @pytest.mark.parametrize("multi_pod", [False, True])
+    @pytest.mark.parametrize("shape", ["pr_mesh_67m", "pr_mesh_67m_b128",
+                                       "pr_mesh_67m_2d",
+                                       "pr_mesh_67m_2d_b128"])
+    def test_cpaa_collective_bytes_per_apply_match_the_closed_form(
+            self, shape, multi_pod):
+        """cpaa's production step as rank 0 of the fake world, on meta
+        tensors: per apply (one a round), the 1D partition all-gathers the
+        whole x, n x 4 x B bytes over the world; the 2D partition
+        reduce-scatters rows_per_chunk x 4 x B bytes over its column group
+        and all-gathers cols_per_chunk x 4 x B bytes over its row group
+        (grid (32, 16) on two pods); once, the normalization all-reduces
+        the B column sums; nothing else, and pi stays in p's layout."""
+        from repro_torch.configs import pagerank_cpaa as cpaa
+        from repro_torch.core import engine
+        from repro_torch.distributed import sharding as sh
+        plan = cpaa.build(shape, multi_pod)
+        info = cpaa.SHAPES[shape]
+        b = info["batch"] or 1
+        mesh = launch_mesh.make_production_mesh(multi_pod=multi_pod,
+                                                device="cpu", fake=True)
+        try:
+            with sh.use_mesh(mesh, sharded=True):
+                args = plan.local_args(mesh)
+                step = plan.static["step_builder"](mesh)
+                cdist.reset_collective_counts()
+                engine.reset_apply_counts()
+                pi = step(*args)
+                got = cdist.collective_counts()
+                applies = engine.apply_counts()
+        finally:
+            cdist.destroy_world()
+        assert pi.shape == args[0].shape and pi.device.type == "meta"
+        n = plan.abstract_args[0].shape[0]
+        if info["partition"] == "1d":
+            r = applies["sharded_1d"]
+            want = {"sharded_1d/apply/all_gather/world": {
+                        "calls": r, "bytes": r * n * 4 * b},
+                    "sharded_1d/reduce/all_reduce/world": {
+                        "calls": 1, "bytes": 4 * b}}
+        else:
+            rows, cols = (32, 16) if multi_pod else (16, 16)
+            r = applies["sharded_2d"]
+            want = {"sharded_2d/apply/reduce_scatter/col": {
+                        "calls": r, "bytes": r * n // rows * 4 * b},
+                    "sharded_2d/apply/all_gather/row": {
+                        "calls": r, "bytes": r * n // cols * 4 * b},
+                    "sharded_2d/reduce/all_reduce/col": {
+                        "calls": 1, "bytes": 4 * b}}
+        assert r == plan.cost_model["L"] == 12
+        assert got == want
+
+    @pytest.mark.parametrize("multi_pod", [False, True])
+    @pytest.mark.parametrize("shape", ["pr_mesh_67m", "pr_mesh_67m_2d",
+                                       "pr_mesh_67m_2d_b128"])
+    def test_a_cpaa_record_is_a_whole_count_of_the_solve(self, shape,
+                                                         multi_pod):
+        """cpaa's rounds keep the same vectors live whatever their count,
+        so a peak linear in L over the probes of 1 and 2 rounds (the
+        second holds one vector more) is wrong for it: its record counts
+        the whole solve, and its peak temp, FLOPs, bytes and collectives
+        are a whole count's, not estimated, with a peak below the fit's."""
+        rec = dryrun.run_cell("cpaa-pagerank", shape, multi_pod,
+                              "production", verbose=False)
+        plan = registry.get("cpaa-pagerank").build(shape, multi_pod)
+        whole = dryrun._count_production(plan, multi_pod, 0)
+        assert plan.cost_model["L"] == 12
+        assert rec["cost_from"] == "counted step"
+        mem = rec["memory"]
+        assert mem["peak_estimated"] is False
+        assert mem["temp_bytes"] == whole["peak"] > 0
+        assert mem["argument_bytes"] == dryrun.per_device_bytes(plan,
+                                                                multi_pod)
+        assert rec["cost"] == {"flops": whole["cost"]["flops"],
+                               "bytes_accessed":
+                               whole["cost"]["bytes accessed"]}
+        assert rec["collectives"] == whole["coll"]
+        fit, _ = dryrun._probe_counts(plan, multi_pod, 0)
+        assert whole["peak"] < fit["peak"]
+
     def test_main_card_cli(self, tmp_path):
         out = tmp_path / "d.jsonl"
         rc = dryrun.main(["--mesh", "card", "--arch", "pna", "--shape",
@@ -423,14 +549,29 @@ class TestDryRun:
 
 
 def _smoke_production(monkeypatch) -> None:
-    """Every LM and DLRM-RM2 config module's full_config its smoke config,
-    and the shapes small (a few rows per batch rank), so the production
-    mesh's counted meta steps take seconds."""
-    from repro_torch.configs import dlrm_rm2, lm_common
+    """Every LM, DLRM-RM2 and GNN config module's full_config its smoke
+    config, and the shapes small (a few rows per batch rank; GNN node and
+    edge counts and the cpaa vertex counts still tiling 512), so the
+    production mesh's counted meta steps take seconds."""
+    from repro_torch.configs import dlrm_rm2, gnn_common, lm_common, \
+        pagerank_cpaa
     for arch in ("h2o-danube-1.8b", "deepseek-7b", "granite-moe-3b-a800m",
                  "qwen2.5-32b", "qwen3-moe-235b-a22b", "dlrm-rm2"):
         mod = registry.get(arch)
         monkeypatch.setattr(mod, "full_config", mod.smoke_config)
+    for arch in ("meshgraphnet", "pna", "dimenet", "graphcast"):
+        mod = registry.get(arch)
+        monkeypatch.setattr(mod, "full_config",
+                            lambda d_in=None, mod=mod: mod.smoke_config())
+    for shape, (n, e) in (("full_graph_sm", (512, 2048)),
+                          ("minibatch_lg", (1024, 4096)),
+                          ("ogb_products", (1536, 6144)),
+                          ("molecule", (768, 2048))):
+        monkeypatch.setitem(gnn_common.GNN_SHAPES, shape,
+                            dict(n=n, e=e, d_feat=12, note="smoke"))
+    for shape, info in pagerank_cpaa.SHAPES.items():
+        monkeypatch.setitem(pagerank_cpaa.SHAPES, shape,
+                            {**info, "n": 1 << 16})
     monkeypatch.setitem(lm_common.LM_SHAPES, "train_4k",
                         dict(kind="train", seq=16, global_batch=32))
     monkeypatch.setitem(lm_common.LM_SHAPES, "prefill_32k",
