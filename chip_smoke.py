@@ -176,7 +176,11 @@ package. Phases, each of which must pass:
        steps (the loss falls), the first against a float64 step on the
        card (loss rel <= 1e-4, grad norm rel <= 1e-3), both embedding_bag
        counters equal to the steps, ms per step beside its bytes bound,
-       AdamW's share, peak memory.
+       AdamW's share, peak memory; after the steps one update from a
+       seeded gradient, the table's elements past 2^31 bitwise the plain
+       update of those rows, and AdamW alone, adamw_step and sum_squares
+       over the leaves beside their bounds, plain versions,
+       torch._fused_adamw_ and torch.linalg.vector_norm.
  12. slice J, the expert-parallel all-to-all MoE (no kernel of its own:
      the reference's packing and trips are XLA ops) over NCCL at world
      size 1 on a (1, 1) ("data", "model") mesh (`distributed.use_mesh`,
@@ -279,9 +283,11 @@ package. Phases, each of which must pass:
 
 Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
-fails the run. The line before the last is the kernel table as JSON; the
-last line is {"ok": true, "device": {...}}. Any failed phase exits
-non-zero without that line.
+fails the run. Every training path (I1, I2, I4, J, G's steps, M-b, M-c)
+must launch adamw_step and sum_squares once per leaf and step each, with
+no copy of a non-contiguous gradient. The line before the last is the
+kernel table as JSON; the last line is {"ok": true, "device": {...}}.
+Any failed phase exits non-zero without that line.
 """
 from __future__ import annotations
 
@@ -338,17 +344,20 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def reset_counts():
     from repro_torch.core import engine
+    from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.cheb_step import ops as cheb_ops
     from repro_torch.kernels.embedding_bag import ops as eb_ops
     bsr_ops.reset_launches()
     cheb_ops.reset_launches()
     eb_ops.reset_launches()
+    adamw_ops.reset_launches()
     engine.reset_apply_counts()
 
 
 def read_counts() -> dict:
     from repro_torch.core import engine
+    from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.cheb_step import ops as cheb_ops
     from repro_torch.kernels.embedding_bag import ops as eb_ops
@@ -359,6 +368,9 @@ def read_counts() -> dict:
             "embedding_bag_window_backward":
                 eb_ops.window_backward_launches(),
             "embedding_bag_window_sort": eb_ops.window_sort_launches(),
+            "adamw_step": adamw_ops.step_launches(),
+            "sum_squares": adamw_ops.norm_launches(),
+            "adamw_copies": adamw_ops.contiguous_copies(),
             "bsr_spmm_variants": bsr_ops.launches_by_variant(),
             "applies": engine.apply_counts()}
 
@@ -471,6 +483,82 @@ def dynamic_range_witness(block_cols, values, bt: int, seed: int) -> dict:
     return res
 
 
+ADAMW_HYPER = {"lr": 3e-4, "b1": 0.9, "b2": 0.95, "eps": 1e-8,
+               "weight_decay": 0.1}
+NORM_TOL = 1e-6        # sum_squares vs a float64 sum, relative
+
+
+def compare_adamw() -> dict:
+    """adamw_step bitwise its plain version on the card for every dtype
+    combination it takes (p, g, m and v; the f64 one with an f64 scale),
+    in place and out of place, at an odd length on views one element off
+    the 16-byte boundary (the scalar pass) and at 2^22 + 3 (vector and
+    tail); sum_squares in f32 and f64 within NORM_TOL of a float64 sum
+    and bitwise from one call to the next, at odd lengths, offset views
+    and 2^26 + 5. Returns the worst errors."""
+    import torch
+    from repro_torch.kernels.adamw.ops import adamw_step, sum_squares
+    from repro_torch.kernels.adamw.ref import adamw_step_ref
+    f32, f64, bf16 = torch.float32, torch.float64, torch.bfloat16
+    dtypes = {"f32": (f32, f32, f32), "f32_bf16": (f32, f32, bf16),
+              "f64_g32": (f64, f32, f32), "f64": (f64, f64, f32),
+              "f64_bf16": (f64, f64, bf16)}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(n, off, dtype, scale, positive=False):
+        x = torch.randn(n + off, device="cuda", generator=gen) * scale
+        return (x.abs() if positive else x).to(dtype)[off:]
+    cases, step_err = 0, 0.0
+    for combo, (pd, gd, md) in dtypes.items():
+        stepf = torch.tensor(3.0, device="cuda")
+        scale = torch.tensor(0.37, device="cuda",
+                             dtype=f64 if combo == "f64" else f32)
+        bc1 = 1.0 - torch.pow(torch.tensor(0.9, device="cuda"), stepf)
+        bc2 = 1.0 - torch.pow(torch.tensor(0.95, device="cuda"), stepf)
+        for n, off in ((4099, 1), ((1 << 22) + 3, 0)):
+            for in_place in (False, True):
+                p, g, m, v = (rand(n, off, pd, 1.0), rand(n, off, gd, 3.0),
+                              rand(n, off, md, 0.1),
+                              rand(n, off, md, 0.01, positive=True))
+                want = adamw_step_ref(p, g, m, v, scale, bc1, bc2,
+                                      **ADAMW_HYPER)
+                got = adamw_step(p, g, m, v, scale, bc1, bc2,
+                                 in_place=in_place, **ADAMW_HYPER)
+                torch.cuda.synchronize()
+                err = max(float((a.double() - b.double()).abs().max())
+                          for a, b in zip(got, want))
+                check(all(a.dtype == b.dtype and torch.equal(a, b)
+                          for a, b in zip(got, want)),
+                      f"adamw_step {combo} n={n} offset {off} in_place "
+                      f"{in_place}: kernel vs plain not bitwise (max |err| "
+                      f"{err:.3e})")
+                cases += 1
+                step_err = max(step_err, err)
+                del p, g, m, v, want, got
+    norm_rel, norm_abs = 0.0, 0.0
+    for dtype in (f32, f64):
+        for n, off in ((7, 1), (4099, 1), (16_385, 0), ((1 << 26) + 5, 0)):
+            x = rand(n, off, dtype, 1.0)
+            a, b = sum_squares(x), sum_squares(x)
+            want = float(x.double().square().sum())
+            check(a.dtype == dtype and torch.equal(a, b),
+                  f"sum_squares {dtype} n={n}: two calls differ "
+                  f"({float(a)!r}, {float(b)!r})")
+            err = abs(float(a) - want)
+            check(err <= NORM_TOL * want, f"sum_squares {dtype} n={n}: "
+                  f"{float(a)!r} vs float64 {want!r} (rel {err / want:.3e})")
+            norm_rel = max(norm_rel, err / want)
+            norm_abs = max(norm_abs, err)
+            del x
+    log(f"adamw_step: {cases} cases ({len(dtypes)} dtype "
+        "combinations, in place and new, n 4,099 on offset views and "
+        "2^22 + 3) bitwise its plain version; sum_squares f32 and f64 at n "
+        f"7 .. 2^26 + 5: max rel err vs float64 {norm_rel:.3e} (limit "
+        f"{NORM_TOL:g}), two calls bitwise")
+    return {"adamw_step": step_err, "sum_squares": norm_abs,
+            "sum_squares_rel": norm_rel}
+
+
 def phase_kernels() -> dict:
     import torch
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
@@ -519,8 +607,9 @@ def phase_kernels() -> dict:
         del y, t, acc, tk, ak, tr, ar
     log(f"cheb_step [n] and [n,B] up to 1,040,000x128: max |kernel - plain| "
         f"{cheb_err:.3e}")
+    adamw = compare_adamw()
     return {"bsr_spmm": worst, "cheb_step": cheb_err, "dyn_range": wit,
-            "host_us": host_us}
+            "host_us": host_us, "adamw": adamw}
 
 
 def host_cost(block_cols, values) -> dict:
@@ -1125,6 +1214,34 @@ def count_delta(before: dict, after: dict) -> dict:
     for k, v in after["bsr_spmm_variants"].items():
         out[k] = v - before["bsr_spmm_variants"][k]
     return out
+
+
+ADAMW_KEYS = ("adamw_step", "sum_squares", "adamw_copies")
+ADAMW_PATHS: dict = {}   # path -> AdamW launches its gates counted
+
+
+def adamw_delta(before: dict, after: dict) -> dict:
+    """The AdamW kernels' launches (and g copies) between two
+    `read_counts()` snapshots."""
+    return {k: after[k] - before[k] for k in ADAMW_KEYS}
+
+
+def gate_adamw(path: str, label: str, n: dict, leaves: int,
+               steps: int) -> None:
+    """Fail unless `steps` AdamW updates of `leaves` leaves launched the
+    update and the norm kernel once per leaf and step each, with no copy
+    of a non-contiguous g; add them to ADAMW_PATHS[path]."""
+    want = leaves * steps
+    log(f"{label}: AdamW launches {n['adamw_step']} update, "
+        f"{n['sum_squares']} norm, {n['adamw_copies']} copies of g "
+        f"({leaves} leaves x {steps} steps = {want})")
+    check(n["adamw_step"] == want and n["sum_squares"] == want
+          and n["adamw_copies"] == 0,
+          f"{label}: AdamW launches {n} for {leaves} leaves x {steps} "
+          "steps")
+    acc = ADAMW_PATHS.setdefault(path, dict.fromkeys(ADAMW_KEYS, 0))
+    for k in ADAMW_KEYS:
+        acc[k] += n[k]
 
 
 def add_counts(*parts) -> dict:
@@ -2449,6 +2566,7 @@ def gnn_steps(arch: str, shape: str, f64: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(G_STEPS + 1)]
     losses, gnorms = [], []
+    before = read_counts()
     ev[0].record()
     for i in range(G_STEPS):
         params, opt, m = step(params, opt, batch)
@@ -2456,6 +2574,9 @@ def gnn_steps(arch: str, shape: str, f64: str) -> dict:
         losses.append(m["loss"])
         gnorms.append(m["grad_norm"])
     torch.cuda.synchronize()
+    gate_adamw("slice_g", f"G {arch} at {shape}",
+               adamw_delta(before, read_counts()),
+               len(pytree.tree_leaves(params)), G_STEPS)
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(G_STEPS)]
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
@@ -3089,6 +3210,7 @@ I3_STEPS = 3           # the launcher at full width: 3 steps of 2 x I1_SEQ
 I4_BATCH = 65_536      # DLRM-RM2 train_batch
 I4_STEPS = 5
 I4_LR = 1e-3
+I4_HIGH = 2 ** 31      # the table's elements from here on need 64-bit offsets
 EB_BWD_TOL = 1e-4      # backward kernel vs float64, share of sum |terms|
 BF16_DENSE_FLOP_PER_S = 989e12   # H100 SXM bf16 tensor core, dense
 
@@ -3315,11 +3437,13 @@ def lm_step_idle(label: str, cfg, opt_cfg, params, opt, tokens,
     """The device's idle share of one train step of n_micro microbatches
     taking step_ms: torch.profiler over one microbatch's forward and
     backward (`tokens` [1, S+1]; its gradients drained into an f32
-    accumulator by the step's own hooks) and over AdamW alone (in place,
-    from that gradient), each by operator (a whole step is ~10^5 launches,
-    whose events take the profiler minutes to sort); idle = 1 - (n_micro
-    x the microbatch's busy time + AdamW's) / step_ms. Takes one step of
-    the state from that microbatch."""
+    accumulator by the step's own hooks), by operator (a whole step is
+    ~10^5 launches, whose events take the profiler minutes to sort), and
+    AdamW alone (in place, from that gradient) between CUDA events beside
+    its bound (the profiler, started just before, misses the first of
+    AdamW's few launches); idle = 1 - (n_micro x the microbatch's busy
+    time + AdamW's) / step_ms. Takes three steps of the state from that
+    microbatch."""
     import torch
     from torch.utils import _pytree as pytree
     from repro_torch.models import transformer as tf
@@ -3349,19 +3473,23 @@ def lm_step_idle(label: str, cfg, opt_cfg, params, opt, tokens,
         for h in hooks:
             h.remove()
     del xs
-    adam = profile_device(
-        lambda: adamw_update(pytree.tree_unflatten(acc, spec), opt, params,
-                             opt_cfg, in_place=True),
-        f"{label}: AdamW alone (in place, {cfg.n_params():,} params)",
-        by_op=True, warm=False)
+    adam_ms = time_ms(lambda: adamw_update(pytree.tree_unflatten(acc, spec),
+                                           opt, params, opt_cfg,
+                                           in_place=True), 2)
+    n = sum(t.numel() for t in acc)
+    adam_bound = 8 * 4 * n / HBM_BYTES_PER_S * 1e3
+    log(f"[{CARD}] {label}: AdamW alone (in place, {n:,} params in "
+        f"{len(acc)} leaves, f32): {adam_ms:.3f} ms (CUDA events, mean of "
+        f"2 after a warm-up), bound {adam_bound:.3f} ms (bytes: the norm's "
+        f"read and the update's 7 passes; {adam_bound / adam_ms:.0%} of it)")
     del acc
     torch.cuda.empty_cache()
-    idle = 1 - (n_micro * fb["busy_us"] + adam["busy_us"]) / 1e3 / step_ms
+    idle = 1 - (n_micro * fb["busy_us"] / 1e3 + adam_ms) / step_ms
     log(f"[{CARD}] {label}: device idle share of a step, estimated as 1 - "
         f"({n_micro} x {fb['busy_us'] / 1e3:.1f} ms busy per microbatch + "
-        f"{adam['busy_us'] / 1e3:.1f} ms busy in AdamW) / {step_ms:.1f} ms: "
-        f"{idle:.3f}")
-    return {"idle": idle, "profile": fb, "adam_profile": adam}
+        f"{adam_ms:.1f} ms of AdamW) / {step_ms:.1f} ms: {idle:.3f}")
+    return {"idle": idle, "profile": fb, "adam_ms": adam_ms,
+            "adam_bound_ms": adam_bound}
 
 
 def lm_train_cell(label: str, cfg, n_micro: int, dev,
@@ -3386,6 +3514,7 @@ def lm_train_cell(label: str, cfg, n_micro: int, dev,
     as slice G cuts its lr to G_LR."""
     import torch
     from functools import partial
+    from torch.utils import _pytree as pytree
     from repro_torch.configs.lm_common import lm_train_flops
     from repro_torch.models import transformer as tf
     from repro_torch.train.data import TokenPipelineConfig, token_batch
@@ -3404,6 +3533,7 @@ def lm_train_cell(label: str, cfg, n_micro: int, dev,
     torch.cuda.reset_peak_memory_stats()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(I_TIMED + 2)]
     losses, gnorms = [], []
+    before = read_counts()
     ev[0].record()
     for i in range(I_TIMED + 1):
         params, opt, m = step(params, opt, batches[i % 2])
@@ -3411,6 +3541,8 @@ def lm_train_cell(label: str, cfg, n_micro: int, dev,
         losses.append(m["loss"])
         gnorms.append(m["grad_norm"])
     torch.cuda.synchronize()
+    gate_adamw("slice_i", label, adamw_delta(before, read_counts()),
+               len(pytree.tree_leaves(params)), I_TIMED + 1)
     peak = torch.cuda.max_memory_allocated()
     all_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(I_TIMED + 1)]
     losses = [float(x) for x in losses]
@@ -3581,6 +3713,115 @@ def dlrm_f64_step(params, batch, cfg) -> tuple[float, float]:
                                              for g in grads)))
 
 
+def i4_adamw(params, opt, opt_cfg) -> dict:
+    """I4's AdamW at the real table, after the timed steps. One update (in
+    place) from a seeded gradient; the table's elements from I4_HIGH =
+    2^31 on (from two rows before to the end: the update is elementwise,
+    so a slice is exact) held bitwise to the plain version of the same update on those
+    rows. Then CUDA-event times (3 calls after a warm-up; 2 for the plain
+    versions) of AdamW alone (`adamw_update`: the norm's and the update's
+    kernels and the scalars between), of each kernel over every leaf, of
+    their plain versions, of torch._fused_adamw_ on the same leaves (the
+    library call for the update; it clips nothing) and of
+    torch.linalg.vector_norm per leaf (the library call for the norm),
+    beside their bounds; sum_squares of each leaf against a float64 sum."""
+    import torch
+    from torch.utils import _pytree as pytree
+    from repro_torch.kernels.adamw.ops import adamw_step, sum_squares
+    from repro_torch.kernels.adamw.ref import adamw_step_ref, sum_squares_ref
+    from repro_torch.train.optimizer import _leaves_like, adamw_update
+    gen = torch.Generator(device=params["table"].device).manual_seed(11)
+    grads = pytree.tree_map(
+        lambda t: torch.empty_like(t).normal_(0.0, 1e-3, generator=gen),
+        params)
+    dim = params["table"].shape[1]
+    first = I4_HIGH // dim - 2
+    rows = slice(first, None)
+    snap = [t["table"][rows].clone() for t in (params, grads, opt["m"],
+                                                opt["v"])]
+    _, _, met = adamw_update(grads, opt, params, opt_cfg, in_place=True)
+    hyper = {"lr": opt_cfg.lr, "b1": opt_cfg.b1, "b2": opt_cfg.b2,
+             "eps": opt_cfg.eps, "weight_decay": opt_cfg.weight_decay}
+    scale = torch.clamp(opt_cfg.grad_clip / (met["grad_norm"] + 1e-9),
+                        max=1.0)
+    stepf = opt["step"].to(torch.float32)
+    bc1, bc2 = (1.0 - torch.pow(torch.tensor(b, dtype=torch.float32,
+                                             device=stepf.device), stepf)
+                for b in (opt_cfg.b1, opt_cfg.b2))
+    want = adamw_step_ref(*snap, scale, bc1, bc2, **hyper)
+    got = (params["table"][rows], opt["m"]["table"][rows],
+           opt["v"]["table"][rows])
+    n_high = got[0].numel()
+    high_ok = n_high > 2 * dim and all(torch.equal(a, b)
+                                       for a, b in zip(got, want))
+    log(f"[{CARD}] I4 AdamW at the real table: elements {first * dim:,} "
+        f"to {params['table'].numel():,} (past {I4_HIGH:,}) of p, m and v "
+        f"after one update bitwise the plain version on those rows: "
+        f"{high_ok} ({n_high:,} elements each)")
+    check(high_ok, f"I4: the update past element {I4_HIGH:,} differs from "
+          "plain")
+    del snap, want, got
+    p_l = pytree.tree_leaves(params)
+    g_l = _leaves_like(grads, params)
+    m_l, v_l = _leaves_like(opt["m"], params), _leaves_like(opt["v"], params)
+    n = sum(t.numel() for t in p_l)
+    k_norm = [float(sum_squares(g)) for g in g_l]
+    f64 = [sum(float(c.double().square().sum())
+               for c in torch.split(g.reshape(-1), 1 << 26)) for g in g_l]
+    norm_err = max(abs(a - b) for a, b in zip(k_norm, f64))
+    norm_rel = max(abs(a - b) / b for a, b in zip(k_norm, f64))
+    check(norm_rel <= NORM_TOL, f"I4: sum_squares vs float64 rel "
+          f"{norm_rel:.3e}")
+
+    def update(fn):
+        return lambda: [fn(p, g, m, v, scale, bc1, bc2, in_place=True,
+                           **hyper) for p, g, m, v in zip(p_l, g_l, m_l,
+                                                           v_l)]
+    adam_ms = time_ms(lambda: adamw_update(grads, opt, params, opt_cfg,
+                                           in_place=True), 3)
+    upd_ms = time_ms(update(adamw_step), 3)
+    plain_upd_ms = time_ms(update(adamw_step_ref), 2)
+    norm_ms = time_ms(lambda: [sum_squares(g) for g in g_l], 3)
+    plain_norm_ms = time_ms(lambda: [sum_squares_ref(g) for g in g_l], 2)
+    lib_norm_ms = time_ms(lambda: [torch.linalg.vector_norm(g)
+                                   for g in g_l], 3)
+    steps = [torch.full((), 7.0, device=p.device) for p in p_l]
+    lib_ms = time_ms(lambda: torch._fused_adamw_(
+        p_l, g_l, m_l, v_l, [], steps, lr=opt_cfg.lr, beta1=opt_cfg.b1,
+        beta2=opt_cfg.b2, weight_decay=opt_cfg.weight_decay,
+        eps=opt_cfg.eps, amsgrad=False, maximize=False), 3)
+    # all f32: p, g, m, v read and p, m, v written once, and the scalars
+    upd_bytes = 7 * 4 * n + 12 * len(p_l)
+    norm_bytes = 4 * n + 4 * len(p_l)
+    upd_b, upd_by = bound(upd_bytes / HBM_BYTES_PER_S * 1e3,
+                          17 * n / FP32_FLOP_PER_S * 1e3)
+    norm_b, norm_by = bound(norm_bytes / HBM_BYTES_PER_S * 1e3,
+                            2 * n / FP32_FLOP_PER_S * 1e3)
+    adam_b = (upd_bytes + norm_bytes) / HBM_BYTES_PER_S * 1e3
+    log(f"[{CARD}] I4 AdamW alone (adamw_update in place, {len(p_l)} "
+        f"leaves, {n:,} params): {adam_ms:.3f} ms, bound {adam_b:.3f} ms "
+        f"(bytes: the norm's read and the update's 7 passes, "
+        f"{upd_bytes + norm_bytes:,} bytes; {adam_b / adam_ms:.0%} of it); "
+        f"adamw_step over the leaves {upd_ms:.3f} ms (bound {upd_b:.3f} ms "
+        f"by {upd_by}, {upd_b / upd_ms:.0%}; plain {plain_upd_ms:.3f} ms, "
+        f"torch._fused_adamw_ {lib_ms:.3f} ms); sum_squares over the leaves "
+        f"{norm_ms:.3f} ms (bound {norm_b:.3f} ms by {norm_by}, "
+        f"{norm_b / norm_ms:.0%}; plain {plain_norm_ms:.3f} ms, "
+        f"torch.linalg.vector_norm {lib_norm_ms:.3f} ms), max |err| vs "
+        f"float64 {norm_err:.3e} (rel {norm_rel:.3e})")
+    del grads, steps
+    torch.cuda.empty_cache()
+    return {"adam_ms": adam_ms, "adam_bound_ms": adam_b,
+            "step": {"ms": upd_ms, "plain_ms": plain_upd_ms,
+                     "library_ms": lib_ms, "bound_ms": upd_b,
+                     "bound_by": upd_by},
+            "norm": {"ms": norm_ms, "plain_ms": plain_norm_ms,
+                     "library_ms": lib_norm_ms, "bound_ms": norm_b,
+                     "bound_by": norm_by, "err": norm_err,
+                     "rel": norm_rel},
+            "high_elements": n_high}
+
+
 def phase_slice_i4() -> dict:
     """I4: DLRM-RM2 full_config() (8.64 GB table) at train_batch
     (B = 65,536): I4_STEPS AdamW steps (lr I4_LR, donated) on 2 cycled
@@ -3594,8 +3835,7 @@ def phase_slice_i4() -> dict:
     from repro_torch.configs.dlrm_rm2 import full_config
     from repro_torch.models.recsys import dlrm
     from repro_torch.train.data import RecsysPipelineConfig, recsys_batch
-    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
-                                             adamw_update)
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.train_loop import make_train_step
     from torch.utils import _pytree as pytree
     dev = torch.device(I_DEVICE)
@@ -3634,6 +3874,8 @@ def phase_slice_i4() -> dict:
           f"I4: embedding_bag launches {launches['embedding_bag']} forward, "
           f"{launches['embedding_bag_backward']} backward for {I4_STEPS} "
           "steps")
+    gate_adamw("slice_i", "I4 DLRM-RM2", launches,
+               len(pytree.tree_leaves(params)), I4_STEPS)
     gap_l = abs(losses[0] - l64) / abs(l64)
     gap_g = abs(gnorms[0] - g64) / abs(g64)
     log(f"[{CARD}] I4 DLRM-RM2 f32 vs float64, first step: loss "
@@ -3649,10 +3891,8 @@ def phase_slice_i4() -> dict:
     prof = profile_device(lambda: step(params, opt, batches[0]),
                           "one DLRM-RM2 train step at train_batch",
                           by_op=True, warm=False)
-    grads = pytree.tree_map(torch.zeros_like, params)
-    adam_ms = time_ms(lambda: adamw_update(grads, opt, params, opt_cfg,
-                                           in_place=True), 3)
-    del grads
+    adam = i4_adamw(params, opt, opt_cfg)
+    adam_ms = adam["adam_ms"]
     log(f"[{CARD}] I4 DLRM-RM2 train_batch (B={I4_BATCH:,}, table "
         f"{table_bytes:,} bytes): {ms:.3f} ms per step (CUDA events, mean "
         f"of steps 2-{I4_STEPS}; all: "
@@ -3667,7 +3907,8 @@ def phase_slice_i4() -> dict:
     del params, opt, step, batches
     torch.cuda.empty_cache()
     return {"ms": ms, "step_ms": ms_list, "bound_ms": bound_ms,
-            "adam_ms": adam_ms, "peak": peak, "losses": losses,
+            "adam_ms": adam_ms, "adam": adam, "peak": peak,
+            "losses": losses,
             "f64": {"loss": gap_l, "grad_norm": gap_g}, "profile": prof,
             "launches": launches}
 
@@ -3900,6 +4141,7 @@ def j_steps(cfg_d, cfg_a, params, mesh, dev) -> dict:
     (`lm_step_idle`, which takes one more step)."""
     import torch
     from functools import partial
+    from torch.utils import _pytree as pytree
     from repro_torch.core.distributed import reset_collective_counts
     from repro_torch.distributed import use_mesh
     from repro_torch.models import transformer as tf
@@ -3925,6 +4167,7 @@ def j_steps(cfg_d, cfg_a, params, mesh, dev) -> dict:
     ms = {"dense": [], "a2a": []}
     peak = {"dense": 0, "a2a": 0}
     losses = []
+    before = read_counts()
     for kind in ("dense", "a2a", "a2a", "dense") * J_ROUNDS:
         torch.cuda.reset_peak_memory_stats()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -3935,6 +4178,9 @@ def j_steps(cfg_d, cfg_a, params, mesh, dev) -> dict:
         ms[kind].append(ev[0].elapsed_time(ev[1]))
         peak[kind] = max(peak[kind], torch.cuda.max_memory_allocated())
         losses.append((kind, float(m["loss"])))
+    gate_adamw("slice_j", "J granite dense and a2a steps",
+               adamw_delta(before, read_counts()),
+               len(pytree.tree_leaves(params)), 4 * J_ROUNDS)
     trips = trip_calls()
     # each round's a2a steps over its dense steps: the rounds' interleaving
     # cancels a drift of the host's speed that is linear within a round
@@ -4614,6 +4860,8 @@ def phase_slice_m_ranks() -> dict:
                 reset_counts()
                 ms, (_, _, metrics) = _step_ms(step, local, opt, mine)
                 n = read_counts()
+                gate_adamw("slice_m", f"M-b DLRM rank {rank}", n,
+                           len(pytree.tree_leaves(local)), 1)
                 for k in launches:
                     launches[k] += n[k]
                 check(n["embedding_bag_window"] >= 1 and
@@ -4668,8 +4916,11 @@ def phase_slice_m_ranks() -> dict:
             opt = adamw_init(local, d_opt)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)   # the step's own peak
+            reset_counts()
             ms, (_, _, metrics) = _step_ms(step, local, opt,
                                            {"tokens": tokens})
+            gate_adamw("slice_m", f"M-b danube {M_DANUBE_SHAPE} rank 0",
+                       read_counts(), len(pytree.tree_leaves(local)), 1)
             loss = float(metrics["loss"])
             args = sum(x.numel() * x.element_size()
                        for x in pytree.tree_leaves((local, opt)))
@@ -4733,8 +4984,13 @@ def phase_slice_m_plan_ranks() -> dict:
                 torch.cuda.synchronize()
                 before = torch.cuda.memory_allocated(dev)
                 torch.cuda.reset_peak_memory_stats(dev)
+                reset_counts()
                 ms, res = _step_ms(step, *args)
                 peak = torch.cuda.max_memory_allocated(dev) - before
+                if plan.step is not None:        # a GNN train step
+                    gate_adamw("slice_m", f"M-b {arch} {shape} rank 0",
+                               read_counts(),
+                               len(pytree.tree_leaves(args[0])), 1)
                 if plan.step is not None:        # a GNN train step
                     batch = args[-1]
                     value = float(res[2]["loss"])
@@ -4777,6 +5033,7 @@ def phase_slice_m_nccl() -> dict:
     import dataclasses
     import torch
     from functools import partial
+    from torch.utils import _pytree as pytree
     from repro_torch.configs import dlrm_rm2, h2o_danube_1_8b
     from repro_torch.configs import pna as pna_cfg
     from repro_torch.configs.gnn_common import GNN_SHAPES
@@ -4794,6 +5051,7 @@ def phase_slice_m_nccl() -> dict:
 
     def both(label, loss_fn, params, specs, batch, opt_cfg,
              sharded_loss=None, batch_specs=None, rule="mean"):
+        before = read_counts()
         plain = make_train_step(loss_fn, opt_cfg, donate=False)
         _, _, m0 = plain(params, adamw_init(params, opt_cfg), batch)
         with sh.use_mesh(mesh, sharded=True):
@@ -4803,6 +5061,9 @@ def phase_slice_m_nccl() -> dict:
                                       donate=False, grad_specs=specs,
                                       grad_rule=rule)
             _, _, m1 = sharded(local, adamw_init(local, opt_cfg), mine)
+        gate_adamw("slice_m", f"M-c {label} (unsharded and sharded step)",
+                   adamw_delta(before, read_counts()),
+                   len(pytree.tree_leaves(params)), 2)
         l0, l1 = float(m0["loss"]), float(m1["loss"])
         g0, g1 = float(m0["grad_norm"]), float(m1["grad_norm"])
         rel = abs(l1 - l0) / abs(l0)
@@ -5186,6 +5447,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     i_res = phase_slice_i()
     i = i_res.pop("launches")
+    i4_adam = i_res["i4"]["adam"]
     reset_counts()
     phase_slice_j(i_res.pop("granite"))
     j = read_counts()
@@ -5325,6 +5587,31 @@ def main() -> int:
          "ms": m_win["prep"]["ms"], "plain_ms": m_win["prep"]["plain_ms"],
          "bound_ms": m_win["prep"]["bound_ms"],
          "bound_by": m_win["prep"]["bound_by"], "library_ms": None},
+        {"name": "adamw_step", "route": "cuda",
+         "source": "src/repro_torch/kernels/adamw/csrc/adamw_step.cu",
+         "replaces": "src/repro/train/optimizer.py:55",
+         "launches": sum(v["adamw_step"] for v in ADAMW_PATHS.values()),
+         "launches_by_path": {k: v["adamw_step"]
+                              for k, v in ADAMW_PATHS.items()},
+         "max_abs_err": kerr["adamw"]["adamw_step"],
+         "ms": i4_adam["step"]["ms"],
+         "plain_ms": i4_adam["step"]["plain_ms"],
+         "bound_ms": i4_adam["step"]["bound_ms"],
+         "bound_by": i4_adam["step"]["bound_by"],
+         "library_ms": i4_adam["step"]["library_ms"]},
+        {"name": "sum_squares", "route": "cuda",
+         "source": "src/repro_torch/kernels/adamw/csrc/sum_squares.cu",
+         "replaces": "src/repro/train/optimizer.py:39",
+         "launches": sum(v["sum_squares"] for v in ADAMW_PATHS.values()),
+         "launches_by_path": {k: v["sum_squares"]
+                              for k, v in ADAMW_PATHS.items()},
+         "max_abs_err": max(kerr["adamw"]["sum_squares"],
+                            i4_adam["norm"]["err"]),
+         "ms": i4_adam["norm"]["ms"],
+         "plain_ms": i4_adam["norm"]["plain_ms"],
+         "bound_ms": i4_adam["norm"]["bound_ms"],
+         "bound_by": i4_adam["norm"]["bound_by"],
+         "library_ms": i4_adam["norm"]["library_ms"]},
     ]}
     print(json.dumps(table))
     print(json.dumps({"ok": True, "device": {

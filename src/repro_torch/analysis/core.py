@@ -117,6 +117,7 @@ class LintConfig:
     # call updates these positions unless the call passes donate=False
     in_place_calls: tuple[tuple[str, tuple[int, ...]], ...] = (
         ("adamw_update", (1, 2)),
+        ("adamw_step", (0, 2, 3)),
     )
     in_place_factories: tuple[tuple[str, tuple[int, ...]], ...] = (
         ("make_train_step", (0, 1)),

@@ -15,4 +15,7 @@ Kernels:
   cheb_step     — fused Chebyshev update t'' = 2y - t; acc += c_k t''
   embedding_bag — bag-sum row gather out[b] = sum_l w[b,l] table[ids[b,l]],
                   the DLRM-RM2 lookup
+  adamw         — one leaf's AdamW update in one pass (`adamw_step`) and
+                  its sum of squares for the clip's norm (`sum_squares`),
+                  on every training step
 """

@@ -194,12 +194,15 @@ def _storages(tree) -> set:
 
 
 def _launches() -> dict:
+    from repro_torch.kernels.adamw import ops as adamw
     from repro_torch.kernels.bsr_spmm import ops as bsr
     from repro_torch.kernels.cheb_step import ops as cheb
     from repro_torch.kernels.embedding_bag import ops as eb
     return {"bsr_spmm": bsr.launches(), "cheb_step": cheb.launches(),
             "embedding_bag": eb.launches(),
-            "embedding_bag_backward": eb.backward_launches()}
+            "embedding_bag_backward": eb.backward_launches(),
+            "adamw_step": adamw.step_launches(),
+            "sum_squares": adamw.norm_launches()}
 
 
 def _sync(dev) -> None:

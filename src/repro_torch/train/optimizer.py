@@ -16,6 +16,11 @@ global norm needs the other ranks: `global_norm` sums each leaf's squares
 over the mesh axes of its spec (one all-reduce per group of leaves
 sharded alike, tag "train") and not over the axes it is replicated on,
 so every rank clips by the norm of the whole gradient.
+
+Each leaf's update and sum of squares go through the wrappers of
+`kernels.adamw`: on the card one pass of the hand-written update kernel
+(bitwise the plain version) and one read for the norm; on the CPU the
+plain versions, slice by slice for the update.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from dataclasses import dataclass
 
 import torch
 from torch.utils import _pytree as pytree
+
+from repro_torch.kernels.adamw.ops import adamw_step, sum_squares
 
 __all__ = ["AdamWConfig", "adamw_init", "global_norm", "adamw_update"]
 
@@ -37,11 +44,6 @@ class AdamWConfig:
     grad_clip: float = 1.0
     m_dtype: str = "float32"
     v_dtype: str = "float32"
-
-
-def _math_dtype(t: torch.Tensor) -> torch.dtype:
-    """float32, or the tensor's own dtype where that is wider."""
-    return torch.promote_types(t.dtype, torch.float32)
 
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
@@ -65,15 +67,14 @@ def global_norm(tree, specs: list | None = None) -> torch.Tensor:
     uneven piece is zero and adds nothing)."""
     leaves = pytree.tree_leaves(tree)
     if specs is None:
-        return torch.sqrt(sum(l.to(_math_dtype(l)).square().sum()
-                              for l in leaves))
+        return torch.sqrt(sum(sum_squares(l) for l in leaves))
     from repro_torch.distributed import parallel
     from repro_torch.distributed.sharding import axes_of
     groups: dict = {}
     for leaf, spec in zip(leaves, specs):
         axes = tuple(sorted({a for e in (spec or ()) for a in axes_of(e)
                              if parallel.size(a) > 1}))
-        part = leaf.to(_math_dtype(leaf)).square().sum()
+        part = sum_squares(leaf)
         groups[axes] = groups[axes] + part if axes in groups else part
     total = 0.0
     for axes, part in groups.items():
@@ -92,44 +93,6 @@ def _leaves_like(tree, like) -> list:
     return [tree]
 
 
-# elements per slice of a leaf the update takes at once: its temporaries
-# then stay ~256 MB each, whatever the leaf's size
-_SLICE_ELEMS = 1 << 26
-
-
-def _slices(t: torch.Tensor):
-    """Views of t along its leading axis, each of at most _SLICE_ELEMS
-    elements where a leading row allows it (a stacked leaf goes a few
-    layers at a time)."""
-    if t.ndim == 0 or t.numel() <= _SLICE_ELEMS:
-        return [t]
-    rows = max(1, _SLICE_ELEMS // max(1, t[0].numel()))
-    return list(torch.split(t, rows))
-
-
-@torch.no_grad()
-def _update_into(outs, p, g, m, v, scale, bc1, bc2, cfg: AdamWConfig):
-    """One leaf's AdamW update, slice by slice: each slice's new p, m, v
-    are written into `outs` (which may be p, m, v themselves) before the
-    next slice starts. The arithmetic is elementwise, so the result is
-    bitwise that of the whole leaf at once."""
-    b1, b2 = cfg.b1, cfg.b2
-    dt = _math_dtype(p)
-    for po, mo, vo, ps, gs, ms, vs in zip(*map(_slices, (*outs, p, g, m,
-                                                          v))):
-        gs = gs.to(dt) * scale
-        m_new = b1 * ms.to(dt) + (1 - b1) * gs
-        v_new = b2 * vs.to(dt) + (1 - b2) * gs.square()
-        m_hat = m_new / bc1
-        v_hat = v_new / bc2
-        delta = m_hat / (torch.sqrt(v_hat) + cfg.eps) + \
-            cfg.weight_decay * ps.to(dt)
-        p_new = ps.to(dt) - cfg.lr * delta
-        po.copy_(p_new)
-        mo.copy_(m_new)
-        vo.copy_(v_new)
-
-
 @torch.no_grad()
 def adamw_update(grads, state, params, cfg: AdamWConfig,
                  in_place: bool = False, grad_specs: list | None = None):
@@ -139,8 +102,9 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
 
     By default the inputs are not modified and the results are new
     tensors. With in_place, each parameter, m and v is overwritten with
-    its update (leaf by leaf, a large leaf slice by slice, so the peak is
-    the state plus one slice's temporaries) and the same tensors are
+    its update, leaf by leaf (on the card one kernel pass with no
+    temporaries; on the CPU a large leaf slice by slice, so the peak is the
+    state plus one slice's temporaries), and the same tensors are
     returned, `state["step"]` included; the values are bitwise the same.
     """
     step = state["step"] + 1
@@ -153,18 +117,16 @@ def adamw_update(grads, state, params, cfg: AdamWConfig,
                                        device=stepf.device), stepf)
 
     p_leaves, spec = pytree.tree_flatten(params)
-    m_leaves = _leaves_like(state["m"], params)
-    v_leaves = _leaves_like(state["v"], params)
-    outs = (p_leaves, m_leaves, v_leaves) if in_place else \
-        tuple([torch.empty_like(t) for t in leaves]
-              for leaves in (p_leaves, m_leaves, v_leaves))
-    for i, (p, g, m, v) in enumerate(zip(p_leaves,
-                                         _leaves_like(grads, params),
-                                         m_leaves, v_leaves)):
-        _update_into([o[i] for o in outs], p, g, m, v, scale, bc1, bc2, cfg)
+    outs = [adamw_step(p, g, m, v, scale, bc1, bc2, lr=cfg.lr, b1=cfg.b1,
+                       b2=cfg.b2, eps=cfg.eps,
+                       weight_decay=cfg.weight_decay, in_place=in_place)
+            for p, g, m, v in zip(p_leaves, _leaves_like(grads, params),
+                                  _leaves_like(state["m"], params),
+                                  _leaves_like(state["v"], params))]
     if in_place:
         state["step"].copy_(step)
         return params, state, {"grad_norm": gnorm}
-    new_params, new_m, new_v = (pytree.tree_unflatten(o, spec) for o in outs)
+    new_params, new_m, new_v = (pytree.tree_unflatten(list(o), spec)
+                                for o in zip(*outs))
     return new_params, {"step": step, "m": new_m, "v": new_v}, \
         {"grad_norm": gnorm}

@@ -16,6 +16,9 @@ import torch
 
 from repro_torch.graph import generators
 from repro_torch.graph.structure import build_block_ell
+from repro_torch.kernels.adamw import ops as adamw_ops
+from repro_torch.kernels.adamw.ops import adamw_step, sum_squares
+from repro_torch.kernels.adamw.ref import adamw_step_ref
 from repro_torch.kernels.bsr_spmm import ops as bsr_ops
 from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
@@ -813,6 +816,127 @@ class TestTrainingOnCard:
             float(cm["loss"]))
         assert abs(loss["bfloat16"] - loss["float32"]) <= 5e-2 * abs(
             loss["float32"])
+
+
+ADAMW_HYPER = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+ADAMW_COMBOS = {
+    "f32": (torch.float32, torch.float32, torch.float32),
+    "f32_bf16": (torch.float32, torch.float32, torch.bfloat16),
+    "f64_g32": (torch.float64, torch.float32, torch.float32),
+    "f64": (torch.float64, torch.float64, torch.float32),
+    "f64_bf16": (torch.float64, torch.float64, torch.bfloat16)}
+
+
+@pytest.mark.gpu
+class TestAdamWOnCard:
+    """The AdamW update kernel bitwise its plain version on the card (the
+    same eager ops on CUDA tensors) for every dtype combination it takes,
+    in place and out of place, at odd lengths and on views one element
+    off the 16-byte boundary; the sum-of-squares kernel within 1e-6 of a
+    float64 sum and bitwise from call to call."""
+
+    @staticmethod
+    def _leaf(cuda, n: int, combo: str, offset: int, seed: int):
+        pd, gd, md = ADAMW_COMBOS[combo]
+        rng = np.random.default_rng(seed)
+
+        def make(dtype, scale, positive=False):
+            x = rng.standard_normal(n + offset) * scale
+            x = np.abs(x) if positive else x
+            return torch.from_numpy(x).to(dtype).to(cuda)[offset:]
+        return (make(pd, 1.0), make(gd, 3.0), make(md, 0.1),
+                make(md, 0.01, positive=True))
+
+    @staticmethod
+    def _scalars(cuda, scale_dtype=torch.float32):
+        stepf = torch.tensor(3.0, device=cuda)
+        return (torch.tensor(0.37, dtype=scale_dtype, device=cuda),
+                1.0 - torch.pow(torch.tensor(0.9, device=cuda), stepf),
+                1.0 - torch.pow(torch.tensor(0.95, device=cuda), stepf))
+
+    @pytest.mark.parametrize("combo", list(ADAMW_COMBOS))
+    @pytest.mark.parametrize("n,offset", [(1, 0), (3, 0), (1001, 0),
+                                          (4096, 0), (4099, 1),
+                                          (1 << 20, 1), (1 << 20, 0)])
+    @pytest.mark.parametrize("in_place", [False, True])
+    def test_adamw_step_bitwise_vs_plain(self, cuda, combo, n, offset,
+                                         in_place):
+        p, g, m, v = self._leaf(cuda, n, combo, offset, seed=n + offset)
+        scale, bc1, bc2 = self._scalars(
+            cuda, torch.float64 if combo == "f64" else torch.float32)
+        want = adamw_step_ref(p, g, m, v, scale, bc1, bc2, **ADAMW_HYPER)
+        before = adamw_ops.step_launches()
+        got = adamw_step(p, g, m, v, scale, bc1, bc2, in_place=in_place,
+                         **ADAMW_HYPER)
+        torch.cuda.synchronize()
+        assert adamw_ops.step_launches() == before + 1
+        assert (got[0] is p) == in_place
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+    def test_adamw_step_unsupported_dtype_raises(self, cuda):
+        p, g, m, v = self._leaf(cuda, 8, "f32", 0, seed=1)
+        scale, bc1, bc2 = self._scalars(cuda)
+        with pytest.raises(TypeError):
+            adamw_step(p.half(), g.half(), m, v, scale, bc1, bc2,
+                       **ADAMW_HYPER)
+        with pytest.raises(TypeError):
+            adamw_step(p, g, m, v.bfloat16(), scale, bc1, bc2,
+                       **ADAMW_HYPER)
+
+    def test_non_contiguous_gradient_copied_and_counted(self, cuda):
+        p, g, m, v = self._leaf(cuda, 64, "f32", 0, seed=2)
+        scale, bc1, bc2 = self._scalars(cuda)
+        gt = g.reshape(8, 8).t().contiguous().t()
+        adamw_ops.reset_launches()
+        got = adamw_step(p.reshape(8, 8), gt, m.reshape(8, 8),
+                         v.reshape(8, 8), scale, bc1, bc2, **ADAMW_HYPER)
+        want = adamw_step_ref(p.reshape(8, 8), gt, m.reshape(8, 8),
+                              v.reshape(8, 8), scale, bc1, bc2,
+                              **ADAMW_HYPER)
+        assert adamw_ops.contiguous_copies() == 1
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        with pytest.raises(ValueError):
+            adamw_step(p.reshape(8, 8).t(), gt, m.reshape(8, 8),
+                       v.reshape(8, 8), scale, bc1, bc2, **ADAMW_HYPER)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("n,offset", [(1, 0), (7, 1), (16_385, 0),
+                                          (3_000_001, 1),
+                                          (40_000_000, 0)])
+    def test_sum_squares_vs_float64_and_deterministic(self, cuda, dtype, n,
+                                                      offset):
+        gen = torch.Generator(device=cuda).manual_seed(n)
+        x = torch.randn(n + offset, device=cuda, generator=gen,
+                        dtype=dtype)[offset:]
+        before = adamw_ops.norm_launches()
+        a, b = sum_squares(x), sum_squares(x)
+        torch.cuda.synchronize()
+        assert adamw_ops.norm_launches() == before + 2
+        assert a.dtype == dtype and a.shape == ()
+        assert torch.equal(a, b)
+        want = float(x.double().square().sum())
+        assert abs(float(a) - want) <= 1e-6 * want
+
+    def test_adamw_update_launches_once_per_leaf(self, cuda):
+        from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                                 adamw_update)
+        params = {"w": torch.randn(33, 7, device=cuda),
+                  "b": [torch.randn(5, device=cuda),
+                        torch.randn(2, 3, 4, device=cuda)]}
+        cfg = AdamWConfig()
+        state = adamw_init(params, cfg)
+        grads = {"w": torch.randn(33, 7, device=cuda),
+                 "b": [torch.randn(5, device=cuda),
+                       torch.randn(2, 3, 4, device=cuda)]}
+        adamw_ops.reset_launches()
+        new, _, m = adamw_update(grads, state, params, cfg)
+        torch.cuda.synchronize()
+        assert adamw_ops.step_launches() == adamw_ops.norm_launches() == 3
+        assert adamw_ops.contiguous_copies() == 0
+        want = float(torch.sqrt(sum(g.double().square().sum() for g in
+                                    [grads["w"], *grads["b"]])))
+        assert abs(float(m["grad_norm"]) - want) <= 1e-6 * want
 
 
 @pytest.mark.gpu

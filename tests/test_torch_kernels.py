@@ -22,6 +22,8 @@ from repro_torch.graph import generators
 from repro_torch.graph.ops import device_graph, spmv
 from repro_torch.graph.structure import build_block_ell
 from repro_torch.kernels import _build
+from repro_torch.kernels.adamw import ops as adamw_ops
+from repro_torch.kernels.adamw.ops import adamw_step, sum_squares
 from repro_torch.kernels.bsr_spmm import ops as bsr_ops
 from repro_torch.kernels.bsr_spmm.ops import BLOCK, bsr_spmm
 from repro_torch.kernels.cheb_step import ops as cheb_ops
@@ -408,7 +410,8 @@ class TestBuild:
     def test_sources_cover_both_kernels(self):
         srcs = _build.sources()
         assert set(srcs) == {"bsr_spmm", "cheb_step", "embedding_bag",
-                             "embedding_bag_backward"}
+                             "embedding_bag_backward", "adamw_step",
+                             "sum_squares"}
         for path in srcs.values():
             assert path.suffix == ".cu" and path.parent.name == "csrc"
 
@@ -440,8 +443,15 @@ class TestBuild:
                  torch.zeros(be.n))
         cheb_step(torch.zeros(3), torch.zeros(3), torch.zeros(3), 1.0)
         embedding_bag(torch.zeros(2, 3, dtype=torch.int32), torch.zeros(4, 8))
+        adamw_ops.reset_launches()
+        one = torch.ones(())
+        adamw_step(torch.zeros(5), torch.zeros(5), torch.zeros(5),
+                   torch.zeros(5), one, one, one, lr=1e-3, b1=0.9, b2=0.95,
+                   eps=1e-8, weight_decay=0.1, in_place=True)
+        sum_squares(torch.zeros(5))
         assert bsr_ops.launches() == 0 and cheb_ops.launches() == 0
         assert eb_ops.launches() == 0
+        assert adamw_ops.step_launches() == adamw_ops.norm_launches() == 0
 
     def test_jax_oracle_tiles_identical(self):
         """The kernels see identical tiles whichever package built them."""

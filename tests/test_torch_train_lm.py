@@ -36,12 +36,12 @@ from repro_torch import interop
 from repro_torch.configs import (deepseek_7b, granite_moe_3b,
                                  h2o_danube_1_8b, qwen2_5_32b,
                                  qwen3_moe_235b)
+from repro_torch.kernels.adamw import ref as adamw_ref
 from repro_torch.launch import train as launch_train
 from repro_torch.models import layers as P
 from repro_torch.models import transformer as PT
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import grad_compress as gcmp
-from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.data import TokenPipelineConfig, token_batch
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.train_loop import make_train_step
@@ -266,7 +266,7 @@ class TestTrainStep:
             _tokens(pcfg.vocab, 4, 11, seed=7))}
 
         def run(donate: bool, slice_elems: int):
-            monkeypatch.setattr(opt_mod, "_SLICE_ELEMS", slice_elems)
+            monkeypatch.setattr(adamw_ref, "_SLICE_ELEMS", slice_elems)
             params = interop.lm_params(ref, device="cpu")
             opt = interop.adamw_state(state, device="cpu")
             step = make_train_step(partial(PT.loss_fn, cfg=pcfg),
@@ -285,18 +285,18 @@ class TestTrainStep:
 
     def test_slices_follow_the_leading_axis(self):
         t = torch.zeros(6, 5, 4)
-        old = opt_mod._SLICE_ELEMS
+        old = adamw_ref._SLICE_ELEMS
         try:
-            opt_mod._SLICE_ELEMS = 45
-            parts = opt_mod._slices(t)
+            adamw_ref._SLICE_ELEMS = 45
+            parts = adamw_ref._slices(t)
             assert [p.shape[0] for p in parts] == [2, 2, 2]
             assert all(p.data_ptr() == t[2 * i].data_ptr()
                        for i, p in enumerate(parts))
-            opt_mod._SLICE_ELEMS = 10
-            assert len(opt_mod._slices(t)) == 6
-            assert len(opt_mod._slices(torch.zeros(()))) == 1
+            adamw_ref._SLICE_ELEMS = 10
+            assert len(adamw_ref._slices(t)) == 6
+            assert len(adamw_ref._slices(torch.zeros(()))) == 1
         finally:
-            opt_mod._SLICE_ELEMS = old
+            adamw_ref._SLICE_ELEMS = old
 
 
 # gradient compression (tests/test_train_substrate.py TestGradCompression)
