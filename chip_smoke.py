@@ -18,7 +18,11 @@ package. Phases, each of which must pass:
      variants on an x of magnitude 1e-6..1e2 with random signs, held to
      plain at 1e-5 and beside a float64 product, the host cost of one
      bsr_spmm call, cheb_step on [n] and [n, B] at ragged sizes
-     (rtol 1e-6), and embedding_bag's backward kernel at DLRM-RM2
+     (rtol 1e-6), the adaptive loop's cheb_step_masked (bitwise) and
+     cheb_residual (its residual and the snapshot it writes, each 1e-6
+     of a float64 computation, the snapshot also of plain) with masks in both
+     states, up to 1,040,000 x 128 and on offset views, and
+     embedding_bag's backward kernel at DLRM-RM2
      train_batch's shapes (recsys_batch ids at B = 65,536, the dense
      [33.7M, 64] gradient) against a float64 and the plain f32
      index_add_ (1e-4 of sum |terms| per element), untouched rows zero, a
@@ -31,15 +35,18 @@ package. Phases, each of which must pass:
      scipy solve of (I - cP) x = (1 - c) p;
   4. slice B: the service on NACA0015 at the paper's size (n = 1,040,000)
      with engine "fused", 128 queries + 13 repeats, every bsr_spmm launch
-     of the tick on the wgmma variant; bsr_spmm vs plain on that tiling at
-     the same widths; the kernel solve of the tick's personalization matrix
-     vs the same solve through the plain versions (L1 <= 1e-5 per column);
+     of the tick on the wgmma variant, one cheb_step_masked a masked
+     round, one cheb_residual a chunk and no cheb_step; bsr_spmm vs plain
+     on that tiling at the same widths; the kernel solve of the tick's
+     personalization matrix vs the same solve through the plain versions
+     (column rounds equal, L1 <= 1e-5 per column);
      CUDA-event times of the tick and of each kernel beside its bound, its
      plain version and a library yardstick (bsr_spmm at BT 8, 32 and 128,
      also beside its 3xTF32 tensor time and its FP32 FFMA time; both
-     bsr_spmm variants at BT 1, 2 and 4, where the dispatch cuts); one COO
+     bsr_spmm variants at BT 1, 2 and 4, where the dispatch cuts;
+     cheb_step_masked all active and half frozen; cheb_residual); one COO
      engine apply beside one fused apply at BT = 128 (the min_fill
-     question);
+     question); a profile of one tick by kernel and by operator;
   5. slice C: DLRM-RM2 at `full_config()` (8.64 GB table on the card):
      embedding_bag vs plain (bitwise at bag 1, also on rows >= 2^25 where
      32-bit offsets would fail; rtol/atol 1e-5 for weighted bags of 4 and
@@ -61,8 +68,8 @@ package. Phases, each of which must pass:
        their epoch, a rebuild-mode twin within L1 1e-6, the patched device
        arrays bitwise equal to the host mirror; refresh ticks on naca must
        launch only bsr_spmm's FFMA variant, ticks after the updates the
-       wgmma variant and cheb_step; host ms per update and per refreshed
-       entry;
+       wgmma variant, cheb_step_masked and cheb_residual; host ms per
+       update and per refreshed entry;
      - chunglu-1m (n = 10^6, m = 13,190,004; slice E's cache phase builds
        it) on engine auto (hub/tail):
        128 queries + 13 repeats at max_batch 128, 8 columns vs a float64
@@ -75,7 +82,8 @@ package. Phases, each of which must pass:
        scheduler (a 50 ms tenant and one without a deadline), sync or
        async dispatch, adaptive or fixed rounds: answers against sync FIFO
        (rtol 1e-5 / atol 1e-6), drain wall time, deadline misses, held
-       ticks.
+       ticks; the adaptive runs launch cheb_step_masked and cheb_residual
+       and no cheb_step, the fixed-round runs cheb_step alone.
   7. slice E, measured selection, observability, the dataset cache and
      the paper's baselines:
      - cache: `scale_dataset("chunglu-1m")` into an empty cache directory
@@ -97,8 +105,9 @@ package. Phases, each of which must pass:
        the detailed run's snapshot validates, every tick within the
        Formula 8 bound, the accounting holds, the solve_device spans are
        device-timed; one tick under `profiled` writes a Chrome trace that
-       names both PPR kernels; the launcher runs once with --engine
-       tuned, --metrics-json and --profile-dir (exit 0, valid snapshot);
+       names bsr_spmm and both adaptive kernels; the launcher runs once
+       with --engine tuned, --metrics-json and --profile-dir (exit 0,
+       valid snapshot);
      - paper: on NACA0015 x10 (fused, BT = 1, uniform p) CPAA at ERR <
        1e-3, power run to CPAA's L1 gap from a float64 solve, forward push
        at CPAA's round count (rounds, ms, L1, FFMA launches);
@@ -231,8 +240,8 @@ package. Phases, each of which must pass:
        L_QUERIES fresh queries through `full_config()` under
        `sanitize.applied({"debug_nans": True, "sync_debug_mode": "warn"})`:
        no NaN reported, answers within 2 tol of the float64 solve,
-       bsr_spmm and cheb_step launched, a deliberate `.item()` in the
-       block reported by the sync mode; the synchronizing operations per
+       bsr_spmm and both adaptive kernels launched, a deliberate `.item()`
+       in the block reported by the sync mode; the synchronizing operations per
        tick with their top call sites, the ops the NaN mode checked and
        the drain's time beside slice A's;
      - L-b: slice A's drain and L-a's inside `RetraceGate()` (zero
@@ -362,6 +371,8 @@ def read_counts() -> dict:
     from repro_torch.kernels.cheb_step import ops as cheb_ops
     from repro_torch.kernels.embedding_bag import ops as eb_ops
     return {"bsr_spmm": bsr_ops.launches(), "cheb_step": cheb_ops.launches(),
+            "cheb_step_masked": cheb_ops.masked_launches(),
+            "cheb_residual": cheb_ops.residual_launches(),
             "embedding_bag": eb_ops.launches(),
             "embedding_bag_backward": eb_ops.backward_launches(),
             "embedding_bag_window": eb_ops.window_launches(),
@@ -373,6 +384,16 @@ def read_counts() -> dict:
             "adamw_copies": adamw_ops.contiguous_copies(),
             "bsr_spmm_variants": bsr_ops.launches_by_variant(),
             "applies": engine.apply_counts()}
+
+
+# the adaptive loop's kernels: every adaptive tick launches both, in place of
+# cheb_step (which the fixed-round solves and the tuner's round keep)
+ADAPTIVE_KERNELS = ("cheb_step_masked", "cheb_residual")
+
+
+def adaptive_launched(counts: dict) -> bool:
+    """Both adaptive-loop kernels were launched (the path's check)."""
+    return all(counts[k] > 0 for k in ADAPTIVE_KERNELS)
 
 
 # ---------------------------------------------------------------- phase 1 --
@@ -559,6 +580,87 @@ def compare_adamw() -> dict:
             "sum_squares_rel": norm_rel}
 
 
+RESID_TOL = 1e-6       # cheb_residual vs a float64 computation, relative
+
+
+def compare_adaptive_kernels() -> dict:
+    """cheb_step_masked bitwise its plain version, and cheb_residual's two
+    outputs (the residual and the snapshot it writes in place) within
+    RESID_TOL of a float64 computation of the same function (the snapshot
+    also within RESID_TOL of its plain version, whose float32 sums run in
+    another order), on masks
+    holding both states: [n] active and frozen, [n, B] at an odd n and at
+    a B that is no multiple of the vector width, a view one element off
+    the 16-byte boundary, and the main path's 1,040,000 x 128."""
+    import torch
+    from repro_torch.kernels.cheb_step.ops import cheb_residual, \
+        cheb_step_masked
+    from repro_torch.kernels.cheb_step.ref import cheb_residual_ref, \
+        cheb_step_masked_ref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = [((1000,), 0, True), ((1001,), 1, False), ((10_001, 128), 0, None),
+             ((4097, 3), 0, None), ((10_001, 128), 1, None),
+             ((1_040_000, 128), 0, None)]
+    masked_err, resid_err, resid_rel, snap_max = 0.0, 0.0, 0.0, 0.0
+    for shape, off, state in cases:
+        n = int(np.prod(shape))
+
+        def rand():
+            return torch.randn(n + off, device="cuda",
+                               generator=gen)[off:].view(shape)
+        y, t, acc = rand(), rand(), rand()
+        if state is not None:
+            active = torch.full((), state, dtype=torch.bool, device="cuda")
+        else:
+            active = torch.rand(shape[1], device="cuda", generator=gen) < 0.5
+            active[0], active[-1] = True, False
+        ck = torch.tensor(0.5567, device="cuda")
+        want = cheb_step_masked_ref(y.clone(), t, acc.clone(), ck, active)
+        got = cheb_step_masked(y, t, acc, ck, active)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"cheb_step_masked {shape} offset {off}: kernel vs plain not "
+              f"bitwise (max |err| {err:.3e})")
+        masked_err = max(masked_err, err)
+        del want, got
+        acc = acc.abs()
+        snap = t.abs() / shape[0]
+        s64 = acc.double().sum(dim=0)
+        tiny = torch.finfo(acc.dtype).tiny
+        norm64 = acc.double() / torch.where(s64.abs() < tiny, tiny, s64)
+        want64 = (norm64 - snap.double()).abs().sum(dim=0)
+        plain_snap = snap.clone()
+        plain = cheb_residual_ref(acc, plain_snap)
+        r = cheb_residual(acc, snap)
+        torch.cuda.synchronize()
+        rel = float(((r.double() - want64).abs() / want64).max())
+        check(rel <= RESID_TOL, f"cheb_residual {shape} offset {off}: rel "
+              f"err vs float64 {rel:.3e}")
+        resid_rel = max(resid_rel, rel)
+        # the other output: the snapshot written in place
+        snap_rel = float(((snap.double() - norm64).abs()
+                         / norm64.abs().clamp_min(tiny))
+                         .max())
+        check(snap_rel <= RESID_TOL, f"cheb_residual {shape} offset {off}: "
+              f"snapshot rel err vs float64 {snap_rel:.3e}")
+        check(torch.allclose(snap, plain_snap, rtol=RESID_TOL, atol=0),
+              f"cheb_residual {shape} offset {off}: snapshot vs plain "
+              f"differs beyond rtol {RESID_TOL:g}")
+        snap_max = max(snap_max, snap_rel)
+        del norm64
+        resid_err = max(resid_err, float((r - plain).abs().max()),
+                        float((snap - plain_snap).abs().max()))
+        del y, t, acc, snap, plain_snap, plain, r, s64, want64
+    log(f"cheb_step_masked [n] (active, frozen) and [n, B] (mixed masks) up "
+        f"to 1,040,000 x 128, offset views: bitwise its plain version; "
+        f"cheb_residual: max rel err vs float64 {resid_rel:.3e}, its "
+        f"snapshot {snap_max:.3e} (limit {RESID_TOL:g}, snapshot also "
+        f"within it of plain), max |kernel - plain| {resid_err:.3e}")
+    return {"cheb_step_masked": masked_err, "cheb_residual": resid_err,
+            "cheb_residual_rel": resid_rel}
+
+
 def phase_kernels() -> dict:
     import torch
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
@@ -607,9 +709,10 @@ def phase_kernels() -> dict:
         del y, t, acc, tk, ak, tr, ar
     log(f"cheb_step [n] and [n,B] up to 1,040,000x128: max |kernel - plain| "
         f"{cheb_err:.3e}")
+    adaptive = compare_adaptive_kernels()
     adamw = compare_adamw()
     return {"bsr_spmm": worst, "cheb_step": cheb_err, "dyn_range": wit,
-            "host_us": host_us, "adamw": adamw}
+            "host_us": host_us, "adamw": adamw, **adaptive}
 
 
 def host_cost(block_cols, values) -> dict:
@@ -753,7 +856,7 @@ def phase_slice_a() -> dict:
     check(len(results) == len(queries) + len(repeats),
           "slice A: not every query answered")
     check_accounting(st, len(repeats), "slice A")
-    check(counts["bsr_spmm"] > 0 and counts["cheb_step"] > 0,
+    check(counts["bsr_spmm"] > 0 and adaptive_launched(counts),
           f"slice A: a kernel of the path was not launched: {counts}")
     check(counts["bsr_spmm_variants"]["wgmma_3xtf32"] > 0,
           f"slice A: the wgmma variant of bsr_spmm was not launched: "
@@ -785,8 +888,10 @@ def phase_slice_b() -> dict:
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.bsr_spmm.ops import bsr_spmm, bsr_spmm_as
     from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
-    from repro_torch.kernels.cheb_step.ops import cheb_step
-    from repro_torch.kernels.cheb_step.ref import cheb_step_ref
+    from repro_torch.kernels.cheb_step.ops import cheb_residual, cheb_step, \
+        cheb_step_masked
+    from repro_torch.kernels.cheb_step.ref import cheb_residual_ref, \
+        cheb_step_masked_ref, cheb_step_ref
     cfg = PPRServeConfig(graphs=(("naca", "NACA0015", 10.0),),
                          engine="fused", max_batch=128, max_top_k=32)
     torch.cuda.reset_peak_memory_stats()
@@ -831,8 +936,14 @@ def phase_slice_b() -> dict:
     check(st["ticks"] == 1 and st["solves"] == 1,
           f"slice B: expected one full tick, got {st}")
     check_accounting(st, len(repeats), "slice B")
-    check(counts["bsr_spmm"] > 0 and counts["cheb_step"] > 0,
-          f"slice B: a kernel of the path was not launched: {counts}")
+    plan = svc.registry.adaptive_schedule(cfg.c, cfg.tol)
+    masked_rounds = st["rounds_used"] - 1      # round 1 is the plain P p
+    check(counts["bsr_spmm"] > 0 and counts["cheb_step"] == 0
+          and counts["cheb_step_masked"] == masked_rounds
+          and counts["cheb_residual"] == -(-masked_rounds // plan.chunk),
+          f"slice B: the tick's kernels are not one cheb_step_masked a "
+          f"masked round and one cheb_residual a chunk of {plan.chunk}: "
+          f"{counts}")
     check(counts["bsr_spmm_variants"]["wgmma_3xtf32"] == counts["bsr_spmm"],
           f"slice B: not every bsr_spmm launch was on the wgmma variant: "
           f"{counts}")
@@ -844,7 +955,6 @@ def phase_slice_b() -> dict:
 
     # the tick's solve through the kernels vs through the plain versions
     p = personalization(svc, queries, 128)
-    plan = svc.registry.adaptive_schedule(cfg.c, cfg.tol)
     pi_k, k_k, cols_k, _ = cpaa_adaptive_fixed(
         eng, p, plan.c, plan.tol, max_rounds=plan.max_rounds,
         chunk=plan.chunk)
@@ -957,11 +1067,45 @@ def phase_slice_b() -> dict:
     cheb_ops_ms = 3.0 * y.numel() / FP32_FLOP_PER_S * 1e3
     log(f"cheb_step [{n_pad}x{bt}]: kernel {cheb_ms:.3f} ms, plain "
         f"{cheb_plain_ms:.3f} ms; bound {cheb_bytes_ms:.3f} ms (bytes)")
+    # the adaptive loop's kernels at the tick's shape (every column active,
+    # as in this tick; half frozen, the skipped loads), each in place
+    masked = {}
+    for label, n_on in (("all active", bt), ("half frozen", bt // 2)):
+        active = torch.arange(bt, device="cuda") < n_on
+        m_ms = time_ms(lambda: cheb_step_masked(y, t, acc, ck, active), 20)
+        m_plain = time_ms(lambda: cheb_step_masked_ref(y, t, acc, ck,
+                                                       active), 5)
+        # an active element 3 reads + 2 writes, a frozen one 1 write
+        m_bytes = (4 * n_pad * (5 * n_on + (bt - n_on)) + bt + 4) \
+            / HBM_BYTES_PER_S * 1e3
+        masked[label] = {"ms": m_ms, "plain_ms": m_plain,
+                         "bytes_ms": m_bytes,
+                         "ops_ms": 3.0 * n_pad * n_on / FP32_FLOP_PER_S
+                         * 1e3}
+        log(f"cheb_step_masked [{n_pad}x{bt}], {label}: kernel {m_ms:.3f} "
+            f"ms, plain {m_plain:.3f} ms; bound {m_bytes:.3f} ms (bytes), "
+            f"kernel at {m_bytes / m_ms:.3f} of it")
+    snap = torch.rand(n_pad, bt, device="cuda", generator=gen)
+    acc.abs_()
+    r_ms = time_ms(lambda: cheb_residual(acc, snap), 20)
+    r_plain = time_ms(lambda: cheb_residual_ref(acc, snap), 5)
+    # acc and snap read once, snap and the [B] residual written once; this
+    # design reads acc a second time for the column sums
+    r_bytes = (3 * 4 * n_pad * bt + 4 * bt) / HBM_BYTES_PER_S * 1e3
+    r_design = (4 * 4 * n_pad * bt + 8 * bt) / HBM_BYTES_PER_S * 1e3
+    resid = {"ms": r_ms, "plain_ms": r_plain, "bytes_ms": r_bytes,
+             "design_ms": r_design,
+             "ops_ms": 5.0 * n_pad * bt / FP32_FLOP_PER_S * 1e3}
+    log(f"cheb_residual [{n_pad}x{bt}]: kernel {r_ms:.3f} ms, plain "
+        f"{r_plain:.3f} ms; bound {r_bytes:.3f} ms (bytes: acc, snap read, "
+        f"snap written; {r_design:.3f} ms with acc read twice), kernel at "
+        f"{r_bytes / r_ms:.3f} of it")
+    del snap
     log(f"slice B: peak device memory {build_peak} bytes in the build, "
         f"{peak} bytes in the main path; values tensor {values_bytes} "
         f"bytes")
     del y, t, acc
-    profile_tick(eng, p, plan, k=min(cfg.max_top_k, rg.n))
+    tick_prof = profile_tick(eng, p, plan, k=min(cfg.max_top_k, rg.n))
     del x, p, eng
     return {
         "svc": svc,     # slice D's paper-size refresh reuses the build
@@ -970,6 +1114,8 @@ def phase_slice_b() -> dict:
         "min_fill": {"coo_ms": coo_ms, "fused_ms": fused_ms},
         "cheb": {"ms": cheb_ms, "plain_ms": cheb_plain_ms,
                  "bytes_ms": cheb_bytes_ms, "ops_ms": cheb_ops_ms},
+        "masked": masked, "resid": resid, "peak": peak,
+        "profile": {k: tick_prof.get(k) for k in ("wall_us", "busy_us")},
     }
 
 
@@ -1209,8 +1355,8 @@ def phase_slice_c() -> dict:
 # ---------------------------------------------------------------- slice D --
 def count_delta(before: dict, after: dict) -> dict:
     """Kernel launches between two `read_counts()` snapshots."""
-    out = {"bsr_spmm": after["bsr_spmm"] - before["bsr_spmm"],
-           "cheb_step": after["cheb_step"] - before["cheb_step"]}
+    out = {k: after[k] - before[k]
+           for k in ("bsr_spmm", "cheb_step") + ADAPTIVE_KERNELS}
     for k, v in after["bsr_spmm_variants"].items():
         out[k] = v - before["bsr_spmm_variants"][k]
     return out
@@ -1246,8 +1392,8 @@ def gate_adamw(path: str, label: str, n: dict, leaves: int,
 
 def add_counts(*parts) -> dict:
     """Sum of `read_counts()` results of several main paths."""
-    flat = ("bsr_spmm", "cheb_step", "embedding_bag",
-            "embedding_bag_backward")
+    flat = ("bsr_spmm", "cheb_step", "cheb_step_masked", "cheb_residual",
+            "embedding_bag", "embedding_bag_backward")
     out = dict.fromkeys(flat, 0) | {"bsr_spmm_variants": {}, "applies": {}}
     for c in parts:
         for key in flat:
@@ -1348,7 +1494,8 @@ def phase_slice_d_updates() -> dict:
         svc.submit(q)
     results.update(svc.run_until_drained())
     torch.cuda.synchronize()
-    refresh = {"bsr_spmm": 0, "cheb_step": 0, "ffma": 0, "wgmma_3xtf32": 0}
+    refresh = dict.fromkeys(("bsr_spmm", "cheb_step", "ffma",
+                             "wgmma_3xtf32") + ADAPTIVE_KERNELS, 0)
     upd_ms = {nm: [] for nm in svc.registry.names()}
     refresh_s, refreshed, refresh_err, refresh_checked = 0.0, 0, 0.0, 0
     for nm, ins, dele in batches:
@@ -1445,11 +1592,13 @@ def phase_slice_d_updates() -> dict:
     log(f"slice D launches: refresh ticks {refresh}; ticks after the "
         f"updates {after_updates}; whole path {counts}")
     check(refresh["ffma"] > 0 and refresh["wgmma_3xtf32"] == 0
-          and refresh["cheb_step"] == 0, f"slice D: refresh ticks on naca "
-          f"are not all FFMA bsr_spmm without cheb_step: {refresh}")
-    check(after_updates["wgmma_3xtf32"] > 0 and after_updates["cheb_step"]
-          > 0, f"slice D: ticks after the updates missed a kernel: "
-          f"{after_updates}")
+          and refresh["cheb_step"] == 0
+          and not any(refresh[k] for k in ADAPTIVE_KERNELS),
+          f"slice D: refresh ticks on naca are not all FFMA bsr_spmm "
+          f"without a Chebyshev kernel: {refresh}")
+    check(after_updates["wgmma_3xtf32"] > 0
+          and adaptive_launched(after_updates), f"slice D: ticks after the "
+          f"updates missed a kernel: {after_updates}")
     log(f"slice D: max |answer - float64 oracle| {worst:.3e} over the final "
         f"answers, {refresh_err:.3e} over {refresh_checked} refreshed "
         f"entries (bound 2 tol = 2e-04); incremental vs rebuild L1 "
@@ -1634,7 +1783,7 @@ def phase_slice_d_paper_refresh(svc) -> dict:
     counts = read_counts()
     check(st["solves"] == solves0 + 1, "slice D paper: expected one tick")
     check(counts["bsr_spmm_variants"]["wgmma_3xtf32"] > 0 and
-          counts["cheb_step"] > 0, f"slice D paper: a kernel of the tick "
+          adaptive_launched(counts), f"slice D paper: a kernel of the tick "
           f"was not launched: {counts}")
     p = personalization(svc, queries, 128)
     plan = svc.registry.adaptive_schedule(0.85, 1e-4)
@@ -1695,16 +1844,28 @@ def phase_slice_d_scheduler() -> dict:
     run("fifo", False, True, queries)           # warm-up, not timed
     reset_counts()
     runs, walls = {}, {}
+    by_mode = {True: {}, False: {}}     # launches of adaptive / fixed runs
     for _ in range(5):
         for adaptive in (True, False):
             for scheduler in ("fifo", "deadline"):
                 for async_dispatch in (False, True):
                     key = (adaptive, scheduler, async_dispatch)
+                    before = read_counts()
                     res, st, wall = run(scheduler, async_dispatch, adaptive,
                                         queries)
+                    for k, v in count_delta(before, read_counts()).items():
+                        by_mode[adaptive][k] = by_mode[adaptive].get(k, 0) + v
                     runs.setdefault(key, (res, st))
                     walls.setdefault(key, []).append(wall * 1e3)
     counts = read_counts()
+    log(f"slice D scheduler: launches of the adaptive runs {by_mode[True]}, "
+        f"of the fixed-round runs {by_mode[False]}")
+    check(adaptive_launched(by_mode[True]) and by_mode[True]["cheb_step"]
+          == 0, f"slice D scheduler: adaptive ticks did not run the "
+          f"adaptive kernels alone: {by_mode[True]}")
+    check(by_mode[False]["cheb_step"] > 0 and not any(
+        by_mode[False][k] for k in ADAPTIVE_KERNELS), f"slice D scheduler: "
+        f"fixed-round ticks did not run cheb_step alone: {by_mode[False]}")
     unpinned = 0
     for (adaptive, scheduler, async_dispatch), (res, _) in runs.items():
         ref = runs[(adaptive, "fifo", False)][0]
@@ -2073,7 +2234,7 @@ def phase_slice_e_obs() -> dict:
     events = _json.loads(text).get("traceEvents", [])
     kernels = sorted({e.get("name", "")[:60] for e in events
                       if e.get("cat") == "kernel"})
-    check("bsr_spmm" in text and "cheb_step" in text,
+    check("bsr_spmm" in text and all(k in text for k in ADAPTIVE_KERNELS),
           f"slice E obs: the profiler trace lacks a kernel: {kernels[:20]}")
     log(f"slice E obs: profiled tick -> {traces[0].name} "
         f"({traces[0].stat().st_size} bytes), launches {prof_counts}, "
@@ -2679,7 +2840,9 @@ def phase_slice_g_flow(g) -> dict:
     log(f"G4 chunglu-1m (n={g.n:,}, m={g.m:,}): CPAA PageRank + features "
         f"{ppr_s:.2f} s, engine applies {launches['applies']}, kernels "
         f"bsr_spmm {launches['bsr_spmm']} cheb_step "
-        f"{launches['cheb_step']}")
+        f"{launches['cheb_step']} cheb_step_masked "
+        f"{launches['cheb_step_masked']} cheb_residual "
+        f"{launches['cheb_residual']}")
     cfg = dataclasses.replace(pna_cfg.full_config(d_in=feats.shape[1]),
                               d_out=targets.shape[1], delta=delta)
     params = pna.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
@@ -3960,7 +4123,8 @@ def phase_slice_i() -> dict:
         torch.backends.cuda.matmul.\
             allow_bf16_reduced_precision_reduction = prev
     check(lm_launches["bsr_spmm"] == lm_launches["cheb_step"]
-          == lm_launches["embedding_bag"] == 0,
+          == lm_launches["embedding_bag"] == 0
+          and not any(lm_launches[k] for k in ADAPTIVE_KERNELS),
           f"the LM train steps launched a kernel off their path: "
           f"{lm_launches}")
     secs = time.perf_counter() - t0
@@ -4528,7 +4692,8 @@ def phase_slice_k_runs() -> dict:
                   f"wrong")
         recs.append(rec)
     launches = read_counts()
-    check(launches["bsr_spmm"] == launches["cheb_step"] == 0,
+    check(launches["bsr_spmm"] == launches["cheb_step"] == 0
+          and not any(launches[k] for k in ADAPTIVE_KERNELS),
           f"slice K launched a kernel off its path: {launches}")
     secs = time.perf_counter() - t0
     log(f"[{CARD}] K-b: {len(recs)} cells in {secs:.1f} s; launches "
@@ -5208,7 +5373,7 @@ def phase_slice_l_sanitize(svc, cfg, a_drain_s: float,
     log(f"L-b: L-a's drain under RetraceGate: {len(gate.events)} compile "
         "events")
     check(len(results) == len(queries), "L-a: not every query answered")
-    check(counts["bsr_spmm"] > 0 and counts["cheb_step"] > 0,
+    check(counts["bsr_spmm"] > 0 and adaptive_launched(counts),
           f"L-a: a kernel of the path was not launched: {counts}")
     check(item_warn, "L-a: the sync debug mode did not report .item()")
     err = oracle_check(svc, results, queries, cfg.c, cfg.tol, per_graph=2)
@@ -5381,7 +5546,7 @@ def profile_tick(eng, p, plan, k: int) -> dict:
         lambda: _solve_topk_adaptive(eng, p, plan.c, plan.tol,
                                      max_rounds=plan.max_rounds,
                                      chunk=plan.chunk, k=k),
-        "one slice B tick")
+        "one slice B tick", by_op=True)
 
 
 def bound(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
@@ -5442,7 +5607,8 @@ def main() -> int:
     del e_graphs
     torch.cuda.empty_cache()
     h = phase_slice_h()["launches"]
-    check(h["bsr_spmm"] == h["cheb_step"] == h["embedding_bag"] == 0,
+    check(h["bsr_spmm"] == h["cheb_step"] == h["embedding_bag"] == 0
+          and not any(h[k] for k in ADAPTIVE_KERNELS),
           f"slice H launched a kernel off its path: {h}")
     torch.cuda.empty_cache()
     i_res = phase_slice_i()
@@ -5452,7 +5618,8 @@ def main() -> int:
     phase_slice_j(i_res.pop("granite"))
     j = read_counts()
     check(j["bsr_spmm"] == j["cheb_step"] == j["embedding_bag"]
-          == j["embedding_bag_backward"] == 0,
+          == j["embedding_bag_backward"] == 0
+          and not any(j[k] for k in ADAPTIVE_KERNELS),
           f"slice J launched a kernel off its path: {j}")
     del i_res
     torch.cuda.empty_cache()
@@ -5460,7 +5627,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     l_d = phase_slice_l()
     l = add_counts(l_a["launches"], l_d["launches"])
-    check(l["bsr_spmm"] > 0 and l["cheb_step"] > 0,
+    check(l["bsr_spmm"] > 0 and adaptive_launched(l),
           f"slice L: a kernel of its path was not launched: {l}")
     torch.cuda.empty_cache()
     m = phase_slice_m()
@@ -5468,6 +5635,30 @@ def main() -> int:
 
     bsr_b, bsr_by = bound(b["bsr"]["bytes_ms"], b["bsr"]["ops_ms"])
     cheb_b, cheb_by = bound(b["cheb"]["bytes_ms"], b["cheb"]["ops_ms"])
+    # the adaptive kernels run on every PPR path: launches per path
+    ppr_paths = {"slice_a": a["launches"], "slice_b": b["launches"],
+                 "slice_d": d, "slice_e": e, "slice_g": g, "slice_h": h,
+                 "slice_j": j, "slice_k": k, "slice_l": l}
+    masked_b = b["masked"]["all active"]
+    adaptive_rows = []
+    for name, src, line, meas, extra in (
+            ("cheb_step_masked", "cheb_step_masked.cu", 224, masked_b,
+             {"half_frozen_ms": b["masked"]["half frozen"]["ms"],
+              "half_frozen_bound_ms":
+                  b["masked"]["half frozen"]["bytes_ms"]}),
+            ("cheb_residual", "cheb_residual.cu", 233, b["resid"],
+             {"design_bound_ms": b["resid"]["design_ms"]})):
+        by_path = {path: c[name] for path, c in ppr_paths.items()}
+        ab, aby = bound(meas["bytes_ms"], meas["ops_ms"])
+        adaptive_rows.append(
+            {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/kernels/cheb_step/csrc/{src}",
+             "replaces": f"src/repro/core/pagerank.py:{line}",
+             "launches": sum(by_path.values()),
+             "launches_by_path": by_path,
+             "max_abs_err": kerr[name], "ms": meas["ms"],
+             "plain_ms": meas["plain_ms"], "bound_ms": ab, "bound_by": aby,
+             "library_ms": None, **extra})
     eb_b, eb_by = bound(c["eb"]["bytes_ms"], c["eb"]["ops_ms"])
     ebb_b, ebb_by = bound(eb_bwd["bytes_ms"], eb_bwd["ops_ms"])
     table = {"kernels": [
@@ -5517,6 +5708,7 @@ def main() -> int:
          "max_abs_err": kerr["cheb_step"],
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},
+        *adaptive_rows,
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                    "embedding_bag.cu",

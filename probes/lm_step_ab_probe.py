@@ -1,7 +1,8 @@
 """chip_smoke's I1 cell (h2o-danube-1.8b at full width, 4 microbatches of
 1 x 4,096, donated AdamW steps) of several checkouts on one card, each in
-a fresh process, in the order given: e.g. the parent commit, this one,
-this one, the parent, so that two versions are compared on one host.
+a fresh process, in the order given (`ab_runs.py`): e.g. the parent
+commit, this one, this one, the parent, so that two versions are compared
+on one host.
 
     python3 probes/lm_step_ab_probe.py --trees build/parent . . build/parent \\
         [--steps N] [--out DIR]
@@ -18,24 +19,12 @@ chip_smoke's yardstick in phase 2), which the host-bound LM step follows.
 Prints the card's name and power limit, each run's log, and one summary
 line per run; each run's log is written to `--out` too.
 """
-import argparse
-import json
 import os
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent   # the repository
-
-
-def card() -> str:
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        raise SystemExit(f"nvidia-smi failed: {smi.stderr}")
-    return smi.stdout.strip().splitlines()[0]
+import ab_runs
 
 
 def add_us(torch) -> float:
@@ -54,17 +43,10 @@ def add_us(torch) -> float:
 
 def one(tree: Path, steps: int) -> dict:
     """The I1 cell of `tree`'s chip_smoke in this process."""
-    sys.path[:0] = [str(tree / "src"), str(tree)]
+    cs = ab_runs.load_tree(tree)
     import torch
-    import chip_smoke as cs
-    import repro_torch
     from repro_torch.configs import h2o_danube_1_8b
     from repro_torch.kernels import _build
-    for mod in (cs, repro_torch):
-        if tree not in Path(mod.__file__).resolve().parents:
-            raise SystemExit(f"{mod.__name__} from {mod.__file__}, not "
-                             f"{tree}")
-    cs.CARD = card()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
@@ -87,57 +69,15 @@ def one(tree: Path, steps: int) -> dict:
             "load": os.getloadavg()}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--trees", nargs="+", type=Path)
-    ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--out", type=Path,
-                    default=ROOT / "chiprun_out" / "lm_step_ab_probe")
-    ap.add_argument("--one", type=Path, help=argparse.SUPPRESS)
-    args = ap.parse_args()
-    if args.one:
-        res = one(args.one.resolve(), args.steps)
-        print("RESULT " + json.dumps(res), flush=True)
-        return 0
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit("no CUDA device")
-    print(card(), flush=True)
-    args.out.mkdir(parents=True, exist_ok=True)
-    rows = []
-    for i, tree in enumerate(args.trees):
-        tree = tree.resolve()
-        if not (tree / "chip_smoke.py").exists():
-            raise SystemExit(f"{tree} holds no chip_smoke.py")
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                              "--one", str(tree),
-                              "--steps", str(args.steps)],
-                             capture_output=True, text=True, timeout=900,
-                             cwd=tree)
-        secs = time.perf_counter() - t0
-        log = run.stdout + run.stderr
-        (args.out / f"run{i}.log").write_text(log)
-        print(f"--- run {i}: {tree} (rc {run.returncode}, {secs:.1f} s)\n"
-              + "\n".join(ln for ln in run.stdout.splitlines()
-                          if not ln.startswith("RESULT ")), flush=True)
-        res = [ln for ln in run.stdout.splitlines()
-               if ln.startswith("RESULT ")]
-        if run.returncode != 0 or not res:
-            print(run.stderr[-4000:], flush=True)
-            return 1
-        rows.append(json.loads(res[0][len("RESULT "):]))
-    for i, r in enumerate(rows):
-        print(f"run {i} {r['tree']}: step {r['ms']:.1f} ms (steps "
-              f"{', '.join(f'{t:.1f}' for t in r['step_ms'])}; warm-up "
-              f"{r['warmup_ms']:.1f}), one microbatch's forward and "
-              f"backward wall {r['fb_wall_ms']:.1f} ms / busy "
-              f"{r['fb_busy_ms']:.1f} ms, AdamW {r['adam_ms']:.3f} ms, "
-              f"idle {r['idle']:.3f}, torch.add host {r['add_us']:.2f} us, "
-              f"load {r['load'][0]:.2f}", flush=True)
-    print(json.dumps(rows))
-    return 0
+def summary(i: int, r: dict) -> str:
+    return (f"run {i} {r['tree']}: step {r['ms']:.1f} ms (steps "
+            f"{', '.join(f'{t:.1f}' for t in r['step_ms'])}; warm-up "
+            f"{r['warmup_ms']:.1f}), one microbatch's forward and "
+            f"backward wall {r['fb_wall_ms']:.1f} ms / busy "
+            f"{r['fb_busy_ms']:.1f} ms, AdamW {r['adam_ms']:.3f} ms, "
+            f"idle {r['idle']:.3f}, torch.add host {r['add_us']:.2f} us, "
+            f"load {r['load'][0]:.2f}")
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_runs.main(__doc__, __file__, one, summary, "steps", 3))

@@ -68,8 +68,9 @@ class LintConfig:
 
     # torchctx: methods that are hot by contract when defined in a class
     # body (the engine protocol: every solver round calls them)
-    hot_methods: tuple[str, ...] = ("apply", "cheb_round", "to_internal",
-                                    "from_internal")
+    hot_methods: tuple[str, ...] = ("apply", "cheb_round",
+                                    "cheb_round_masked", "chunk_residual",
+                                    "to_internal", "from_internal")
     # torchctx: (path suffix, function name) pairs that are hot: the
     # functions the reference jits, under their names in the port's
     # counterpart modules, and the PPR tick path

@@ -39,6 +39,13 @@ Solvers call:
     t, acc = eng.cheb_round(y, t, acc, ck)   # per round: vector work
     pi = eng.from_internal(acc)    # once per solve: layout out
 
+The adaptive solver's round and chunk go through two more hooks, the
+same on every engine (`_AdaptivePasses`): `cheb_round_masked` (the
+`cheb_step_masked` kernel: the round in place, frozen columns zeroed) and
+`chunk_residual` (the `cheb_residual` kernel: the normalized snapshot and
+its L1 residual, summed over ranks by `sum_over_ranks`). The block-ELL
+engines' `with_kernels(False)` takes their plain versions on any device.
+
 Mass invariant (the adaptive solver depends on it): the internal layout is
 a permutation of the caller's vertices plus ZERO-mass padding rows that stay
 zero through every `apply`/`cheb_round`, so column sums and L1 norms on
@@ -85,8 +92,10 @@ from repro_torch.graph.structure import (BlockEll, Graph, block_fill_rate,
                                          build_block_ell)
 from repro_torch.kernels.bsr_spmm.ops import bsr_spmm
 from repro_torch.kernels.bsr_spmm.ref import bsr_spmm_ref
-from repro_torch.kernels.cheb_step.ops import cheb_step
-from repro_torch.kernels.cheb_step.ref import cheb_step_ref
+from repro_torch.kernels.cheb_step.ops import cheb_residual, cheb_step, \
+    cheb_step_masked
+from repro_torch.kernels.cheb_step.ref import cheb_residual_ref, \
+    cheb_step_masked_ref, cheb_step_ref
 
 __all__ = [
     "CooEngine",
@@ -140,9 +149,36 @@ def _default_cheb_round(y, t, acc, ck):
     return t_next, acc + ck * t_next
 
 
-class _LocalReductions:
+class _AdaptivePasses:
+    """The adaptive loop's vector passes (`cpaa_adaptive_fixed`), the same
+    on every engine: on the card the `cheb_step_masked` and
+    `cheb_residual` kernels, on the CPU (and with `use_kernel` off) their
+    plain versions. `sum_over_ranks` is the engine's own."""
+
+    use_kernel = True   # the block-ELL engines switch it per instance
+
+    def cheb_round_masked(self, y, t, acc, ck, active):
+        """The masked round in place: t'' over y (this engine's fresh
+        `apply` output), acc' over acc; frozen columns get t'' = 0."""
+        if self.use_kernel:
+            return cheb_step_masked(y, t, acc, ck, active)
+        return cheb_step_masked_ref(y, t, acc, ck, active)
+
+    def chunk_residual(self, acc, snap):
+        """Per-column L1 residual of the normalized acc against snap,
+        summed over the ranks; snap becomes the normalized acc."""
+        if self.use_kernel:
+            return cheb_residual(acc, snap, self.sum_over_ranks)
+        return cheb_residual_ref(acc, snap, self.sum_over_ranks)
+
+
+class _LocalReductions(_AdaptivePasses):
     """The solvers' reduction hooks on a single-device engine, whose
     internal-layout arrays hold the whole vector: plain local reductions."""
+
+    def sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """A per-rank partial sum reduced over ranks: the identity here."""
+        return x
 
     def colsum(self, a: torch.Tensor) -> torch.Tensor:
         """Column sums of an internal-layout [n] / [n, B] array."""
@@ -494,7 +530,11 @@ class BlockEllEngine(_LocalReductions):
 
 
 class FusedBlockEllEngine(BlockEllEngine):
-    """Block-ELL SpMM + the fused Chebyshev-update kernel in every round."""
+    """Block-ELL SpMM + the fused Chebyshev-update kernel in every round of
+    a fixed-round solve (`cheb_round`). The adaptive loop's rounds and
+    residuals (`cheb_round_masked`, `chunk_residual`) are
+    `BlockEllEngine`'s, so on an adaptive tick the two engines run the
+    same code."""
 
     name = "block_ell_fused"
 
@@ -519,7 +559,7 @@ def _check_mesh(mesh, dev: torch.device) -> None:
                          f"is {dev}")
 
 
-class ShardedEngine:
+class ShardedEngine(_AdaptivePasses):
     """Shared surface of the rank-sharded engines (see module docstring).
 
     SPMD: every rank builds the same engine over its own shard and calls
@@ -547,12 +587,17 @@ class ShardedEngine:
     def device(self) -> torch.device:
         return self.weight.device
 
+    def sum_over_ranks(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's partial sum (column sums of its slice) all-reduced,
+        in place, over the ranks that together hold one copy of the
+        vector."""
+        return all_reduce(x, self.reduce_group, dist.ReduceOp.SUM,
+                          tag=self.name, dim=self.reduce_dim)
+
     def colsum(self, a: torch.Tensor) -> torch.Tensor:
         """Column sums of an internal-layout slice, all-reduced over the
         ranks that together hold one copy of the vector."""
-        return all_reduce(a.sum(dim=0), self.reduce_group,
-                          dist.ReduceOp.SUM, tag=self.name,
-                          dim=self.reduce_dim)
+        return self.sum_over_ranks(a.sum(dim=0))
 
     def amax(self, a: torch.Tensor) -> torch.Tensor:
         """Max over every entry of the vector, all-reduced like colsum."""

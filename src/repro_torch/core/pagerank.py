@@ -201,6 +201,18 @@ def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
     exactly as the reference computes them (c_k = c_{k-1} * beta), so the
     round counts match it. The host syncs once per chunk, on any(active).
 
+    The reference masks every round's inputs and outputs with jnp.where.
+    Here a round is the engine's `cheb_round_masked` (one pass, in place:
+    t'' over the SpMM's output y, acc' over acc), which writes t'' = 0 in
+    a frozen column and leaves its acc alone; (t_prev, t_cur) rotate by
+    name and t_cur goes to the SpMM unmasked. A frozen column's t is never
+    read again: one round after the freeze the SpMM sees its zeros, and
+    the SpMM column of the freeze round itself is dropped by the mask.
+    Each SpMM column depends only on the same input column, so acc, the
+    column rounds and the residuals are those of the reference's masked
+    loop. The chunk's snapshot and residual are the engine's
+    `chunk_residual` (one kernel on the card, the snapshot in place).
+
     Returns (pi, rounds_used, column_rounds, residual):
       pi            [n] / [n, B] column-normalized PageRank.
       rounds_used   int — rounds actually run (max over columns).
@@ -209,56 +221,44 @@ def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
       residual      [] / [B] tensor — last chunk's normalized L1 residual.
     """
     eng = as_engine(dg)
-    t_prev = eng.to_internal(p)         # T_0(P) p
+    t_prev = eng.to_internal(p)         # T_0(P) p; may be p itself: read only
     dtype, dev = t_prev.dtype, t_prev.device
     # device scalars by a fill, not torch.tensor: a copy from host memory
     # would wait for the stream (under async dispatch, the batch in flight)
     c = torch.full((), c, dtype=dtype, device=dev)
     tol = torch.full((), tol, dtype=dtype, device=dev)
-    tiny = torch.full((), torch.finfo(dtype).tiny, dtype=dtype, device=dev)
     sq = torch.sqrt(1.0 - c * c)
     beta = (1.0 - sq) / c
     c0 = 2.0 / sq
 
     cols = () if t_prev.ndim == 1 else (t_prev.shape[1],)
 
-    def colnorm(a):
-        s = eng.colsum(a)               # all-reduced on sharded engines
-        return a / torch.where(s.abs() < tiny, tiny, s)
-
     acc = (0.5 * c0) * t_prev           # (c0/2) T_0 p
     t_cur = eng.apply(t_prev)           # T_1(P) p = P p
     ck = c0 * beta                      # c_1
-    acc = acc + ck * t_cur
+    acc = acc + ck * t_cur              # the loop's own buffer from here on
 
     active = torch.ones(cols, dtype=torch.bool, device=dev)
     col_rounds = torch.ones(cols, dtype=torch.int32, device=dev)
     resid = torch.full(cols, float("inf"), dtype=dtype, device=dev)
-    snap = colnorm(acc)
-    zero = torch.zeros((), dtype=dtype, device=dev)
+    snap = _normalize(acc, eng.colsum)
     k = 1
     # one host sync per chunk: the while condition's any(active), the
     # counterpart of the reference's lax.while_loop condition
     # torchlint: disable=TL001 -- the loop's one host read per chunk
     while k < max_rounds and bool(active.any()):
-        mask = active if t_prev.ndim == 1 else active[None, :]
         for _ in range(chunk):
             if k >= max_rounds:         # stay within the a-priori bound
                 break
             ck = ck * beta
-            y = eng.apply(torch.where(mask, t_cur, zero))
-            t_next, acc_next = eng.cheb_round(
-                y, torch.where(mask, t_prev, zero), acc, ck)
-            t_prev = torch.where(mask, t_cur, t_prev)
-            t_cur = torch.where(mask, t_next, t_cur)
-            acc = torch.where(mask, acc_next, acc)
+            t_next, acc = eng.cheb_round_masked(eng.apply(t_cur), t_prev,
+                                                acc, ck, active)
+            t_prev, t_cur = t_cur, t_next
             k += 1
-        norm = colnorm(acc)
-        resid = eng.colsum((norm - snap).abs())
+        resid = eng.chunk_residual(acc, snap)   # snap <- normalized acc
         col_rounds = torch.where(active, torch.full_like(col_rounds, k),
                                  col_rounds)
         active = active & (resid > tol)
-        snap = norm
     return _normalize(eng.from_internal(acc)), k, col_rounds, resid
 
 

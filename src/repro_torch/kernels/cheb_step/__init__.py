@@ -1,3 +1,4 @@
-from repro_torch.kernels.cheb_step.ops import cheb_step
+from repro_torch.kernels.cheb_step.ops import cheb_residual, cheb_step, \
+    cheb_step_masked
 
-__all__ = ["cheb_step"]
+__all__ = ["cheb_step", "cheb_step_masked", "cheb_residual"]

@@ -1380,3 +1380,167 @@ class TestWindowKernelsOnCard:
             assert out.shape == (64,) and out.is_cuda
         finally:
             cdist.destroy_world()
+
+
+@pytest.mark.gpu
+class TestChebMaskedOnCard:
+    """The adaptive loop's masked round (`cheb_step_masked`, bitwise its
+    plain version: every op rounded on its own) and chunk residual
+    (`cheb_residual`: float64 sums in a fixed order, so within 1e-6 of a
+    float64 computation and the same bits on every call) on the card."""
+
+    # [n], [n, B], odd n, B not a multiple of the vector width, the main
+    # path's width and size (float32 only: the path's type)
+    SMALL = [(1000,), (1001,), (10_001, 128), (10_003, 8), (4097, 3),
+             (257, 1)]
+    CASES = [(s, d) for s in SMALL for d in (torch.float32, torch.float64)] \
+        + [((1_040_000, 128), torch.float32)]
+
+    @staticmethod
+    def _case(shape, dtype, cuda, seed, offset=0):
+        """(y, t, acc, active) on the card, with both mask states; with
+        `offset`, views `offset` elements into their storage."""
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        n = int(np.prod(shape))
+
+        def rand():
+            buf = torch.randn(n + offset, device=cuda, generator=gen,
+                              dtype=dtype)
+            return buf[offset:].view(shape)
+        cols = shape[1:]
+        if cols:
+            active = torch.rand(cols, device=cuda, generator=gen) < 0.5
+            if cols[0] > 1:
+                active[0], active[-1] = True, False
+        else:
+            active = torch.tensor(bool(seed % 2), device=cuda)
+        return rand(), rand(), rand(), active
+
+    @pytest.mark.parametrize("shape, dtype", CASES)
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_masked_round_bitwise_plain(self, cuda, shape, dtype, offset):
+        from repro_torch.kernels.cheb_step import ops as cheb_ops
+        from repro_torch.kernels.cheb_step.ops import cheb_step_masked
+        from repro_torch.kernels.cheb_step.ref import cheb_step_masked_ref
+        for seed in (0, 1):
+            y, t, acc, active = self._case(shape, dtype, cuda, seed, offset)
+            ck = torch.tensor(0.5567, device=cuda, dtype=dtype)
+            t0 = t.clone()
+            want = cheb_step_masked_ref(y.clone(), t, acc.clone(), ck,
+                                        active)
+            before = cheb_ops.masked_launches()
+            got = cheb_step_masked(y, t, acc, ck, active)
+            torch.cuda.synchronize()
+            assert cheb_ops.masked_launches() == before + 1
+            assert got[0] is y and got[1] is acc
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            assert torch.equal(t, t0)
+
+    def test_masked_round_all_frozen_and_all_active(self, cuda):
+        from repro_torch.kernels.cheb_step.ops import cheb_step, \
+            cheb_step_masked
+        y, t, acc, _ = self._case((4096, 128), torch.float32, cuda, 2)
+        ck = torch.tensor(0.25, device=cuda)
+        want = cheb_step(y, t, acc, ck)
+        on = torch.ones(128, dtype=torch.bool, device=cuda)
+        got = cheb_step_masked(y.clone(), t, acc.clone(), ck, on)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        acc0 = acc.clone()
+        got = cheb_step_masked(y.clone(), t, acc, ck, ~on)
+        assert not bool(got[0].any()) and torch.equal(got[1], acc0)
+
+    @pytest.mark.parametrize("shape, dtype", CASES)
+    @pytest.mark.parametrize("offset", [0, 1])
+    def test_residual_vs_float64_and_plain(self, cuda, shape, dtype, offset):
+        from repro_torch.kernels.cheb_step import ops as cheb_ops
+        from repro_torch.kernels.cheb_step.ops import cheb_residual
+        from repro_torch.kernels.cheb_step.ref import cheb_residual_ref
+        acc, snap, _, _ = self._case(shape, dtype, cuda, 3, offset)
+        acc = acc.abs()
+        if acc.ndim > 1 and acc.shape[1] > 2:
+            acc[:, 1] = 0.0                     # the tiny guard's column
+        snap = snap.abs() / shape[0]
+        s64 = acc.double().sum(dim=0)
+        tiny = torch.finfo(dtype).tiny
+        norm64 = acc.double() / torch.where(s64.abs() < tiny, tiny, s64)
+        want = (norm64 - snap.double()).abs().sum(dim=0)
+        plain_snap = snap.clone()
+        plain = cheb_residual_ref(acc, plain_snap)
+        snap2 = snap.clone()
+        before = cheb_ops.residual_launches()
+        got = cheb_residual(acc, snap)
+        again = cheb_residual(acc, snap2)
+        torch.cuda.synchronize()
+        assert cheb_ops.residual_launches() == before + 2
+        assert got.shape == shape[1:] and got.dtype == dtype
+        assert torch.equal(got, again) and torch.equal(snap, snap2)
+        torch.testing.assert_close(got.double(), want, rtol=1e-6, atol=0)
+        torch.testing.assert_close(got, plain, rtol=1e-5, atol=0)
+        torch.testing.assert_close(snap.double(), norm64, rtol=1e-6,
+                                   atol=0)
+        torch.testing.assert_close(snap, plain_snap, rtol=1e-6, atol=0)
+
+    def test_adaptive_solve_freezes_columns_kernel_vs_plain(self, cuda):
+        """Columns that freeze at different chunks, through the fused
+        engine's kernels and through its plain versions: column rounds
+        equal, L1 <= 1e-5 per column; one masked launch a masked round,
+        one residual launch a chunk."""
+        from repro_torch.core.engine import FusedBlockEllEngine
+        from repro_torch.core.pagerank import cpaa_adaptive_fixed
+        from repro_torch.kernels.cheb_step import ops as cheb_ops
+        g = generators.tri_mesh(60, 70)
+        eng = FusedBlockEllEngine.from_graph(g, device=cuda)
+        rng = np.random.default_rng(0)
+        p = np.zeros((g.n, 16), np.float32)
+        for j in range(16):
+            if j % 2:
+                p[:, j] = rng.random(g.n)
+            else:
+                p[rng.integers(0, g.n), j] = 1.0
+        p = torch.from_numpy(p).to(cuda)
+        chunk, cap = 3, 60
+        cheb_ops.reset_launches()
+        pi_k, k_k, cols_k, res_k = cpaa_adaptive_fixed(eng, p, 0.85, 1e-5,
+                                                       cap, chunk)
+        masked, resid = cheb_ops.masked_launches(), \
+            cheb_ops.residual_launches()
+        assert cheb_ops.launches() == 0
+        pi_p, k_p, cols_p, _ = cpaa_adaptive_fixed(
+            eng.with_kernels(False), p, 0.85, 1e-5, cap, chunk)
+        cols = cols_k.cpu().numpy()
+        assert len(set(cols.tolist())) >= 2 and k_k < cap
+        assert torch.equal(cols_k, cols_p) and k_k == k_p
+        assert float((pi_k - pi_p).abs().sum(dim=0).max()) <= 1e-5
+        assert masked == k_k - 1 and resid == -(-(k_k - 1) // chunk)
+        assert bool(torch.isfinite(res_k).all())
+
+    @pytest.mark.parametrize("kind", ["coo", "hub_tail", "block_ell",
+                                      "coo_f64"])
+    def test_every_engine_launches_both(self, cuda, kind):
+        """COO, hub/tail and block-ELL (and a float64 COO engine, the f64
+        entry points) run the loop through both kernels; answers within
+        1e-5 of the CPU solve."""
+        from repro_torch.core.engine import (BlockEllEngine, CooEngine,
+                                             HubTailEngine)
+        from repro_torch.core.pagerank import cpaa_adaptive
+        from repro_torch.graph.ops import device_graph
+        from repro_torch.kernels.cheb_step import ops as cheb_ops
+        g = generators.powerlaw_ba(3000, 4, seed=3)
+        dtype = torch.float64 if kind == "coo_f64" else torch.float32
+
+        def make(dev):
+            if kind.startswith("coo"):
+                return CooEngine(device_graph(g, dtype, device=dev))
+            if kind == "hub_tail":
+                return HubTailEngine.from_graph(g, device=dev)
+            return BlockEllEngine.from_graph(g, device=dev)
+        p = torch.from_numpy(np.random.default_rng(1).random(
+            (g.n, 8))).to(dtype)
+        cheb_ops.reset_launches()
+        r = cpaa_adaptive(make(cuda), 0.85, 1e-6, p=p.to(cuda))
+        assert cheb_ops.masked_launches() == r.iterations - 1
+        assert cheb_ops.residual_launches() > 0
+        ref = cpaa_adaptive(make("cpu"), 0.85, 1e-6, p=p)
+        assert r.iterations == ref.iterations
+        assert float((r.pi.cpu() - ref.pi).abs().sum(dim=0).max()) <= 1e-5

@@ -409,7 +409,8 @@ class TestEmbeddingBagChecks:
 class TestBuild:
     def test_sources_cover_both_kernels(self):
         srcs = _build.sources()
-        assert set(srcs) == {"bsr_spmm", "cheb_step", "embedding_bag",
+        assert set(srcs) == {"bsr_spmm", "cheb_step", "cheb_step_masked",
+                             "cheb_residual", "embedding_bag",
                              "embedding_bag_backward", "adamw_step",
                              "sum_squares"}
         for path in srcs.values():
