@@ -21,8 +21,10 @@ package. Phases, each of which must pass:
      (rtol 1e-6), the adaptive loop's cheb_step_masked (bitwise) and
      cheb_residual (its residual and the snapshot it writes, each 1e-6
      of a float64 computation, the snapshot also of plain) with masks in both
-     states, up to 1,040,000 x 128 and on offset views, and
-     embedding_bag's backward kernel at DLRM-RM2
+     states, up to 1,040,000 x 128 and on offset views; topk_columns
+     bitwise its plain version (ties, zero columns, row maps with padding
+     rows, rows off the tile, widths 1 to 128, k 1 to 128, float64, an
+     offset view); and embedding_bag's backward kernel at DLRM-RM2
      train_batch's shapes (recsys_batch ids at B = 65,536, the dense
      [33.7M, 64] gradient) against a float64 and the plain f32
      index_add_ (1e-4 of sum |terms| per element), untouched rows zero, a
@@ -36,7 +38,10 @@ package. Phases, each of which must pass:
   4. slice B: the service on NACA0015 at the paper's size (n = 1,040,000)
      with engine "fused", 128 queries + 13 repeats, every bsr_spmm launch
      of the tick on the wgmma variant, one cheb_step_masked a masked
-     round, one cheb_residual a chunk and no cheb_step; bsr_spmm vs plain
+     round, one cheb_residual a chunk, no cheb_step and one topk_columns
+     (the ranking, over the loop's snapshot in BFS order through the
+     engine's row map: bitwise its plain version there, and within 1e-6
+     of the old vertex-order ranking with its pinned ranks); bsr_spmm vs plain
      on that tiling at the same widths; the kernel solve of the tick's
      personalization matrix vs the same solve through the plain versions
      (column rounds equal, L1 <= 1e-5 per column);
@@ -46,7 +51,10 @@ package. Phases, each of which must pass:
      bsr_spmm variants at BT 1, 2 and 4, where the dispatch cuts;
      cheb_step_masked all active and half frozen; cheb_residual); one COO
      engine apply beside one fused apply at BT = 128 (the min_fill
-     question); a profile of one tick by kernel and by operator;
+     question); topk_columns beside its bytes bound, its plain version
+     and torch.topk(dim=0), also without a map and on one column; a
+     profile of one tick by kernel and by operator, and one split by
+     source line (the ranking tail it replaced, line by line);
   5. slice C: DLRM-RM2 at `full_config()` (8.64 GB table on the card):
      embedding_bag vs plain (bitwise at bag 1, also on rows >= 2^25 where
      32-bit offsets would fail; rtol/atol 1e-5 for weighted bags of 4 and
@@ -67,9 +75,10 @@ package. Phases, each of which must pass:
        refreshed entries within 2 tol of a float64 solve on the graph of
        their epoch, a rebuild-mode twin within L1 1e-6, the patched device
        arrays bitwise equal to the host mirror; refresh ticks on naca must
-       launch only bsr_spmm's FFMA variant, ticks after the updates the
-       wgmma variant, cheb_step_masked and cheb_residual; host ms per
-       update and per refreshed entry;
+       launch only bsr_spmm's FFMA variant and one topk_columns a
+       refreshed entry, ticks after the updates the wgmma variant,
+       cheb_step_masked and cheb_residual; host ms per update and per
+       refreshed entry;
      - chunglu-1m (n = 10^6, m = 13,190,004; slice E's cache phase builds
        it) on engine auto (hub/tail):
        128 queries + 13 repeats at max_batch 128, 8 columns vs a float64
@@ -294,7 +303,9 @@ Each main path runs with the kernels' launch counters set to 0 just
 before and read just after; a kernel of the path that was not launched
 fails the run. Every training path (I1, I2, I4, J, G's steps, M-b, M-c)
 must launch adamw_step and sum_squares once per leaf and step each, with
-no copy of a non-contiguous gradient. The line before the last is the
+no copy of a non-contiguous gradient. Every PPR ranking (a tick, adaptive
+or fixed, and each refreshed entry) is one topk_columns launch; slices
+H, J and K must launch none. The line before the last is the
 kernel table as JSON; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that line.
 """
@@ -357,10 +368,12 @@ def reset_counts():
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.cheb_step import ops as cheb_ops
     from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.topk import ops as topk_ops
     bsr_ops.reset_launches()
     cheb_ops.reset_launches()
     eb_ops.reset_launches()
     adamw_ops.reset_launches()
+    topk_ops.reset_launches()
     engine.reset_apply_counts()
 
 
@@ -370,9 +383,11 @@ def read_counts() -> dict:
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
     from repro_torch.kernels.cheb_step import ops as cheb_ops
     from repro_torch.kernels.embedding_bag import ops as eb_ops
+    from repro_torch.kernels.topk import ops as topk_ops
     return {"bsr_spmm": bsr_ops.launches(), "cheb_step": cheb_ops.launches(),
             "cheb_step_masked": cheb_ops.masked_launches(),
             "cheb_residual": cheb_ops.residual_launches(),
+            "topk_columns": topk_ops.launches(),
             "embedding_bag": eb_ops.launches(),
             "embedding_bag_backward": eb_ops.backward_launches(),
             "embedding_bag_window": eb_ops.window_launches(),
@@ -661,6 +676,57 @@ def compare_adaptive_kernels() -> dict:
             "cheb_residual_rel": resid_rel}
 
 
+def compare_topk() -> float:
+    """topk_columns bitwise its plain version on the card: random values,
+    integer ties (0..4) and all-zero columns; with a random row map over
+    rows followed by padding rows of large values, and without; rows that
+    are no multiple of a tile, widths 1, 3, 5 (no multiple of the vector)
+    and 128, k 1 to 128, float64, a view one element off the 16-byte
+    boundary. Returns max |kernel - plain| (0: bitwise)."""
+    import torch
+    from repro_torch.kernels.topk.ops import topk_columns
+    from repro_torch.kernels.topk.ref import topk_columns_ref
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    f32, f64 = torch.float32, torch.float64
+    # rows, B, k, kind, mapped, dtype, offset
+    cases = [(5037, 3, 8, "ties", True, f32, 0),
+             (5037, 128, 32, "zeros", False, f32, 0),
+             (5037, 128, 32, "zeros", True, f32, 0),
+             (300_017, 5, 128, "random", True, f32, 0),
+             (300_017, 1, 32, "ties", False, f32, 0),
+             (300_017, 128, 1, "random", True, f32, 0),
+             (5037, 128, 32, "random", True, f64, 0),
+             (5037, 128, 32, "random", False, f32, 1)]
+    for rows, b, k, kind, mapped, dtype, off in cases:
+        x = torch.empty(rows * b + off, device="cuda", dtype=dtype)[off:]
+        x = x.view(rows, b)
+        if kind == "random":
+            x.copy_(torch.randn(rows, b, device="cuda", generator=gen))
+        elif kind == "ties":
+            x.copy_(torch.randint(0, 5, (rows, b), device="cuda",
+                                  generator=gen))
+        else:
+            x.zero_()
+        n_valid, ids = rows, None
+        if mapped:          # the last 7 rows are padding above every value
+            n_valid = rows - 7
+            x[n_valid:] = float(x.abs().max()) + 1.0
+            ids = torch.randperm(n_valid, device="cuda",
+                                 generator=gen).to(torch.int32)
+        got = topk_columns(x, k, n_valid, ids)
+        want = topk_columns_ref(x, k, n_valid, ids)
+        torch.cuda.synchronize()
+        bits = torch.int32 if dtype == f32 else torch.int64
+        check(torch.equal(got[0], want[0])
+              and torch.equal(got[1].view(bits), want[1].view(bits)),
+              f"topk_columns [{rows}, {b}] k={k} {kind} map={mapped} "
+              f"{dtype} offset {off}: kernel vs plain not bitwise")
+    log(f"topk_columns: {len(cases)} cases up to 300,017 rows, widths 1 "
+        f"to 128, k 1 to 128, ties, zeros, row maps with padding, float64 "
+        f"and an offset view: bitwise its plain version")
+    return 0.0
+
+
 def phase_kernels() -> dict:
     import torch
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
@@ -712,7 +778,8 @@ def phase_kernels() -> dict:
     adaptive = compare_adaptive_kernels()
     adamw = compare_adamw()
     return {"bsr_spmm": worst, "cheb_step": cheb_err, "dyn_range": wit,
-            "host_us": host_us, "adamw": adamw, **adaptive}
+            "host_us": host_us, "adamw": adamw,
+            "topk_columns": compare_topk(), **adaptive}
 
 
 def host_cost(block_cols, values) -> dict:
@@ -947,6 +1014,8 @@ def phase_slice_b() -> dict:
     check(counts["bsr_spmm_variants"]["wgmma_3xtf32"] == counts["bsr_spmm"],
           f"slice B: not every bsr_spmm launch was on the wgmma variant: "
           f"{counts}")
+    check(counts["topk_columns"] == 1, f"slice B: the tick's ranking is not "
+          f"one topk_columns launch: {counts}")
     for q in queries[:4]:
         r = results[q.qid]
         check(r.indices.shape == (32,) and np.all(np.isfinite(r.scores))
@@ -973,6 +1042,7 @@ def phase_slice_b() -> dict:
     check(bool(((col_sum - 1).abs() < 1e-4).all()), "slice B: pi columns "
           "do not sum to 1")
     del pi_k, pi_p
+    topk = slice_b_topk(eng, p, plan, min(cfg.max_top_k, rg.n))
 
     # kernel times at the tick's shapes, beside bounds and yardsticks
     x = eng.to_internal(p)
@@ -1106,6 +1176,7 @@ def phase_slice_b() -> dict:
         f"bytes")
     del y, t, acc
     tick_prof = profile_tick(eng, p, plan, k=min(cfg.max_top_k, rg.n))
+    tail_lines = profile_tail_lines(eng, p, plan, min(cfg.max_top_k, rg.n))
     del x, p, eng
     return {
         "svc": svc,     # slice D's paper-size refresh reuses the build
@@ -1114,9 +1185,94 @@ def phase_slice_b() -> dict:
         "min_fill": {"coo_ms": coo_ms, "fused_ms": fused_ms},
         "cheb": {"ms": cheb_ms, "plain_ms": cheb_plain_ms,
                  "bytes_ms": cheb_bytes_ms, "ops_ms": cheb_ops_ms},
-        "masked": masked, "resid": resid, "peak": peak,
+        "masked": masked, "resid": resid, "peak": peak, "topk": topk,
         "profile": {k: tick_prof.get(k) for k in ("wall_us", "busy_us")},
+        "tail": tail_lines,
     }
+
+
+def pinned_mismatches(a_idx, a_val, b_idx, b_val) -> int:
+    """Ranks whose ids differ between two rankings [B, k], counting only
+    ranks separated from both neighbours in `a` by more than 1e-6 (closer
+    scores may swap on a last-bit difference; test_torch_serve.py's
+    rule)."""
+    import torch
+    a_val = a_val.double()
+    gap = (a_val[:, 1:] - a_val[:, :-1]).abs() > 1e-6
+    pinned = torch.ones(a_val.shape, dtype=torch.bool, device=a_val.device)
+    pinned[:, 1:] &= gap
+    pinned[:, :-1] &= gap
+    pinned[:, -1] = False
+    return int(((a_idx != b_idx) & pinned).sum())
+
+
+def slice_b_topk(eng, p, plan, k: int) -> dict:
+    """topk_columns on the tick's own snapshot: the loop's last normalized
+    accumulator in the fused engine's BFS layout through its row map,
+    bitwise against the plain version on the same tensors, and against the
+    ranking the tick ran before (vertex-order pi, `topk_lower_index_first`
+    of pi.T; scores within 1e-6, pinned ranks equal). CUDA-event times of
+    the kernel there, of its plain version and of the `torch.topk(dim=0)`
+    yardstick (no tie rule, no row map), beside the bytes bound; the
+    kernel also at the fixed-round tick's shape (vertex order, no map) and
+    at the refresh's single column."""
+    import torch
+    from repro_torch.core.pagerank import _normalize, cpaa_adaptive_loop
+    from repro_torch.kernels.topk.ops import topk_columns
+    from repro_torch.kernels.topk.ref import topk_columns_ref
+    from repro_torch.topk import topk_lower_index_first
+    acc, snap = cpaa_adaptive_loop(eng, p, plan.c, plan.tol,
+                                   max_rounds=plan.max_rounds,
+                                   chunk=plan.chunk)[:2]
+    rows, n_valid, ids = eng.ranking_layout(snap)
+    bt = rows.shape[1]
+    got = topk_columns(rows, k, n_valid, ids)
+    want = topk_columns_ref(rows, k, n_valid, ids)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0])
+          and torch.equal(got[1].view(torch.int32),
+                          want[1].view(torch.int32)),
+          "slice B: topk_columns vs plain on the tick's snapshot not "
+          "bitwise")
+    before = topk_lower_index_first(_normalize(eng.from_internal(acc)).T, k)
+    del acc, want
+    score_gap = float((got[1] - before[1]).abs().max())
+    moved = pinned_mismatches(before[0], before[1], got[0], got[1])
+    log(f"slice B topk_columns [{rows.shape[0]} x {bt}] k={k} over "
+        f"{n_valid} mapped rows: bitwise its plain version; vs the old "
+        f"vertex-order ranking max |score diff| {score_gap:.3e}, "
+        f"{moved} pinned ranks moved")
+    check(score_gap <= 1e-6 and moved == 0, "slice B: the snapshot's "
+          "ranking departs from the vertex-order ranking")
+    del before, got
+    # kernel, plain, library, kernel (one card, one call)
+    k1 = time_ms(lambda: topk_columns(rows, k, n_valid, ids), 20)
+    plain_ms = time_ms(lambda: topk_columns_ref(rows, k, n_valid, ids), 3)
+    head = rows[:n_valid]
+    lib_ms = time_ms(lambda: torch.topk(head, k, dim=0), 5)
+    k2 = time_ms(lambda: topk_columns(rows, k, n_valid, ids), 20)
+    # the ranked rows and the row map read once, [B, k] ids and values
+    # written once; one comparison an element
+    bytes_ms = (4 * n_valid * bt + 4 * n_valid + 8 * bt * k) \
+        / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_valid * bt / FP32_FLOP_PER_S * 1e3
+    vert = snap[:n_valid].contiguous()      # a fixed tick's pi: no map
+    fixed_ms = time_ms(lambda: topk_columns(vert, k), 20)
+    one = vert[:, :1].contiguous()          # a refresh's single column
+    one_ms = time_ms(lambda: topk_columns(one, k), 20)
+    one_bytes_ms = (4 * n_valid + 8 * k) / HBM_BYTES_PER_S * 1e3
+    del vert, one, snap, rows, head
+    log(f"topk_columns [{n_valid} x {bt}] k={k} with the row map: kernel "
+        f"{k1:.3f} / {k2:.3f} ms, plain {plain_ms:.3f} ms, torch.topk(dim=0) "
+        f"{lib_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.3f} ms (bytes "
+        f"{bytes_ms:.3f} ms, comparisons {ops_ms:.4f} ms), kernel at "
+        f"{bytes_ms / ((k1 + k2) / 2):.3f} of it; vertex order without a "
+        f"map {fixed_ms:.3f} ms; one column {one_ms:.3f} ms (bound "
+        f"{one_bytes_ms:.4f} ms)")
+    return {"ms": (k1 + k2) / 2, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "fixed_ms": fixed_ms,
+            "column_ms": one_ms, "column_bytes_ms": one_bytes_ms,
+            "score_gap": score_gap}
 
 
 # ---------------------------------------------------------------- slice C --
@@ -1356,7 +1512,8 @@ def phase_slice_c() -> dict:
 def count_delta(before: dict, after: dict) -> dict:
     """Kernel launches between two `read_counts()` snapshots."""
     out = {k: after[k] - before[k]
-           for k in ("bsr_spmm", "cheb_step") + ADAPTIVE_KERNELS}
+           for k in ("bsr_spmm", "cheb_step", "topk_columns")
+           + ADAPTIVE_KERNELS}
     for k, v in after["bsr_spmm_variants"].items():
         out[k] = v - before["bsr_spmm_variants"][k]
     return out
@@ -1393,7 +1550,7 @@ def gate_adamw(path: str, label: str, n: dict, leaves: int,
 def add_counts(*parts) -> dict:
     """Sum of `read_counts()` results of several main paths."""
     flat = ("bsr_spmm", "cheb_step", "cheb_step_masked", "cheb_residual",
-            "embedding_bag", "embedding_bag_backward")
+            "topk_columns", "embedding_bag", "embedding_bag_backward")
     out = dict.fromkeys(flat, 0) | {"bsr_spmm_variants": {}, "applies": {}}
     for c in parts:
         for key in flat:
@@ -1494,8 +1651,8 @@ def phase_slice_d_updates() -> dict:
         svc.submit(q)
     results.update(svc.run_until_drained())
     torch.cuda.synchronize()
-    refresh = dict.fromkeys(("bsr_spmm", "cheb_step", "ffma",
-                             "wgmma_3xtf32") + ADAPTIVE_KERNELS, 0)
+    refresh = dict.fromkeys(("bsr_spmm", "cheb_step", "topk_columns",
+                             "ffma", "wgmma_3xtf32") + ADAPTIVE_KERNELS, 0)
     upd_ms = {nm: [] for nm in svc.registry.names()}
     refresh_s, refreshed, refresh_err, refresh_checked = 0.0, 0, 0.0, 0
     for nm, ins, dele in batches:
@@ -1596,6 +1753,9 @@ def phase_slice_d_updates() -> dict:
           and not any(refresh[k] for k in ADAPTIVE_KERNELS),
           f"slice D: refresh ticks on naca are not all FFMA bsr_spmm "
           f"without a Chebyshev kernel: {refresh}")
+    check(refresh["topk_columns"] == refreshed, f"slice D: {refreshed} "
+          f"refreshed entries, {refresh['topk_columns']} topk_columns "
+          f"launches (one each)")
     check(after_updates["wgmma_3xtf32"] > 0
           and adaptive_launched(after_updates), f"slice D: ticks after the "
           f"updates missed a kernel: {after_updates}")
@@ -5549,6 +5709,153 @@ def profile_tick(eng, p, plan, k: int) -> dict:
         "one slice B tick", by_op=True)
 
 
+def range_device_ms(prof, names) -> dict:
+    """Device milliseconds of the kernels launched inside each
+    `record_function` range of `names` (its host events'
+    device_time_total)."""
+    from torch.autograd import DeviceType
+    out = dict.fromkeys(names, 0.0)
+    for e in prof.events():
+        # the range's host event (a device-side copy of it, where the
+        # profiler makes one, would count the same kernels again)
+        if e.name in out and e.device_type == DeviceType.CPU:
+            dev = getattr(e, "device_time_total", None)
+            if dev is None:
+                dev = getattr(e, "cuda_time_total", 0)
+            out[e.name] += dev / 1e3
+    return out
+
+
+# the ranking tail the adaptive tick ran before `topk_columns`, line by line:
+# (range label, what the line is)
+OLD_TAIL = (
+    ("from_internal", "eng.from_internal(acc): index_select(0, inv_perm)"),
+    ("_normalize", "pi = acc.sum(0), where, divide; pi.T"),
+    ("topk.py:22 kth", "torch.topk(pi.T, k, dim=1).values[:, k-1:k]"),
+    ("topk.py:23-24 gt eq", "x > kth, x == kth"),
+    ("topk.py:25 need", "k - gt.sum(dim=1)"),
+    ("topk.py:26 take", "gt | (eq & eq.cumsum(dim=1) <= need)"),
+    ("topk.py:29-31 key", "where(take, arange(n, 0, -1), -1)"),
+    ("topk.py:32 topk key", "torch.topk(key, k, dim=1).indices"),
+    ("topk.py:33 gather", "x.gather(1, idx)"),
+    ("topk.py:34 sort", "torch.sort(vals, descending, stable)"),
+    ("topk.py:35 gathers", "idx.gather, .to(int32), vals.gather"),
+)
+
+
+def old_tail(eng, acc, k: int, rf):
+    """The tick's ranking as `_solve_topk_adaptive` ran it before
+    `topk_columns` (pagerank.py's vertex-order pi, then
+    `topk_lower_index_first` of pi.T), each line in its `rf` range."""
+    import torch
+    from repro_torch.core.pagerank import _normalize
+    names = iter(label for label, _ in OLD_TAIL)
+    with rf(next(names)):
+        full = eng.from_internal(acc)
+    with rf(next(names)):
+        x = _normalize(full).T
+    del full
+    with rf(next(names)):
+        kth = torch.topk(x, k, dim=1).values[:, k - 1:k]
+    with rf(next(names)):
+        gt = x > kth
+        eq = x == kth
+    with rf(next(names)):
+        need = k - gt.sum(dim=1, keepdim=True, dtype=torch.int32)
+    with rf(next(names)):
+        take = gt | (eq & (eq.cumsum(dim=1, dtype=torch.int32) <= need))
+    del gt, eq
+    n = x.shape[1]
+    with rf(next(names)):
+        key = torch.where(take, torch.arange(n, 0, -1, dtype=torch.int32,
+                                             device=x.device), -1)
+    with rf(next(names)):
+        idx = torch.topk(key, k, dim=1).indices
+    with rf(next(names)):
+        vals = x.gather(1, idx)
+    with rf(next(names)):
+        order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+    with rf(next(names)):
+        return idx.gather(1, order).to(torch.int32), vals.gather(1, order)
+
+
+def profile_tail_lines(eng, p, plan, k: int) -> dict:
+    """One slice B tick's device time split by source line (torch.profiler
+    after a warm run): the ranking tail as the tick ran it before
+    `topk_columns` (`old_tail`, checked equal to `topk_lower_index_first`
+    of the same pi), each line a `record_function` range whose device time
+    is the kernels launched inside it; the loop (`cpaa_adaptive_loop`) is
+    the rest of the device's busy time (its kernels are launched through
+    ctypes, which the profiler links to no range). Then the tick as it
+    runs now, whose ranking is the two kernels of `topk_columns`."""
+    import contextlib
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.pagerank import _normalize, cpaa_adaptive_loop
+    from repro_torch.serve.pagerank_service import _solve_topk_adaptive
+    from repro_torch.topk import topk_lower_index_first
+
+    def loop():
+        return cpaa_adaptive_loop(eng, p, plan.c, plan.tol,
+                                  max_rounds=plan.max_rounds,
+                                  chunk=plan.chunk)[0]
+
+    def tick():
+        return _solve_topk_adaptive(eng, p, plan.c, plan.tol,
+                                    max_rounds=plan.max_rounds,
+                                    chunk=plan.chunk, k=k)
+
+    labels = {lb for lb, _ in OLD_TAIL}
+
+    def kernels(prof) -> dict:
+        # kernel rows only: a range's device-side copy (a CUDA row under
+        # the range's name) would count its kernels twice
+        out = {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) == DeviceType.CUDA \
+                    and e.key not in labels:
+                dev = getattr(e, "self_device_time_total", None)
+                if dev is None:
+                    dev = getattr(e, "self_cuda_time_total", 0)
+                out[e.key] = out.get(e.key, 0.0) + dev / 1e3
+        return out
+
+    acc = loop()
+    want = topk_lower_index_first(_normalize(eng.from_internal(acc)).T, k)
+    got = old_tail(eng, acc, k, lambda _: contextlib.nullcontext())
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          "slice B: the line-by-line tail is not topk_lower_index_first")
+    del acc, want, got
+    tick()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        old_tail(eng, loop(), k, record_function)
+        torch.cuda.synchronize()
+    ms = range_device_ms(prof, [lb for lb, _ in OLD_TAIL])
+    busy_old = sum(kernels(prof).values())
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tick()
+        torch.cuda.synchronize()
+    now = kernels(prof)
+    busy_new = sum(now.values())
+    topk_ms = sum(v for key, v in now.items() if "topk_" in key)
+    tail = sum(ms.values())
+    what = dict(OLD_TAIL)
+    log(f"slice B tick by source line (device ms, {CARD}): before "
+        f"topk_columns, busy {busy_old:.3f}: the loop {busy_old - tail:.3f}, "
+        f"the ranking tail {tail:.3f}:")
+    for lb, _ in OLD_TAIL:
+        log(f"  {ms[lb]:9.3f} ms  {lb:22s} {what[lb]}")
+    log(f"  now: busy {busy_new:.3f}, of which topk_columns' two kernels "
+        f"{topk_ms:.3f}")
+    return {"old_busy_ms": busy_old, "old_tail_ms": tail,
+            "old_tail_lines": ms, "busy_ms": busy_new,
+            "topk_kernels_ms": topk_ms}
+
+
 def bound(bytes_ms: float, ops_ms: float) -> tuple[float, str]:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
@@ -5607,7 +5914,8 @@ def main() -> int:
     del e_graphs
     torch.cuda.empty_cache()
     h = phase_slice_h()["launches"]
-    check(h["bsr_spmm"] == h["cheb_step"] == h["embedding_bag"] == 0
+    check(h["bsr_spmm"] == h["cheb_step"] == h["embedding_bag"]
+          == h["topk_columns"] == 0
           and not any(h[k] for k in ADAPTIVE_KERNELS),
           f"slice H launched a kernel off its path: {h}")
     torch.cuda.empty_cache()
@@ -5618,7 +5926,7 @@ def main() -> int:
     phase_slice_j(i_res.pop("granite"))
     j = read_counts()
     check(j["bsr_spmm"] == j["cheb_step"] == j["embedding_bag"]
-          == j["embedding_bag_backward"] == 0
+          == j["embedding_bag_backward"] == j["topk_columns"] == 0
           and not any(j[k] for k in ADAPTIVE_KERNELS),
           f"slice J launched a kernel off its path: {j}")
     del i_res
@@ -5627,7 +5935,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     l_d = phase_slice_l()
     l = add_counts(l_a["launches"], l_d["launches"])
-    check(l["bsr_spmm"] > 0 and adaptive_launched(l),
+    check(l["bsr_spmm"] > 0 and adaptive_launched(l)
+          and l["topk_columns"] > 0,
           f"slice L: a kernel of its path was not launched: {l}")
     torch.cuda.empty_cache()
     m = phase_slice_m()
@@ -5659,6 +5968,21 @@ def main() -> int:
              "max_abs_err": kerr[name], "ms": meas["ms"],
              "plain_ms": meas["plain_ms"], "bound_ms": ab, "bound_by": aby,
              "library_ms": None, **extra})
+    # every PPR ranking (ticks and refreshes) is one topk_columns launch
+    tk = b["topk"]
+    topk_b, topk_by = bound(tk["bytes_ms"], tk["ops_ms"])
+    topk_paths = {path: c["topk_columns"] for path, c in ppr_paths.items()}
+    topk_row = {
+        "name": "topk_columns", "route": "cuda",
+        "source": "src/repro_torch/kernels/topk/csrc/topk_columns.cu",
+        "replaces": "src/repro/serve/pagerank_service.py:339",
+        "launches": sum(topk_paths.values()),
+        "launches_by_path": topk_paths,
+        "max_abs_err": kerr["topk_columns"], "ms": tk["ms"],
+        "plain_ms": tk["plain_ms"], "bound_ms": topk_b, "bound_by": topk_by,
+        "library_ms": tk["library_ms"], "vertex_order_ms": tk["fixed_ms"],
+        "one_column_ms": tk["column_ms"],
+        "one_column_bound_ms": tk["column_bytes_ms"]}
     eb_b, eb_by = bound(c["eb"]["bytes_ms"], c["eb"]["ops_ms"])
     ebb_b, ebb_by = bound(eb_bwd["bytes_ms"], eb_bwd["ops_ms"])
     table = {"kernels": [
@@ -5709,6 +6033,7 @@ def main() -> int:
          "ms": b["cheb"]["ms"], "plain_ms": b["cheb"]["plain_ms"],
          "bound_ms": cheb_b, "bound_by": cheb_by, "library_ms": None},
         *adaptive_rows,
+        topk_row,
         {"name": "embedding_bag", "route": "cuda",
          "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                    "embedding_bag.cu",

@@ -70,13 +70,15 @@ class LintConfig:
     # body (the engine protocol: every solver round calls them)
     hot_methods: tuple[str, ...] = ("apply", "cheb_round",
                                     "cheb_round_masked", "chunk_residual",
-                                    "to_internal", "from_internal")
+                                    "to_internal", "from_internal",
+                                    "ranking_layout")
     # torchctx: (path suffix, function name) pairs that are hot: the
     # functions the reference jits, under their names in the port's
     # counterpart modules, and the PPR tick path
     hot_functions: tuple[tuple[str, str], ...] = (
         ("core/pagerank.py", "cpaa_fixed"),
         ("core/pagerank.py", "cpaa_adaptive_fixed"),
+        ("core/pagerank.py", "cpaa_adaptive_loop"),
         ("core/pagerank.py", "power_refine"),
         ("serve/pagerank_service.py", "tick"),
         ("serve/pagerank_service.py", "_form_and_dispatch"),

@@ -188,6 +188,13 @@ class _LocalReductions(_AdaptivePasses):
         """Max over every entry of an internal-layout array."""
         return a.max()
 
+    def ranking_layout(self, x: torch.Tensor):
+        """(rows, n_valid, ids) to rank an internal-layout [n, B] array by
+        vertex (`kernels.topk.topk_columns`): row r < n_valid holds vertex
+        ids[r], or vertex r where ids is None; later rows are padding. Here
+        the internal layout is vertex order."""
+        return x, self.n, None
+
 
 class CooEngine(_LocalReductions):
     """index_add_ over the COO edge list with precomputed edge weights."""
@@ -417,6 +424,8 @@ class BlockEllEngine(_LocalReductions):
         self.block = block
         self.use_kernel = True
         self.fill_rate = fill_rate     # informational build statistic
+        # the vertex of each internal row, for ranking in place
+        self._rank_ids = perm.to(torch.int32)
 
     @classmethod
     def from_block_ell(cls, be: BlockEll, pad_slots_to_pow2: bool = False,
@@ -493,6 +502,11 @@ class BlockEllEngine(_LocalReductions):
 
     def from_internal(self, x: torch.Tensor) -> torch.Tensor:
         return x.index_select(0, self.inv_perm)
+
+    def ranking_layout(self, x: torch.Tensor):
+        """(x, n_orig, perm as int32): internal row r holds vertex perm[r]
+        in BFS order; the rows from n_orig on are the block padding."""
+        return x, self.n_orig, self._rank_ids
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
         _count_apply(self.name)
@@ -603,6 +617,12 @@ class ShardedEngine(_AdaptivePasses):
         """Max over every entry of the vector, all-reduced like colsum."""
         return all_reduce(a.max(), self.reduce_group, dist.ReduceOp.MAX,
                           tag=self.name, dim=self.reduce_dim)
+
+    def ranking_layout(self, x: torch.Tensor):
+        """(whole x in vertex order, n, None): a rank's slice does not hold
+        the whole vector, so `from_internal` gathers it (the all-gather) and
+        every rank ranks the whole."""
+        return self.from_internal(x), self.n, None
 
 
 class Sharded1DEngine(ShardedEngine):

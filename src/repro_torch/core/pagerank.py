@@ -58,8 +58,9 @@ from repro_torch.graph.ops import device_graph
 from repro_torch.graph.structure import Graph
 
 __all__ = ["PageRankResult", "cpaa", "cpaa_adaptive", "cpaa_fixed",
-           "cpaa_adaptive_fixed", "power_refine", "degree_prior", "power",
-           "forward_push", "monte_carlo", "true_pagerank_dense"]
+           "cpaa_adaptive_fixed", "cpaa_adaptive_loop", "power_refine",
+           "degree_prior", "power", "forward_push", "monte_carlo",
+           "true_pagerank_dense"]
 
 
 @dataclass
@@ -189,7 +190,25 @@ def cpaa(dg, c: float = 0.85, tol: float = 1e-6,
 
 def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
                         chunk: int = 4):
-    """Residual-controlled CPAA core.
+    """Residual-controlled CPAA core: `cpaa_adaptive_loop`, then the
+    accumulator in vertex order, column-normalized.
+
+    Returns (pi, rounds_used, column_rounds, residual):
+      pi            [n] / [n, B] column-normalized PageRank.
+      rounds_used   int — rounds actually run (max over columns).
+      column_rounds [] / [B] int32 tensor — rounds until each column
+                    converged.
+      residual      [] / [B] tensor — last chunk's normalized L1 residual.
+    """
+    acc, _, k, col_rounds, resid = cpaa_adaptive_loop(dg, p, c, tol,
+                                                      max_rounds, chunk)
+    return _normalize(as_engine(dg).from_internal(acc)), k, col_rounds, \
+        resid
+
+
+def cpaa_adaptive_loop(dg, p: torch.Tensor, c, tol, max_rounds: int,
+                       chunk: int = 4):
+    """The residual-controlled CPAA loop, in the engine's internal layout.
 
     Runs the recurrence in chunks of `chunk` rounds; after each chunk the
     normalized accumulator is snapshotted and the per-column L1 residual
@@ -213,8 +232,13 @@ def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
     loop. The chunk's snapshot and residual are the engine's
     `chunk_residual` (one kernel on the card, the snapshot in place).
 
-    Returns (pi, rounds_used, column_rounds, residual):
-      pi            [n] / [n, B] column-normalized PageRank.
+    Returns (acc, snap, rounds_used, column_rounds, residual):
+      acc           the accumulator, internal layout, not normalized.
+      snap          acc column-normalized over every rank's rows (the
+                    engine's colsum), internal layout: the last chunk's
+                    snapshot, which always follows the last round, or the
+                    first normalization when no chunk ran. The service's
+                    tick ranks it in place (`_solve_topk_adaptive`).
       rounds_used   int — rounds actually run (max over columns).
       column_rounds [] / [B] int32 tensor — rounds until each column
                     converged.
@@ -259,7 +283,7 @@ def cpaa_adaptive_fixed(dg, p: torch.Tensor, c, tol, max_rounds: int,
         col_rounds = torch.where(active, torch.full_like(col_rounds, k),
                                  col_rounds)
         active = active & (resid > tol)
-    return _normalize(eng.from_internal(acc)), k, col_rounds, resid
+    return acc, snap, k, col_rounds, resid
 
 
 def cpaa_adaptive(dg, c: float = 0.85, tol: float | None = None,

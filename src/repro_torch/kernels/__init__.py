@@ -18,4 +18,7 @@ Kernels:
   adamw         — one leaf's AdamW update in one pass (`adamw_step`) and
                   its sum of squares for the clip's norm (`sum_squares`),
                   on every training step
+  topk          — the ranked top-k down each column of [R, B]
+                  (`topk_columns`, lower vertex id first on ties, through
+                  an optional row map), on every PPR ranking
 """

@@ -12,7 +12,7 @@
     hub/tail `index_add_`, or the block-ELL CUDA kernels, picked by the
     registry); identical queries in a group share one column;
   * with `adaptive=True` (the config default) the tick solves through the
-    residual-controlled `cpaa_adaptive_fixed`: converged columns stop
+    residual-controlled `cpaa_adaptive_loop`: converged columns stop
     feeding the SpMM, and the tick ends when every live column reaches tol,
     never past the Formula 8 round bound;
   * with `async_dispatch=True` at most one batch is in flight: a tick
@@ -25,7 +25,10 @@
   * batch widths are padded to power-of-two buckets (pad columns carry
     uniform mass and are discarded);
   * results come back as ranked top-k lists with ties broken lower index
-    first, as `lax.top_k` breaks them in the reference;
+    first, as `lax.top_k` breaks them in the reference; every ranking (the
+    adaptive and the fixed-round tick, the refresh) is one `topk_columns`
+    call, the adaptive tick's over the loop's snapshot in the engine's own
+    layout;
   * an LRU cache keyed by (graph, epoch, seeds, c, tol) serves repeats; an
     effective edge-update batch bumps the epoch and invalidates, blanket
     or selectively (`invalidation_radius`): entries seeded within the hop
@@ -79,8 +82,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.distributed import broadcast_object, rank, world_size
-from repro_torch.core.pagerank import cpaa_adaptive_fixed, cpaa_fixed, \
+from repro_torch.core.pagerank import cpaa_adaptive_loop, cpaa_fixed, \
     power_refine
+from repro_torch.kernels.topk import topk_columns
 from repro_torch.obs import export as obs_export
 from repro_torch.obs.convergence import (ConvergenceLog, TickTelemetry,
                                          UpdateTelemetry)
@@ -278,9 +282,10 @@ class ServeMetrics:
 def _solve_topk(engine, coeffs: torch.Tensor, p: torch.Tensor, rounds: int,
                 k: int):
     """One micro-batch: [n, B] personalization -> ([B, k] ids, [B, k] mass).
-    The engine owns any vertex reordering, so ids are original ids."""
+    The engine owns any vertex reordering, so ids are original ids; pi is
+    contiguous [n, B] in vertex order and is ranked down its columns."""
     pi, _ = cpaa_fixed(engine, coeffs, p, rounds=rounds)
-    return topk_lower_index_first(pi.T, k)
+    return topk_columns(pi, k)
 
 
 def _refine_topk(engine, x0: torch.Tensor, p: torch.Tensor, c, rounds: int,
@@ -288,17 +293,23 @@ def _refine_topk(engine, x0: torch.Tensor, p: torch.Tensor, c, rounds: int,
     """Warm-started single-column refresh: `rounds` of `power_refine` from a
     cached score vector, then the re-ranked top-k."""
     pi = power_refine(engine, x0, p, c, rounds)
-    idx, scores = topk_lower_index_first(pi[None, :], k)
+    idx, scores = topk_columns(pi[:, None], k)
     return idx[0], scores[0]
 
 
 def _solve_topk_adaptive(engine, p: torch.Tensor, c, tol, max_rounds: int,
                          chunk: int, k: int):
     """Adaptive micro-batch: like _solve_topk with residual-controlled round
-    counts; also returns rounds run, per-column rounds and residuals."""
-    pi, rounds_used, col_rounds, resid = cpaa_adaptive_fixed(
-        engine, p, c, tol, max_rounds=max_rounds, chunk=chunk)
-    idx, scores = topk_lower_index_first(pi.T, k)
+    counts; also returns rounds run, per-column rounds and residuals.
+
+    The loop's last snapshot is already the column-normalized accumulator
+    (`cpaa_adaptive_loop`), in the engine's internal layout: it is ranked
+    there, through the engine's row map (`ranking_layout`), so pi is never
+    built in vertex order."""
+    snap, rounds_used, col_rounds, resid = cpaa_adaptive_loop(
+        engine, p, c, tol, max_rounds=max_rounds, chunk=chunk)[1:]
+    rows, n_valid, ids = engine.ranking_layout(snap)
+    idx, scores = topk_columns(rows, k, n_valid=n_valid, ids=ids)
     return idx, scores, rounds_used, col_rounds, resid
 
 

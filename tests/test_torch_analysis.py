@@ -231,11 +231,13 @@ class TestTickPathSyncs:
     copied host scalars to the card (torch.tensor(c, device=) in the
     adaptive core and power_refine, a Python number assigned through the
     seed indices of the personalization matrix), and each copy
-    synchronized the stream. They are made on the device now: the three
-    functions are hot code, and TL001 finds nothing unmarked in them."""
+    synchronized the stream. They are made on the device now: these
+    functions (and the adaptive loop, which `cpaa_adaptive_fixed` and the
+    tick share) are hot code, and TL001 finds nothing unmarked in them."""
 
     @pytest.mark.parametrize("rel,func", [
         ("core/pagerank.py", "cpaa_adaptive_fixed"),
+        ("core/pagerank.py", "cpaa_adaptive_loop"),
         ("core/pagerank.py", "power_refine"),
         ("serve/pagerank_service.py", "_personalization"),
     ])

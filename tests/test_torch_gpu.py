@@ -1544,3 +1544,158 @@ class TestChebMaskedOnCard:
         ref = cpaa_adaptive(make("cpu"), 0.85, 1e-6, p=p)
         assert r.iterations == ref.iterations
         assert float((r.pi.cpu() - ref.pi).abs().sum(dim=0).max()) <= 1e-5
+
+
+@pytest.mark.gpu
+class TestTopkOnCard:
+    """`topk_columns` on the card: bitwise its plain version on the same
+    tensors (the order is strict, so the result is unique), over random
+    values, integer ties and all-zero columns, with and without a row map
+    and padding rows, row counts that are no multiple of a tile, widths
+    that are no multiple of the vector; the same bits on a second call;
+    what raises; one launch per PPR ranking."""
+
+    ROWS = 5037           # 3 chunks, no multiple of 64 or of 2,112 rows
+
+    @staticmethod
+    def _values(kind, rows, b, seed, dtype=torch.float32):
+        rng = np.random.default_rng(seed)
+        if kind == "random":
+            v = rng.standard_normal((rows, b))
+        elif kind == "ties":
+            v = rng.integers(0, 5, (rows, b))
+        else:
+            v = np.zeros((rows, b))
+        return torch.from_numpy(v).to(dtype)
+
+    @staticmethod
+    def _mapped(vert, pad, seed):
+        """(rows, ids): row r holds vertex perm[r]; `pad` rows of values
+        above every real one follow."""
+        rng = np.random.default_rng(seed)
+        perm = torch.from_numpy(rng.permutation(vert.shape[0]).astype(
+            np.int32))
+        top = float(vert.abs().max()) + 1.0
+        tail = top + torch.rand(pad, vert.shape[1], dtype=vert.dtype)
+        return torch.cat([vert[perm.long()], tail]), perm
+
+    @staticmethod
+    def _bitwise(x, k, n_valid=None, ids=None):
+        from repro_torch.kernels.topk.ops import topk_columns
+        from repro_torch.kernels.topk.ref import topk_columns_ref
+        got = topk_columns(x, k, n_valid=n_valid, ids=ids)
+        want = topk_columns_ref(x, k, n_valid, ids)
+        bits = torch.int32 if x.dtype == torch.float32 else torch.int64
+        assert got[0].dtype == torch.int32 and got[0].is_cuda
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(bits), want[1].view(bits))
+        return got
+
+    @pytest.mark.parametrize("kind", ["random", "ties", "zeros"])
+    @pytest.mark.parametrize("k", [1, 8, 32, 128])
+    @pytest.mark.parametrize("b", [1, 3, 128])
+    @pytest.mark.parametrize("mapped", [False, True])
+    def test_kernel_bitwise_vs_plain(self, cuda, kind, k, b, mapped):
+        vert = self._values(kind, self.ROWS, b, seed=k * 10 + b)
+        if not mapped:
+            self._bitwise(vert.to(cuda), k)
+            return
+        rows, ids = self._mapped(vert, 13, seed=k + b)
+        idx, _ = self._bitwise(rows.to(cuda), k, self.ROWS, ids.to(cuda))
+        assert int(idx.max()) < self.ROWS
+
+    @pytest.mark.parametrize("b,k", [(5, 32), (128, 32), (128, 128),
+                                     (1, 100)])
+    def test_many_chunks_with_a_map(self, cuda, b, k):
+        vert = self._values("random", 300_017, b, seed=b + k)
+        rows, ids = self._mapped(vert, 111, seed=b)
+        self._bitwise(rows.to(cuda), k, 300_017, ids.to(cuda))
+
+    @pytest.mark.parametrize("kind", ["random", "ties"])
+    @pytest.mark.parametrize("b", [3, 128])
+    def test_float64(self, cuda, kind, b):
+        vert = self._values(kind, self.ROWS, b, seed=b,
+                            dtype=torch.float64)
+        self._bitwise(vert.to(cuda), 32)
+        rows, ids = self._mapped(vert, 7, seed=b)
+        self._bitwise(rows.to(cuda), 32, self.ROWS, ids.to(cuda))
+
+    def test_unaligned_rows_take_single_loads(self, cuda):
+        vert = self._values("random", self.ROWS, 128, seed=3)
+        x = torch.empty(vert.numel() + 1, device=cuda)[1:].view(
+            self.ROWS, 128).copy_(vert)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+        self._bitwise(x, 32)
+
+    def test_negative_zero_is_zero(self, cuda):
+        x = torch.zeros(300, 4, device=cuda)
+        x[::3] = -0.0
+        idx, vals = self._bitwise(x, 8)
+        assert idx[0].tolist() == list(range(8))
+        assert not bool(torch.signbit(vals).any())
+
+    def test_two_calls_same_bits(self, cuda):
+        from repro_torch.kernels.topk.ops import topk_columns
+        vert = self._values("ties", 200_003, 128, seed=9)
+        rows, ids = self._mapped(vert, 29, seed=9)
+        rows, ids = rows.to(cuda), ids.to(cuda)
+        a = topk_columns(rows, 32, 200_003, ids)
+        b = topk_columns(rows, 32, 200_003, ids)
+        assert torch.equal(a[0], b[0])
+        assert torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+
+    def test_what_the_card_refuses(self, cuda):
+        from repro_torch.kernels.topk import ops as topk_ops
+        from repro_torch.kernels.topk.ops import topk_columns
+        x = torch.rand(300, 8, device=cuda)
+        topk_ops.reset_launches()
+        with pytest.raises(ValueError, match="contiguous"):
+            topk_columns(torch.rand(8, 300, device=cuda).T, 4)
+        with pytest.raises(ValueError, match="k 129"):
+            topk_columns(x, 129)
+        with pytest.raises(ValueError, match="ids"):
+            topk_columns(x, 4, 300, torch.arange(300, device=cuda))
+        with pytest.raises(TypeError, match="float32 or float64"):
+            topk_columns(x.half(), 4)
+        with pytest.raises(ValueError, match="topk_columns"):
+            topk_columns(x, 4, 300, torch.arange(300, dtype=torch.int32))
+        assert topk_ops.launches() == 0
+
+    @pytest.mark.parametrize("adaptive", [True, False])
+    @pytest.mark.parametrize("engine", ["coo", "fused"])
+    def test_one_launch_per_tick(self, cuda, adaptive, engine):
+        from repro_torch.kernels.topk import ops as topk_ops
+        from repro_torch.serve.graph_registry import GraphRegistry
+        from repro_torch.serve.pagerank_service import (PageRankService,
+                                                        PPRQuery)
+        reg = GraphRegistry(engine=engine, device=cuda)
+        reg.register("g", generators.tri_mesh(40, 50))
+        svc = PageRankService(reg, max_batch=8, max_top_k=8,
+                              adaptive=adaptive)
+        topk_ops.reset_launches()
+        for q in range(20):
+            svc.submit(PPRQuery(qid=q, graph="g", seeds=(7 * q + 1,),
+                                top_k=8))
+        res = svc.run_until_drained()
+        st = svc.stats
+        assert len(res) == 20 and st["solves"] == st["ticks"] >= 3
+        assert topk_ops.launches() == st["solves"]
+        for r in res.values():
+            assert r.indices.shape == (8,) and np.all(np.diff(r.scores) <= 0)
+
+    def test_one_launch_per_refreshed_entry(self, cuda):
+        from repro_torch.kernels.topk import ops as topk_ops
+        from repro_torch.serve.graph_registry import GraphRegistry
+        from repro_torch.serve.pagerank_service import PageRankService
+        reg = GraphRegistry(engine="fused", device=cuda)
+        reg.register("g", generators.tri_mesh(13, 17))
+        svc = PageRankService(reg, max_batch=8, max_top_k=8,
+                              invalidation_radius=1, refresh_batch=4,
+                              refresh_rounds=30)
+        for s in (2, 3, 14):
+            svc.query("g", (s,), top_k=8)
+        svc.update_graph("g", insert=[(0, 120)])
+        queued = len(svc._refresh)
+        topk_ops.reset_launches()
+        done = svc.refresh_tick()
+        assert done == queued >= 1 and topk_ops.launches() == done
