@@ -22,9 +22,10 @@ package. Phases, each of which must pass:
      cheb_residual (its residual and the snapshot it writes, each 1e-6
      of a float64 computation, the snapshot also of plain) with masks in both
      states, up to 1,040,000 x 128 and on offset views; topk_columns
-     bitwise its plain version (ties, zero columns, row maps with padding
-     rows, rows off the tile, widths 1 to 128, k 1 to 128, float64, an
-     offset view); and embedding_bag's backward kernel at DLRM-RM2
+     bitwise its plain version on each of its paths, launches counted by
+     path (narrow below 32 columns, TMA, cp.async: ties, zero columns, row
+     maps with padding rows, rows off the tile, widths 1 to 129, k 1 to
+     128, float64, offset views); and embedding_bag's backward kernel at DLRM-RM2
      train_batch's shapes (recsys_batch ids at B = 65,536, the dense
      [33.7M, 64] gradient) against a float64 and the plain f32
      index_add_ (1e-4 of sum |terms| per element), untouched rows zero, a
@@ -52,7 +53,8 @@ package. Phases, each of which must pass:
      cheb_step_masked all active and half frozen; cheb_residual); one COO
      engine apply beside one fused apply at BT = 128 (the min_fill
      question); topk_columns beside its bytes bound, its plain version
-     and torch.topk(dim=0), also without a map and on one column; a
+     and torch.topk(dim=0) at width 128 with the map and without, and at
+     widths 16, 4 and 1 (the refresh's column), beside the launch floor; a
      profile of one tick by kernel and by operator, and one split by
      source line (the ranking tail it replaced, line by line);
   5. slice C: DLRM-RM2 at `full_config()` (8.64 GB table on the card):
@@ -60,8 +62,10 @@ package. Phases, each of which must pass:
      32-bit offsets would fail; rtol/atol 1e-5 for weighted bags of 4 and
      26 at D = 64 and 13); serve_step over 20 serve_p99 batches, 3
      serve_bulk batches and one power-law serve_bulk batch, and
-     retrieval_step at retrieval_cand; probabilities checked against a
-     float64 numpy forward and the top-100 against a float64 argsort;
+     retrieval_step at retrieval_cand (its ranking exactly one
+     topk_columns launch, timed beside the eager ranking it replaced);
+     probabilities checked against a float64 numpy forward and the
+     top-100 against a float64 argsort;
      CUDA-event times, the kernel at the serve_bulk shape beside its bound,
      its plain version and F.embedding_bag, a profile of one serve_bulk
      step and the peak device memory;
@@ -304,8 +308,10 @@ before and read just after; a kernel of the path that was not launched
 fails the run. Every training path (I1, I2, I4, J, G's steps, M-b, M-c)
 must launch adamw_step and sum_squares once per leaf and step each, with
 no copy of a non-contiguous gradient. Every PPR ranking (a tick, adaptive
-or fixed, and each refreshed entry) is one topk_columns launch; slices
-H, J and K must launch none. The line before the last is the
+or fixed, and each refreshed entry) is one topk_columns launch, and so
+is every DLRM retrieval (slice C's, and each step of slice K's
+retrieval_cand cell); slices H and J and K's other cells must launch
+none. The line before the last is the
 kernel table as JSON; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that line.
 """
@@ -677,13 +683,16 @@ def compare_adaptive_kernels() -> dict:
 
 
 def compare_topk() -> float:
-    """topk_columns bitwise its plain version on the card: random values,
-    integer ties (0..4) and all-zero columns; with a random row map over
-    rows followed by padding rows of large values, and without; rows that
-    are no multiple of a tile, widths 1, 3, 5 (no multiple of the vector)
-    and 128, k 1 to 128, float64, a view one element off the 16-byte
+    """topk_columns bitwise its plain version on the card, on each of its
+    paths (narrow below 32 columns, TMA for 16-byte rows, cp.async for
+    ragged widths and offset views; launches counted by path, each path
+    launched): random values, integer ties (0..4) and all-zero columns;
+    with a random row map over rows followed by padding rows of large
+    values, and without; rows that are no multiple of a stage, widths 1
+    to 129, k 1 to 128, float64, views one element off the 16-byte
     boundary. Returns max |kernel - plain| (0: bitwise)."""
     import torch
+    from repro_torch.kernels.topk import ops as topk_ops
     from repro_torch.kernels.topk.ops import topk_columns
     from repro_torch.kernels.topk.ref import topk_columns_ref
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -696,7 +705,18 @@ def compare_topk() -> float:
              (300_017, 1, 32, "ties", False, f32, 0),
              (300_017, 128, 1, "random", True, f32, 0),
              (5037, 128, 32, "random", True, f64, 0),
-             (5037, 128, 32, "random", False, f32, 1)]
+             (5037, 128, 32, "random", False, f32, 1),
+             (1_000_003, 1, 100, "random", False, f32, 0),
+             (1_000_003, 1, 100, "random", False, f32, 1),
+             (300_017, 4, 32, "zeros", True, f32, 0),
+             (300_017, 16, 33, "ties", False, f32, 0),
+             (300_017, 16, 32, "random", True, f64, 1),
+             (300_017, 31, 128, "random", True, f32, 0),
+             (300_017, 33, 32, "random", True, f32, 0),
+             (300_017, 36, 100, "ties", False, f32, 0),
+             (300_017, 129, 32, "random", False, f32, 0),
+             (300_017, 64, 31, "random", True, f64, 0)]
+    topk_ops.reset_launches()
     for rows, b, k, kind, mapped, dtype, off in cases:
         x = torch.empty(rows * b + off, device="cuda", dtype=dtype)[off:]
         x = x.view(rows, b)
@@ -721,9 +741,13 @@ def compare_topk() -> float:
               and torch.equal(got[1].view(bits), want[1].view(bits)),
               f"topk_columns [{rows}, {b}] k={k} {kind} map={mapped} "
               f"{dtype} offset {off}: kernel vs plain not bitwise")
-    log(f"topk_columns: {len(cases)} cases up to 300,017 rows, widths 1 "
-        f"to 128, k 1 to 128, ties, zeros, row maps with padding, float64 "
-        f"and an offset view: bitwise its plain version")
+    by_path = topk_ops.launches_by_path()
+    log(f"topk_columns: {len(cases)} cases up to 1,000,003 rows, widths 1 "
+        f"to 129, k 1 to 128, ties, zeros, row maps with padding, float64 "
+        f"and offset views: bitwise its plain version; launches by path "
+        f"{by_path}")
+    check(all(by_path.values()), f"topk_columns: a path was not launched "
+          f"by the comparison: {by_path}")
     return 0.0
 
 
@@ -1256,23 +1280,55 @@ def slice_b_topk(eng, p, plan, k: int) -> dict:
     bytes_ms = (4 * n_valid * bt + 4 * n_valid + 8 * bt * k) \
         / HBM_BYTES_PER_S * 1e3
     ops_ms = n_valid * bt / FP32_FLOP_PER_S * 1e3
-    vert = snap[:n_valid].contiguous()      # a fixed tick's pi: no map
-    fixed_ms = time_ms(lambda: topk_columns(vert, k), 20)
-    one = vert[:, :1].contiguous()          # a refresh's single column
-    one_ms = time_ms(lambda: topk_columns(one, k), 20)
-    one_bytes_ms = (4 * n_valid + 8 * k) / HBM_BYTES_PER_S * 1e3
-    del vert, one, snap, rows, head
-    log(f"topk_columns [{n_valid} x {bt}] k={k} with the row map: kernel "
-        f"{k1:.3f} / {k2:.3f} ms, plain {plain_ms:.3f} ms, torch.topk(dim=0) "
-        f"{lib_ms:.3f} ms; bound {max(bytes_ms, ops_ms):.3f} ms (bytes "
-        f"{bytes_ms:.3f} ms, comparisons {ops_ms:.4f} ms), kernel at "
-        f"{bytes_ms / ((k1 + k2) / 2):.3f} of it; vertex order without a "
-        f"map {fixed_ms:.3f} ms; one column {one_ms:.3f} ms (bound "
-        f"{one_bytes_ms:.4f} ms)")
+    log(f"[{CARD}] topk_columns [{n_valid} x {bt}] k={k} with the row map "
+        f"(path {topk_plan(rows, n_valid, k)}): kernel {k1:.4f} / {k2:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, torch.topk(dim=0) {lib_ms:.3f} ms; "
+        f"bound {max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f} ms, "
+        f"comparisons {ops_ms:.4f} ms), kernel at "
+        f"{bytes_ms / ((k1 + k2) / 2):.3f} of it")
+    # a fixed tick's pi (vertex order, no map), the small buckets and a
+    # refresh's single column: the first columns of it
+    vert = snap[:n_valid].contiguous()
+    widths = {bt: vert}
+    for b in (16, 4, 1):
+        widths[b] = vert[:, :b].contiguous()
+    del snap, rows, head
+    by_width = {}
+    for b, xb in widths.items():
+        kb = time_ms(lambda: topk_columns(xb, k), 20)
+        pb = time_ms(lambda: topk_columns_ref(xb, k), 3)
+        lb = time_ms(lambda: torch.topk(xb, k, dim=0), 5)
+        bb = (4 * n_valid * b + 8 * b * k) / HBM_BYTES_PER_S * 1e3
+        by_width[b] = {"ms": kb, "plain_ms": pb, "library_ms": lb,
+                       "bytes_ms": bb}
+        log(f"[{CARD}] topk_columns [{n_valid} x {b}] k={k} vertex order "
+            f"(path {topk_plan(xb, n_valid, k)}): kernel {kb:.4f} ms, bound "
+            f"{bb:.4f} ms ({bb / kb:.3f} of it), plain {pb:.3f} ms, "
+            f"torch.topk(dim=0) {lb:.3f} ms")
+    # the launch floor, warm: the wrapper ranking 1,024 rows
+    tiny = widths[1][:1024].contiguous()
+    floor_ms = min(time_ms(lambda: topk_columns(tiny, k), 100, warmup=20)
+                   for _ in range(3))
+    log(f"[{CARD}] topk_columns launch floor (the wrapper on [1024 x 1], "
+        f"k={k}, warm, the least of 3 means of 100 calls): "
+        f"{floor_ms:.4f} ms")
+    del vert, widths, tiny
     return {"ms": (k1 + k2) / 2, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "fixed_ms": fixed_ms,
-            "column_ms": one_ms, "column_bytes_ms": one_bytes_ms,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "fixed_ms": by_width[bt]["ms"],
+            "column_ms": by_width[1]["ms"],
+            "column_bytes_ms": by_width[1]["bytes_ms"],
+            "floor_ms": floor_ms, "widths": by_width,
             "score_gap": score_gap}
+
+
+def topk_plan(x, n_valid: int, k: int) -> str:
+    """The path and chunk plan topk_columns takes for x."""
+    from repro_torch.kernels.topk import ops as topk_ops
+    pl = topk_ops.plan(n_valid, x.shape[1], k, x.element_size(),
+                       x.data_ptr() % 16 == 0)
+    return (f"{pl.path}, {pl.chunks} blocks a column group, stages of "
+            f"{pl.stage_rows} rows, {pl.splits} split(s)")
 
 
 # ---------------------------------------------------------------- slice C --
@@ -1447,6 +1503,8 @@ def phase_slice_c() -> dict:
     steps = len(p99) + len(bulk) + 1
     check(counts["embedding_bag"] == steps, f"slice C: embedding_bag "
           f"launched {counts['embedding_bag']} times for {steps} serve steps")
+    check(counts["topk_columns"] == 1, f"slice C: the retrieval's ranking "
+          f"is not one topk_columns launch: {counts}")
     outs = p99_out + bulk_out + [plaw_out]
     for b, out in zip(p99 + bulk + [plaw], outs):
         check(out.shape == (b["dense"].shape[0],) and
@@ -1473,6 +1531,22 @@ def phase_slice_c() -> dict:
         lat.append((time.perf_counter() - t1) * 1e3)
     log(f"slice C: serve_p99 one request at a time (host clock, synced): "
         f"median {float(np.median(lat)):.3f} ms, max {max(lat):.3f} ms")
+    # the retrieval's ranking alone: the kernel on the query's scores
+    # beside the eager ranking it replaced
+    from repro_torch.kernels.topk import topk_columns
+    from repro_torch.models.layers import mlp_apply
+    from repro_torch.topk import topk_lower_index_first
+    with torch.inference_mode():
+        s = query["candidates"] @ mlp_apply(params["bot"], query["dense"],
+                                            final_act=True)[0]
+        rank_ms = time_ms(lambda: topk_columns(s[:, None], 100), 20)
+        eager_ms = time_ms(lambda: topk_lower_index_first(s[None, :], 100),
+                           20)
+        check(torch.equal(topk_columns(s[:, None], 100)[0][0], r_idx),
+              "slice C: the retrieval's ranking alone differs from the step's")
+    log(f"[{CARD}] slice C: retrieval_cand {retr_ms:.3f} ms a query; its "
+        f"ranking ({n_cand} scores, top 100) topk_columns {rank_ms:.4f} ms, "
+        f"the eager topk_lower_index_first it replaced {eager_ms:.4f} ms")
 
     # independent float64 oracle
     n = 64
@@ -1505,7 +1579,9 @@ def phase_slice_c() -> dict:
     del params, table, probe, high, p99, bulk, plaw, query, outs
     del p99_out, bulk_out, plaw_out
     torch.cuda.empty_cache()
-    return {"launches": counts, "err": max(errs.values()), "eb": uni}
+    return {"launches": counts, "err": max(errs.values()), "eb": uni,
+            "retrieval": {"ms": retr_ms, "rank_ms": rank_ms,
+                          "eager_ms": eager_ms}}
 
 
 # ---------------------------------------------------------------- slice D --
@@ -4810,14 +4886,23 @@ def phase_slice_k_runs() -> dict:
     K_TERM_SLACK x the measured step. Returns the records and the
     kernels' launches over the phase."""
     import torch
+    from repro_torch.kernels.topk import ops as topk_ops
     from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     reset_counts()
     recs = []
     for arch, shape in K_CELLS:
+        ranked = topk_ops.launches()
         rec = dryrun.run_cell(arch, shape, False, "card", verbose=False)
+        ranked = topk_ops.launches() - ranked
         torch.cuda.empty_cache()
         check(rec["status"] == "ok", f"K-b {arch} {shape}: {rec}")
+        # a retrieval step (the warm-up, the counted and the timed ones)
+        # is one topk_columns launch; no other cell ranks
+        steps = 2 + len(rec["step_ms"]["all"])
+        check(ranked == (steps if shape == "retrieval_cand" else 0),
+              f"K-b {arch} {shape}: {ranked} topk_columns launches in "
+              f"{steps} steps")
         rf, ms = rec["roofline"], rec["step_ms"]
         step_s = ms["median"] * 1e-3
         bound = max(rf["compute_s"], rf["memory_s"], rf["collective_s"])
@@ -5972,6 +6057,7 @@ def main() -> int:
     tk = b["topk"]
     topk_b, topk_by = bound(tk["bytes_ms"], tk["ops_ms"])
     topk_paths = {path: c["topk_columns"] for path, c in ppr_paths.items()}
+    topk_paths["slice_c"] = c["launches"]["topk_columns"]   # retrieval
     topk_row = {
         "name": "topk_columns", "route": "cuda",
         "source": "src/repro_torch/kernels/topk/csrc/topk_columns.cu",
@@ -5982,7 +6068,11 @@ def main() -> int:
         "plain_ms": tk["plain_ms"], "bound_ms": topk_b, "bound_by": topk_by,
         "library_ms": tk["library_ms"], "vertex_order_ms": tk["fixed_ms"],
         "one_column_ms": tk["column_ms"],
-        "one_column_bound_ms": tk["column_bytes_ms"]}
+        "one_column_bound_ms": tk["column_bytes_ms"],
+        "launch_floor_ms": tk["floor_ms"],
+        "widths": {str(w): v for w, v in tk["widths"].items()},
+        "retrieval_rank_ms": c["retrieval"]["rank_ms"],
+        "retrieval_eager_ms": c["retrieval"]["eager_ms"]}
     eb_b, eb_by = bound(c["eb"]["bytes_ms"], c["eb"]["ops_ms"])
     ebb_b, ebb_by = bound(eb_bwd["bytes_ms"], eb_bwd["ops_ms"])
     table = {"kernels": [

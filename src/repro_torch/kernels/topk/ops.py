@@ -2,46 +2,74 @@
 
 `topk_columns` ranks every column of a row-major [R, B] array in place:
 no transpose, no layout copy, no host read. It replaces the eager
-`topk_lower_index_first` passes over pi.T on every path that ranks PPR
-mass (the adaptive and the fixed-round tick, the refresh): the
-reference's `jax.lax.top_k` at src/repro/serve/pagerank_service.py:311,
-:323 and :339, which has no Pallas kernel. A row map `ids` names the
-vertex each row holds, so the adaptive tick ranks the loop's snapshot in
-a block-ELL engine's BFS order (`ranking_layout` on the engines).
+`topk_lower_index_first` passes on every path that ranks PPR mass (the
+adaptive and the fixed-round tick, the refresh) and DLRM retrieval's
+one-column ranking: the reference's `jax.lax.top_k` at
+src/repro/serve/pagerank_service.py:311, :323 and :339 and
+src/repro/models/recsys/dlrm.py:129, which has no Pallas kernel. A row map
+`ids` names the vertex each row holds, so the adaptive tick ranks the
+loop's snapshot in a block-ELL engine's BFS order (`ranking_layout` on the
+engines).
 
 A CPU tensor goes to the plain version (`ref.py`); a CUDA tensor launches
 the kernel or raises -- there is no fallback on the card, and a k above
 128 raises there. The kernel is bound by memory: x read once, the row map
-once, the [B, k] outputs written once. It counts its launches and reports
+once, the [B, k] outputs written once. The kernel's plan (`plan`, made in
+the CUDA source from the shape alone) picks its path: by width, the
+narrow path (B < 32) or a wide one, by TMA where x's rows allow it
+(16-byte aligned, rows of whole 16-byte pieces) and by cp.async
+otherwise; the wrapper reads it for the scratch it allocates and the
+path it counts. It counts its launches, in all and by path, and reports
 its bytes to `kernels.cost` while a collector is open.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build, cost
 from repro_torch.kernels.topk.ref import topk_columns_ref
 
-__all__ = ["topk_columns", "launches", "reset_launches", "MAX_K"]
+__all__ = ["topk_columns", "launches", "launches_by_path", "reset_launches",
+           "plan", "Plan", "PATHS", "MAX_K"]
 
 MAX_K = 128             # the kernel's kMaxK: list entries a warp holds
-_COUNTS = {"topk": 0}
+PATHS = ("narrow", "tma", "cp_async")   # the kernel's modes 0, 1, 2
+_COUNTS = dict.fromkeys(("topk",) + PATHS, 0)
 _FNS: dict = {}
 _F64 = torch.float64    # torchlint: disable=TL003 -- f64 entry for f64 solves
 _DTYPES = {torch.float32: "f32", _F64: "f64"}
 
 
+class Plan(NamedTuple):
+    """How the kernel cuts one call: the path, `chunks` blocks for each
+    group of 32 columns (one candidate list each per column; they take
+    tiles of `stage_rows` rows as they go), `splits` warps sharing a
+    column quad of a stage, and the bytes of device scratch it needs."""
+    path: str
+    chunks: int
+    stage_rows: int
+    splits: int
+    scratch_bytes: int
+
+
 def launches() -> int:
-    """`topk_columns` launches (its two kernels count once) since the last
+    """`topk_columns` launches (its kernels count once) since the last
     `reset_launches()`."""
     return _COUNTS["topk"]
 
 
+def launches_by_path() -> dict:
+    """{path: launches} since the last `reset_launches()`."""
+    return {p: _COUNTS[p] for p in PATHS}
+
+
 def reset_launches() -> None:
-    """Set the counter to 0."""
-    _COUNTS["topk"] = 0
+    """Set the counters to 0."""
+    for key in _COUNTS:
+        _COUNTS[key] = 0
 
 
 def _c_function(name: str, argtypes: list, restype=ctypes.c_int):
@@ -52,6 +80,22 @@ def _c_function(name: str, argtypes: list, restype=ctypes.c_int):
         fn.restype = restype
         _FNS[name] = fn
     return _FNS[name]
+
+
+def plan(n_valid: int, cols: int, k: int, itemsize: int,
+         aligned: bool) -> Plan:
+    """The kernel's plan for the top k of n_valid rows of [*, cols]
+    elements of `itemsize` bytes whose base is 16-byte aligned or not:
+    `topk_columns_plan` of the CUDA source (which builds the library).
+    Raises ValueError for a shape the kernel does not take."""
+    fn = _c_function("topk_columns_plan",
+                     [ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    out = (ctypes.c_int64 * 5)()
+    if fn(n_valid, cols, k, itemsize, int(aligned), out) != 0:
+        raise ValueError(f"topk_columns: no plan for {n_valid} rows of "
+                         f"{cols} columns, k {k}, {itemsize}-byte elements")
+    return Plan(PATHS[out[0]], *out[1:])
 
 
 def _check(x, k: int, n_valid: int, ids) -> None:
@@ -84,37 +128,41 @@ def _check(x, k: int, n_valid: int, ids) -> None:
 def _launch(x, k: int, n_valid: int, ids):
     _check(x, k, n_valid, ids)
     cols = x.shape[1]
-    kind = _DTYPES[x.dtype]
-    chunks = _c_function("topk_columns_chunks", [ctypes.c_int64],
-                         ctypes.c_int64)(n_valid)
-    fn = _c_function(f"topk_columns_{kind}",
+    size = x.element_size()
+    pl = plan(n_valid, cols, k, size, x.data_ptr() % 16 == 0)
+    fn = _c_function(f"topk_columns_{_DTYPES[x.dtype]}",
                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                      ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 6)
-    # the column bounds the chunks share (zeroed by the kernel's launch)
-    bound = torch.empty(cols, dtype=torch.int64, device=x.device)
-    cand_v = torch.empty((chunks, cols, k), dtype=x.dtype, device=x.device)
-    cand_i = torch.empty((chunks, cols, k), dtype=torch.int32,
-                         device=x.device)
+                      ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_int64] + [ctypes.c_void_p] * 3)
+    # the column bounds, tile counters and the blocks' candidates, laid
+    # out by the kernel
+    scratch = torch.empty(pl.scratch_bytes, dtype=torch.uint8,
+                          device=x.device)
     out_v = torch.empty((cols, k), dtype=x.dtype, device=x.device)
     out_i = torch.empty((cols, k), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), 0 if ids is None else ids.data_ptr(),
-                 n_valid, cols, k, bound.data_ptr(), cand_v.data_ptr(),
-                 cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-                 stream)
+    args = (x.data_ptr(), 0 if ids is None else ids.data_ptr(), n_valid,
+            cols, k, scratch.data_ptr(), pl.scratch_bytes,
+            out_v.data_ptr(), out_i.data_ptr())
+    # the launch goes to x's device (entering a device context costs more
+    # host time than the kernels of a small call)
+    if x.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"topk_columns: kernel launch failed with CUDA "
-                           f"error {err}")
+                           f"error {err} ({pl})")
     _COUNTS["topk"] += 1
+    _COUNTS[pl.path] += 1
     if cost.active():
         # x's ranked rows and the row map read once, the outputs written
         # once; one comparison an element
         cost.report("topk_columns", lambda: (
             n_valid * cols,
-            n_valid * cols * x.element_size()
+            n_valid * cols * size
             + (0 if ids is None else 4 * n_valid)
-            + cols * k * (x.element_size() + 4)))
+            + cols * k * (size + 4)))
     return out_i, out_v
 
 

@@ -38,6 +38,7 @@ from repro_torch.distributed import parallel
 from repro_torch.distributed.sharding import params_sharded, split
 from repro_torch.kernels.embedding_bag.ops import embedding_bag, \
     embedding_bag_window
+from repro_torch.kernels.topk import topk_columns
 from repro_torch.models.layers import mlp_apply, mlp_init
 from repro_torch.topk import topk_lower_index_first
 
@@ -172,13 +173,18 @@ def retrieval_step(params: dict, batch: dict, cfg: DLRMConfig,
     """batch: dense [1, 13]; candidates [Nc, D]. Scores the query embedding
     against every candidate (one product over the bank) and returns
     (scores [top_k] f32, indices [top_k] int32) as `lax.top_k` does, ties
-    lower index first."""
+    lower index first.
+
+    Unsharded, the scores are ranked as one column by `topk_columns`: one
+    kernel launch a query on the card (top_k <= 128 there), its plain
+    version on the CPU. Either returns +0.0 for a score of -0.0, where
+    `lax.top_k` returns -0.0 (equal under ==)."""
     with torch.inference_mode():
         q = mlp_apply(params["bot"], batch["dense"], final_act=True)  # [1, D]
         scores = batch["candidates"] @ q[0]                           # [Nc]
         if params_sharded():
             return _sharded_top_k(scores, batch.get("n_candidates"), top_k)
-        idx, vals = topk_lower_index_first(scores[None, :], top_k)
+        idx, vals = topk_columns(scores[:, None], top_k)
         return vals[0], idx[0]
 
 

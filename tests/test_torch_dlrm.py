@@ -144,6 +144,42 @@ class TestRetrievalParity:
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
 
 
+    @pytest.mark.parametrize("k", [1, 10, 100])
+    def test_top_k_with_ties_through_topk_columns(self, k, monkeypatch):
+        """retrieval_step ranks its scores as one [Nc, 1] column of
+        `topk_columns` (the plain version here), and that gives
+        `lax.top_k`'s indices on a bank of repeated candidates, so ties
+        straddle the k-th; its values are its own scores at those indices
+        exactly (== compares -0.0 and +0.0 equal) and the reference's
+        within rtol 1e-6 (the two products sum in other orders)."""
+        cfg = CONFIGS["smoke"]
+        ref_params, params = _params(cfg, seed=13)
+        rng = np.random.default_rng(14 + k)
+        cand = np.tile(rng.standard_normal((61, cfg.embed_dim)).astype(
+            np.float32), (5, 1))                     # each row 5 times
+        batch = {"dense": rng.standard_normal((1, cfg.n_dense)).astype(
+                     np.float32),
+                 "candidates": cand}
+        calls = []
+        real = dlrm.topk_columns
+
+        def spy(x, top_k, *a):
+            calls.append((tuple(x.shape), top_k, x.clone()))
+            return real(x, top_k, *a)
+        monkeypatch.setattr(dlrm, "topk_columns", spy)
+        want_s, want_i = j_dlrm.retrieval_step(ref_params, batch,
+                                               _ref_config(cfg), top_k=k)
+        got_s, got_i = dlrm.retrieval_step(params, _torch(batch), cfg,
+                                           top_k=k)
+        assert [c[:2] for c in calls] == [((cand.shape[0], 1), k)]
+        assert got_i.dtype == torch.int32 and got_i.shape == (k,)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        scores = calls[0][2][:, 0].numpy()
+        np.testing.assert_array_equal(got_s.numpy(), scores[got_i.numpy()])
+        np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                                   rtol=1e-6, atol=0)
+
+
 class TestConfigCounterparts:
     @pytest.mark.parametrize("name", ["full", "smoke", "bag4", "full_width"])
     def test_config_properties(self, name):

@@ -1644,6 +1644,169 @@ class TestTopkOnCard:
         assert torch.equal(a[0], b[0])
         assert torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
 
+    @pytest.mark.parametrize("b", list(range(1, 34)) + [64, 127, 128, 129,
+                                                        256])
+    def test_every_width(self, cuda, b):
+        """The narrow path (b < 32), TMA (rows of whole 16-byte pieces) and
+        cp.async (the rest); 20,011 rows, no multiple of a stage; odd
+        widths through a row map with padding rows."""
+        vert = self._values("random", 20_011, b, seed=b)
+        if b % 2:
+            rows, ids = self._mapped(vert, 5, seed=b)
+            self._bitwise(rows.to(cuda), 32, 20_011, ids.to(cuda))
+        else:
+            self._bitwise(vert.to(cuda), 32)
+
+    @pytest.mark.parametrize("k", [1, 31, 32, 33, 100, 128])
+    @pytest.mark.parametrize("b", [1, 4, 16, 128])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    def test_k_and_dtype(self, cuda, k, b, dtype):
+        vert = self._values("ties" if k % 2 else "random", 9_001, b,
+                            seed=k + b, dtype=dtype)
+        rows, ids = self._mapped(vert, 3, seed=k)
+        self._bitwise(rows.to(cuda), k, 9_001, ids.to(cuda))
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("b", [1, 2, 3, 4, 16, 32, 64, 128])
+    def test_offset_views(self, cuda, b, dtype):
+        """A view one element past a 16-byte boundary: cp.async copies
+        (single elements at the ragged ends) on the narrow and wide
+        paths, never TMA."""
+        from repro_torch.kernels.topk import ops as topk_ops
+        vert = self._values("random", 7_001, b, seed=b, dtype=dtype)
+        x = torch.empty(vert.numel() + 1, device=cuda, dtype=dtype)[1:]
+        x = x.view(7_001, b).copy_(vert)
+        assert x.data_ptr() % 16 != 0
+        topk_ops.reset_launches()
+        self._bitwise(x, 33)
+        path = "narrow" if b < 32 else "cp_async"
+        assert topk_ops.launches_by_path() == {
+            p: int(p == path) for p in topk_ops.PATHS}
+
+    @pytest.mark.parametrize("kind", ["zeros", "ties"])
+    @pytest.mark.parametrize("b", [1, 2, 8, 16, 33, 64])
+    def test_zeros_and_ties(self, cuda, kind, b):
+        vert = self._values(kind, 30_001, b, seed=b)
+        self._bitwise(vert.to(cuda), 100)
+        rows, ids = self._mapped(vert, 11, seed=b)
+        self._bitwise(rows.to(cuda), 100, 30_001, ids.to(cuda))
+
+    @pytest.mark.parametrize("b", [1, 16, 128])
+    def test_n_valid_below_rows_without_a_map(self, cuda, b):
+        """Rows past n_valid (values above every ranked one) are never
+        read into a ranking."""
+        x = self._values("random", 10_000, b, seed=b)
+        x[9_500:] = 1e9
+        idx, _ = self._bitwise(x.to(cuda), 64, 9_500)
+        assert int(idx.max()) < 9_500
+
+    @pytest.mark.parametrize("b", [1, 4, 16])
+    def test_two_calls_same_bits_narrow(self, cuda, b):
+        from repro_torch.kernels.topk.ops import topk_columns
+        vert = self._values("ties", 400_003, b, seed=b)
+        rows, ids = self._mapped(vert, 17, seed=b)
+        rows, ids = rows.to(cuda), ids.to(cuda)
+        a = topk_columns(rows, 32, 400_003, ids)
+        c = topk_columns(rows, 32, 400_003, ids)
+        assert torch.equal(a[0], c[0])
+        assert torch.equal(a[1].view(torch.int32), c[1].view(torch.int32))
+
+    def test_launches_by_path(self, cuda):
+        from repro_torch.kernels.topk import ops as topk_ops
+        topk_ops.reset_launches()
+        for b in (1, 16, 33, 128, 128):
+            self._bitwise(self._values("random", 3_000, b, seed=b).to(cuda),
+                          8)
+        assert topk_ops.launches() == 5
+        assert topk_ops.launches_by_path() == {"narrow": 2, "tma": 2,
+                                               "cp_async": 1}
+
+    def test_one_retrieval_is_one_launch(self, cuda):
+        """DLRM retrieval ranks its scores as one column: one topk_columns
+        launch (narrow), its plain version's bits on the same scores."""
+        from repro_torch.configs import dlrm_rm2
+        from repro_torch.kernels.topk import ops as topk_ops
+        from repro_torch.kernels.topk.ref import topk_columns_ref
+        from repro_torch.models.recsys import dlrm
+        cfg = dlrm_rm2.smoke_config()
+        params = dlrm.init_params(cfg, seed=0)
+        dense = dlrm_rm2.make_batch(cfg, 1, seed=1,
+                                    with_labels=False)["dense"]
+        cand = torch.randn(200_000, cfg.embed_dim, device=cuda)
+        topk_ops.reset_launches()
+        scores, idx = dlrm.retrieval_step(
+            params, {"dense": dense, "candidates": cand}, cfg, top_k=100)
+        torch.cuda.synchronize()
+        assert topk_ops.launches() == 1
+        assert topk_ops.launches_by_path()["narrow"] == 1
+        with torch.inference_mode():
+            q = dlrm.mlp_apply(params["bot"], dense, final_act=True)
+            want_i, want_v = topk_columns_ref((cand @ q[0])[:, None], 100)
+        assert torch.equal(idx, want_i[0])
+        assert torch.equal(scores.view(torch.int32),
+                           want_v[0].view(torch.int32))
+
+    @pytest.mark.parametrize("cols,itemsize,aligned,path", [
+        (1, 4, True, "narrow"), (16, 4, False, "narrow"),
+        (31, 8, True, "narrow"), (32, 4, True, "tma"),
+        (128, 4, True, "tma"), (34, 8, True, "tma"), (36, 4, True, "tma"),
+        (128, 4, False, "cp_async"), (33, 4, True, "cp_async"),
+        (127, 8, True, "cp_async"), (129, 4, True, "cp_async"),
+        (35, 8, False, "cp_async")])
+    def test_plan_path_by_width_type_and_alignment(self, cuda, cols,
+                                                   itemsize, aligned, path):
+        from repro_torch.kernels.topk import ops as topk_ops
+        assert topk_ops.plan(70_001, cols, 32, itemsize,
+                             aligned).path == path
+
+    @pytest.mark.parametrize("itemsize", [4, 8])
+    def test_plan_covers_the_rows(self, cuda, itemsize):
+        """A function of the shape alone: every block has a tile at its
+        start, every warp of a narrow block ranks, wide calls are one wave
+        of 2 blocks a SM, and the scratch holds the candidates."""
+        from repro_torch.kernels.topk import ops as topk_ops
+        for n in (1, 127, 128, 129, 2048, 5037, 70_001, 1_040_000,
+                  2 ** 31 - 65537):
+            for cols in (1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32, 33, 128, 256):
+                for k in (1, 32, 128):
+                    if k > n:
+                        continue
+                    pl = topk_ops.plan(n, cols, k, itemsize, True)
+                    assert pl == topk_ops.plan(n, cols, k, itemsize, True)
+                    assert 1 <= pl.chunks <= -(-n // pl.stage_rows)
+                    assert pl.chunks <= 256 and pl.splits in (1, 2, 4, 8)
+                    assert pl.stage_rows % (128 * pl.splits) == 0
+                    assert pl.scratch_bytes >= (8 + pl.chunks * k
+                                                * (itemsize + 4)) * cols
+                    if cols < 32:
+                        quads = 8 // pl.splits
+                        assert 4 * quads >= cols > 4 * (quads // 2)
+                        assert pl.chunks <= 256
+                    else:
+                        groups = -(-cols // 32)
+                        assert (pl.stage_rows, pl.splits) == (128, 1)
+                        assert pl.chunks <= -(-264 // groups)
+        with pytest.raises(ValueError, match="no plan"):
+            topk_ops.plan(100, 4, 129, itemsize, True)
+        with pytest.raises(ValueError, match="no plan"):
+            topk_ops.plan(100, 4, 101, itemsize, True)
+
+    @pytest.mark.parametrize("cols,splits", [(1, 8), (3, 8), (4, 8), (5, 4),
+                                             (8, 4), (9, 2), (16, 2),
+                                             (17, 1), (31, 1)])
+    def test_plan_narrow_splits(self, cuda, cols, splits):
+        from repro_torch.kernels.topk import ops as topk_ops
+        assert topk_ops.plan(1_040_000, cols, 32, 4, True).splits == splits
+
+    def test_plans_fill_the_sms(self, cuda):
+        from repro_torch.kernels.topk import ops as topk_ops
+        one = topk_ops.plan(1_040_000, 1, 32, 4, True)
+        assert one[:4] == ("narrow", 254, 4096, 8)   # 16 KB of one column
+        wide = topk_ops.plan(1_040_000, 128, 32, 4, True)
+        assert wide[:4] == ("tma", 66, 128, 1)
+        assert topk_ops.plan(1_040_000, 32, 32, 4, True).chunks == 256
+        assert topk_ops.plan(300, 1, 32, 4, True).chunks == 1
+
     def test_what_the_card_refuses(self, cuda):
         from repro_torch.kernels.topk import ops as topk_ops
         from repro_torch.kernels.topk.ops import topk_columns

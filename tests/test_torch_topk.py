@@ -164,6 +164,17 @@ class TestWrapper:
         assert "kMaxK = 128;" in src and topk_ops.MAX_K == 128
 
 
+class TestLaunchCounts:
+    """The plan and its path are the kernel's (`topk_columns_plan`, held
+    on the card in tests/test_torch_gpu.py); a CPU call counts nothing."""
+
+    def test_counters_by_path_start_at_zero(self):
+        topk_ops.reset_launches()
+        topk_columns(torch.rand(40, 3), 2)
+        assert topk_ops.launches_by_path() == dict.fromkeys(topk_ops.PATHS,
+                                                            0)
+
+
 class TestRankingLayout:
     def test_coo_is_vertex_order(self):
         eng = CooEngine(device_graph(generators.tri_mesh(6, 7),
