@@ -31,7 +31,15 @@ package. Phases, each of which must pass:
      index_add_ (1e-4 of sum |terms| per element), untouched rows zero, a
      second launch bitwise; its time beside its bound, index_add_ and the
      dense zero fill, split into torch.sort and its two passes, with the
-     passes' registers and spills;
+     passes' registers and spills; the attention kernels (forward and
+     FlashAttention-2's backward) at danube's I1 layer (1 x 4,096, 32 / 8
+     heads, Dh 80, causal, window 4,096) in bf16 and at a ragged windowed
+     GQA shape with dead rows in f32 against their plain version, forward
+     and the gradients of q, k and v (f32 rtol/atol 1e-5 forward, rtol
+     1e-4 / atol 1e-6 gradients; bf16 within twice the plain version's
+     gap to float64), two calls bitwise, ms per forward and backward
+     beside the FLOPs bound, the plain version and SDPA, ptxas registers
+     and spills;
   3. slice A: the PPR service at `full_config()` with engine "auto"
      (naca must land on the fused block-ELL engine, kmer on COO), 256
      seeded queries + 10% repeats, answers checked against a float64
@@ -154,8 +162,9 @@ package. Phases, each of which must pass:
      the PPR weights, host ms per batch and device ms per step, an async
      checkpoint, and the replay of the next step bit for bit with
      deterministic algorithms on (the gap with atomics printed).
- 10. slice H, the LM serve path (no kernel of its own: the reference's
-     attention and MoE dispatch are XLA ops), bf16 compute, TF32 off,
+ 10. slice H, the LM serve path (every prefill through the attention
+     forward kernel, gated; the decode ticks and the MoE dispatch are eager
+     ops, as the reference leaves them to XLA), bf16 compute, TF32 off,
      cuBLAS bf16 reductions in f32, random weights from generator seed 0:
      - gate 1: h2o-danube-1.8b at full width in float32, one request's
        engine tokens equal to naive greedy decoding by full forwards
@@ -180,8 +189,8 @@ package. Phases, each of which must pass:
  11. slice I, training on the card (bf16 compute, TF32 off, random
      weights from generator seed 0):
      - I1: h2o-danube-1.8b at full width, make_train_step(loss_fn,
-       AdamWConfig(lr=I_LR), 8 microbatches, donated) on token_batch at
-       8 x 1 x 4,096 (the published global batch of 256 cut to 8): a
+       AdamWConfig(lr=I_LR), 4 microbatches, donated) on token_batch at
+       4 x 1 x 4,096 (the published global batch of 256 cut to 4): a
        warm-up and 3 timed steps on 2 cycled batches (the loss falls),
        TFLOP/s of lm_train_flops against the bf16 dense peak, peak
        memory, a profile by operator of one step of one microbatch and
@@ -189,7 +198,9 @@ package. Phases, each of which must pass:
        restored and replayed bitwise with deterministic algorithms on
        (the gap with atomics printed); gate I-a: one sequence of 512 with
        compute float32 against float64 (loss rel <= 1e-4, grad norm rel
-       <= 1e-3; the bf16 loss printed);
+       <= 1e-3; the bf16 loss printed); the attention kernels' launches
+       over the steps exactly 2 x layers x microbatches x steps forward
+       (remat) and layers x microbatches x steps backward;
      - I3: the launcher at full width (3 steps of 2 x 4,096), then
        --smoke --ckpt-dir twice (saves, resumes);
      - I2: granite-moe-3b-a800m at full width, 4 x 1 x 4,096, the same
@@ -204,7 +215,8 @@ package. Phases, each of which must pass:
        over the leaves beside their bounds, plain versions,
        torch._fused_adamw_ and torch.linalg.vector_norm.
  12. slice J, the expert-parallel all-to-all MoE (no kernel of its own:
-     the reference's packing and trips are XLA ops) over NCCL at world
+     the reference's packing and trips are XLA ops; its steps run the
+     attention kernels, which must be launched) over NCCL at world
      size 1 on a (1, 1) ("data", "model") mesh (`distributed.use_mesh`,
      ep = 1), bf16 compute, TF32 off:
      - granite-moe-3b-a800m at full width and depth on I2's weights, a
@@ -311,7 +323,8 @@ no copy of a non-contiguous gradient. Every PPR ranking (a tick, adaptive
 or fixed, and each refreshed entry) is one topk_columns launch, and so
 is every DLRM retrieval (slice C's, and each step of slice K's
 retrieval_cand cell); slices H and J and K's other cells must launch
-none. The line before the last is the
+none. Every LM prefill and training step (H, I1, I2, J) runs the
+attention kernels. The line before the last is the
 kernel table as JSON; the last line is {"ok": true, "device": {...}}.
 Any failed phase exits non-zero without that line.
 """
@@ -370,38 +383,17 @@ def time_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def reset_counts():
     from repro_torch.core import engine
-    from repro_torch.kernels.adamw import ops as adamw_ops
-    from repro_torch.kernels.bsr_spmm import ops as bsr_ops
-    from repro_torch.kernels.cheb_step import ops as cheb_ops
-    from repro_torch.kernels.embedding_bag import ops as eb_ops
-    from repro_torch.kernels.topk import ops as topk_ops
-    bsr_ops.reset_launches()
-    cheb_ops.reset_launches()
-    eb_ops.reset_launches()
-    adamw_ops.reset_launches()
-    topk_ops.reset_launches()
+    from repro_torch.kernels import reset_launch_counts
+    reset_launch_counts()
     engine.reset_apply_counts()
 
 
 def read_counts() -> dict:
     from repro_torch.core import engine
+    from repro_torch.kernels import launch_counts
     from repro_torch.kernels.adamw import ops as adamw_ops
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
-    from repro_torch.kernels.cheb_step import ops as cheb_ops
-    from repro_torch.kernels.embedding_bag import ops as eb_ops
-    from repro_torch.kernels.topk import ops as topk_ops
-    return {"bsr_spmm": bsr_ops.launches(), "cheb_step": cheb_ops.launches(),
-            "cheb_step_masked": cheb_ops.masked_launches(),
-            "cheb_residual": cheb_ops.residual_launches(),
-            "topk_columns": topk_ops.launches(),
-            "embedding_bag": eb_ops.launches(),
-            "embedding_bag_backward": eb_ops.backward_launches(),
-            "embedding_bag_window": eb_ops.window_launches(),
-            "embedding_bag_window_backward":
-                eb_ops.window_backward_launches(),
-            "embedding_bag_window_sort": eb_ops.window_sort_launches(),
-            "adamw_step": adamw_ops.step_launches(),
-            "sum_squares": adamw_ops.norm_launches(),
+    return {**launch_counts(),
             "adamw_copies": adamw_ops.contiguous_copies(),
             "bsr_spmm_variants": bsr_ops.launches_by_variant(),
             "applies": engine.apply_counts()}
@@ -751,6 +743,159 @@ def compare_topk() -> float:
     return 0.0
 
 
+# the attention kernels' two cases: danube's I1 layer in bf16 (1 x 4,096,
+# 32 / 8 heads, Dh 80, causal, window 4,096, its q_chunk and k_chunk) and
+# a ragged windowed GQA case in f32 (an offset, dead rows, Sq != Sk)
+ATTN_CASES = (
+    dict(name="danube_i1_bf16", dtype="bfloat16", b=1, sq=4096, sk=4096,
+         h=32, hkv=8, dh=80, kw=dict(causal=True, window=4096, q_chunk=512,
+                                      k_chunk=1024)),
+    dict(name="ragged_window_f32", dtype="float32", b=2, sq=1000, sk=1300,
+         h=12, hkv=4, dh=64, kw=dict(causal=True, window=333, q_offset=1100,
+                                      q_chunk=256, k_chunk=512)))
+ATTN_REPS = 10         # timed calls of each version
+ATTN_F32_TOL = dict(fwd=(1e-5, 1e-5), grad=(1e-4, 1e-6))   # (rtol, atol)
+
+
+def _attn_grads(fn, q, k, v, g, kw):
+    """(out, dq, dk, dv) of fn under the cotangent g."""
+    import torch
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*ts, **kw)
+    return [out.detach(), *torch.autograd.grad(out, ts, g)]
+
+
+def compare_attention() -> dict:
+    """The attention kernels (`kernels/attention`) against their plain
+    version on the card at ATTN_CASES, forward and the gradients of q, k
+    and v under a seeded cotangent: f32 within ATTN_F32_TOL; bf16 each
+    result's max abs gap to a float64 run of the plain version at most
+    twice the plain bf16 version's; two calls bitwise equal. Times (CUDA
+    events, mean of ATTN_REPS after a warm-up): the forward, the backward
+    alone (its three passes, from the forward's saved output), the plain
+    version's, and F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True) forward and forward + backward on [B, H, S, Dh]
+    copies (the library yardstick, timed only; the window never binds at
+    danube's 4,096), beside the bound: the FLOPs of the valid pairs (2 products
+    forward, 5 backward) at 989 TFLOP/s (bf16) or 67 (f32), or the bytes
+    at 3.35 TB/s, whichever is more. ptxas registers and spills of every
+    attention kernel."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.attention.ref import chunked_attention_ref
+    out = {"ptxas": {**ptxas_report("attention_fwd"),
+                     **ptxas_report("attention_bwd")}}
+    for fn, line in out["ptxas"].items():
+        log(f"  attention ptxas {fn[:72]}: {line}")
+    for case in ATTN_CASES:
+        dtype = getattr(torch, case["dtype"])
+        gen = torch.Generator(device="cuda").manual_seed(31)
+        b, sq, sk, h, hkv, dh = (case[x] for x in ("b", "sq", "sk", "h",
+                                                  "hkv", "dh"))
+        kw = case["kw"]
+        q = torch.randn((b, sq, h, dh), device="cuda", generator=gen)
+        k, v = (torch.randn((b, sk, hkv, dh), device="cuda", generator=gen)
+                for _ in range(2))
+        g = 0.1 * torch.randn((b, sq, h, dh), device="cuda", generator=gen)
+        q, k, v, g = (t.to(dtype) for t in (q, k, v, g))
+        got = _attn_grads(attn_ops.attention, q, k, v, g, kw)
+        again = _attn_grads(attn_ops.attention, q, k, v, g, kw)
+        plain = _attn_grads(chunked_attention_ref, q, k, v, g, kw)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        check(same, f"attention {case['name']}: two calls differ")
+        gaps = {n: float((x.double() - y.double()).abs().max())
+                for n, x, y in zip(("out", "dq", "dk", "dv"), got, plain)}
+        res = {"vs_plain": gaps, "bitwise_repeat": same}
+        if dtype == torch.float32:
+            for (n, x), y in zip(zip(("out", "dq", "dk", "dv"), got), plain):
+                rtol, atol = ATTN_F32_TOL["fwd" if n == "out" else "grad"]
+                check(torch.allclose(x, y, rtol=rtol, atol=atol),
+                      f"attention {case['name']} {n}: kernel vs plain "
+                      f"{gaps[n]:.3e} past rtol {rtol:g} / atol {atol:g}")
+        else:
+            oracle = _attn_grads(chunked_attention_ref, q.double(),
+                                 k.double(), v.double(), g.double(), kw)
+            res["vs_f64"] = {}
+            for n, x, y, o in zip(("out", "dq", "dk", "dv"), got, plain,
+                                  oracle):
+                gk = float((x.double() - o).abs().max())
+                gp = float((y.double() - o).abs().max())
+                res["vs_f64"][n] = {"kernel": gk, "plain": gp}
+                check(gk <= 2 * gp, f"attention {case['name']} {n}: kernel "
+                      f"gap to float64 {gk:.3e} past twice the plain "
+                      f"version's {gp:.3e}")
+            del oracle
+        del again, plain
+        # times
+        spec = attn_ops._Spec(True, kw.get("window"), kw.get("q_offset", 0),
+                              -(-sk // kw["k_chunk"]) * kw["k_chunk"])
+        with torch.no_grad():
+            o, lse = attn_ops._forward(q, k, v, spec)
+            fwd_ms = time_ms(lambda: attn_ops._forward(q, k, v, spec),
+                             ATTN_REPS)
+            bwd_ms = time_ms(lambda: attn_ops._backward(q, k, v, o, lse, g,
+                                                        spec), ATTN_REPS)
+            plain_fwd = time_ms(lambda: chunked_attention_ref(q, k, v, **kw),
+                                2)
+        plain_both = time_ms(lambda: _attn_grads(chunked_attention_ref, q, k,
+                                                 v, g, kw), 2)
+        lib = {"fwd_ms": None, "bwd_ms": None}
+        if "q_offset" not in kw:        # SDPA has no offset or window
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            gt = g.transpose(1, 2).contiguous()
+
+            def sdpa(grad: bool):
+                ts = [t.detach().requires_grad_(grad) for t in (qt, kt, vt)]
+                y = F.scaled_dot_product_attention(*ts, is_causal=True,
+                                                   enable_gqa=True)
+                if grad:
+                    torch.autograd.grad(y, ts, gt)
+            with torch.no_grad():
+                lib["fwd_ms"] = time_ms(lambda: sdpa(False), ATTN_REPS)
+            lib["bwd_ms"] = time_ms(lambda: sdpa(True), ATTN_REPS) \
+                - lib["fwd_ms"]
+            del qt, kt, vt, gt
+        pairs = b * h * attn_ops.valid_pairs(sq, sk, kw.get("causal", True),
+                                             kw.get("window"),
+                                             kw.get("q_offset", 0))
+        peak = BF16_DENSE_FLOP_PER_S if dtype == torch.bfloat16 \
+            else FP32_FLOP_PER_S
+        es = q.element_size()
+        io = (2 * q.numel() + k.numel() + v.numel()) * es
+        fwd_b = bound((io + 4 * b * h * sq) / HBM_BYTES_PER_S * 1e3,
+                      4 * dh * pairs / peak * 1e3)
+        bwd_b = bound((2 * io + 3 * 4 * b * h * sq) / HBM_BYTES_PER_S * 1e3,
+                      10 * dh * pairs / peak * 1e3)
+        res.update({
+            "fwd": {"ms": fwd_ms, "plain_ms": plain_fwd,
+                    "library_ms": lib["fwd_ms"], "bound_ms": fwd_b[0],
+                    "bound_by": fwd_b[1]},
+            "bwd": {"ms": bwd_ms, "plain_ms": plain_both - plain_fwd,
+                    "library_ms": lib["bwd_ms"], "bound_ms": bwd_b[0],
+                    "bound_by": bwd_b[1]},
+            "pairs": pairs})
+        log(f"[{CARD}] attention {case['name']} ({b} x {sq} queries, {sk} "
+            f"keys, {h} / {hkv} heads, Dh {dh}, {kw}): kernel vs plain max "
+            f"|gap| {', '.join(f'{n} {x:.3e}' for n, x in gaps.items())}"
+            + (", vs float64 (kernel / plain) " + ", ".join(
+                f"{n} {x['kernel']:.3e} / {x['plain']:.3e}"
+                for n, x in res["vs_f64"].items())
+               if "vs_f64" in res else "")
+            + f"; two calls bitwise {same}; forward {fwd_ms:.4f} ms "
+            f"(bound {fwd_b[0]:.4f}, {fwd_b[1]}; {fwd_b[0] / fwd_ms:.0%}), "
+            f"backward {bwd_ms:.4f} ms (bound {bwd_b[0]:.4f}, {bwd_b[1]}; "
+            f"{bwd_b[0] / bwd_ms:.0%}); plain {plain_fwd:.3f} / "
+            f"{plain_both - plain_fwd:.3f} ms; SDPA "
+            + (f"{lib['fwd_ms']:.4f} / {lib['bwd_ms']:.4f} ms"
+               if lib["fwd_ms"] is not None else "not timed (offset)"))
+        out[case["name"]] = res
+        del got, q, k, v, g, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_kernels() -> dict:
     import torch
     from repro_torch.kernels.bsr_spmm import ops as bsr_ops
@@ -803,7 +948,8 @@ def phase_kernels() -> dict:
     adamw = compare_adamw()
     return {"bsr_spmm": worst, "cheb_step": cheb_err, "dyn_range": wit,
             "host_us": host_us, "adamw": adamw,
-            "topk_columns": compare_topk(), **adaptive}
+            "topk_columns": compare_topk(), "attention": compare_attention(),
+            **adaptive}
 
 
 def host_cost(block_cols, values) -> dict:
@@ -1626,7 +1772,8 @@ def gate_adamw(path: str, label: str, n: dict, leaves: int,
 def add_counts(*parts) -> dict:
     """Sum of `read_counts()` results of several main paths."""
     flat = ("bsr_spmm", "cheb_step", "cheb_step_masked", "cheb_residual",
-            "topk_columns", "embedding_bag", "embedding_bag_backward")
+            "topk_columns", "embedding_bag", "embedding_bag_backward",
+            "attention_forward", "attention_backward")
     out = dict.fromkeys(flat, 0) | {"bsr_spmm_variants": {}, "applies": {}}
     for c in parts:
         for key in flat:
@@ -3554,9 +3701,10 @@ def phase_slice_h4() -> dict:
 
 
 def phase_slice_h() -> dict:
-    """Slice H, the LM serve path (no kernel of its own: the reference's
-    attention and MoE dispatch are XLA ops). Danube's gates and H1-H3 on
-    one set of f32 weights, then granite (H2) and the launcher (H4)."""
+    """Slice H, the LM serve path: every prefill runs the attention
+    forward kernel (the decode ticks and the MoE dispatch are eager ops).
+    Danube's gates and H1-H3 on one set of f32 weights, then granite (H2)
+    and the launcher (H4)."""
     import torch
     from repro_torch.configs import h2o_danube_1_8b
     from repro_torch.models import transformer as tf
@@ -3585,10 +3733,16 @@ def phase_slice_h() -> dict:
         torch.backends.cuda.matmul.\
             allow_bf16_reduced_precision_reduction = prev
     launches = read_counts()
-    log(f"slice H kernel launches (no kernel on this path): bsr_spmm "
+    log(f"slice H kernel launches: attention forward "
+        f"{launches['attention_forward']} (every prefill: one a layer), "
+        f"backward {launches['attention_backward']}; off the path: bsr_spmm "
         f"{launches['bsr_spmm']}, cheb_step {launches['cheb_step']}, "
         f"embedding_bag {launches['embedding_bag']}; "
         f"{time.perf_counter() - t0:.1f} s")
+    check(launches["attention_forward"] > 0
+          and launches["attention_backward"] == 0,
+          f"slice H: the prefills did not run the attention forward (or a "
+          f"backward ran): {launches}")
     return {"gate1": g1, "h1": h1, "h2": h2, "h3": h3, "h4": h4,
             "launches": launches}
 
@@ -3891,6 +4045,27 @@ def lm_step_idle(label: str, cfg, opt_cfg, params, opt, tokens,
             "adam_bound_ms": adam_bound}
 
 
+def gate_attention(label: str, cfg, before: dict, after: dict,
+                   n_micro: int, steps: int) -> dict:
+    """The attention kernels' launches over `steps` LM train steps of
+    n_micro microbatches, each exactly what the path implies: every layer
+    of every microbatch runs one backward, and under remat (the configs'
+    default) its forward twice, once in the step's forward and once when
+    the backward recomputes the checkpointed block."""
+    fwd = after["attention_forward"] - before["attention_forward"]
+    bwd = after["attention_backward"] - before["attention_backward"]
+    want_b = cfg.n_layers * n_micro * steps
+    want_f = (2 if cfg.remat else 1) * want_b
+    log(f"[{CARD}] {label}: attention launches over {steps} steps: forward "
+        f"{fwd} (want {'2 x ' if cfg.remat else ''}{cfg.n_layers} layers x "
+        f"{n_micro} microbatches x {steps} steps = {want_f}), backward {bwd} "
+        f"(want {want_b})")
+    check(fwd == want_f and bwd == want_b,
+          f"{label}: attention launched {fwd} forward / {bwd} backward, "
+          f"the path implies {want_f} / {want_b}")
+    return {"forward": fwd, "backward": bwd}
+
+
 def lm_train_cell(label: str, cfg, n_micro: int, dev,
                   profile: bool) -> tuple:
     """I1 / I2: make_train_step(loss_fn, AdamWConfig(lr=I_LR), n_micro,
@@ -3940,8 +4115,10 @@ def lm_train_cell(label: str, cfg, n_micro: int, dev,
         losses.append(m["loss"])
         gnorms.append(m["grad_norm"])
     torch.cuda.synchronize()
-    gate_adamw("slice_i", label, adamw_delta(before, read_counts()),
+    after = read_counts()
+    gate_adamw("slice_i", label, adamw_delta(before, after),
                len(pytree.tree_leaves(params)), I_TIMED + 1)
+    attn = gate_attention(label, cfg, before, after, n_micro, I_TIMED + 1)
     peak = torch.cuda.max_memory_allocated()
     all_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(I_TIMED + 1)]
     losses = [float(x) for x in losses]
@@ -3957,7 +4134,8 @@ def lm_train_cell(label: str, cfg, n_micro: int, dev,
     flops = lm_train_flops(cfg, tokens, n_micro, I1_SEQ)
     tflops = flops / ms / 1e9
     out = {"ms": ms, "warmup_ms": all_ms[0], "step_ms": all_ms[1:],
-           "losses": losses, "grad_norms": gnorms, "peak": peak,
+           "attention": attn, "losses": losses, "grad_norms": gnorms,
+           "peak": peak,
            "tflops": tflops, "mfu": tflops * 1e12 / BF16_DENSE_FLOP_PER_S,
            "params": cfg.n_params(), "setup_s": setup_s}
     drops = ""
@@ -4318,7 +4496,8 @@ def phase_slice_i() -> dict:
     train_batch, I2 granite (with I-a). bf16 compute as the configs set
     it, TF32 off, cuBLAS bf16 reductions in f32, random weights from
     generator seed 0. Returns each part, the kernel launches of I4's path
-    (the LM paths launch no kernel of the repo) and granite's config and
+    and of the LM paths (I1 and I2: AdamW's two kernels and the attention
+    kernels, gated in `lm_train_cell`) and granite's config and
     parameters after I2, which slice J trains on (its AdamW state goes
     before I-a, whose float64 copy would not fit beside it)."""
     import dataclasses
@@ -4367,8 +4546,8 @@ def phase_slice_i() -> dict:
     log(f"[{CARD}] slice I: {secs:.1f} s")
     return {"i1": i1, "i2": i2, "i3": i3, "i4": i4, "replay": replay,
             "f64": {"danube": gate_d, "granite": gate_g},
-            "launches": i4["launches"], "seconds": secs,
-            "granite": (cfg2, params)}
+            "launches": i4["launches"], "lm_launches": lm_launches,
+            "seconds": secs, "granite": (cfg2, params)}
 
 
 # ---------------------------------------------------------------- slice J --
@@ -5329,8 +5508,11 @@ def phase_slice_m_ranks() -> dict:
             reset_counts()
             ms, (_, _, metrics) = _step_ms(step, local, opt,
                                            {"tokens": tokens})
-            gate_adamw("slice_m", f"M-b danube {M_DANUBE_SHAPE} rank 0",
-                       read_counts(), len(pytree.tree_leaves(local)), 1)
+            n = read_counts()
+            gate_adamw("slice_m", f"M-b danube {M_DANUBE_SHAPE} rank 0", n,
+                       len(pytree.tree_leaves(local)), 1)
+            for k in ("attention_forward", "attention_backward"):
+                launches[k] = n[k]
             loss = float(metrics["loss"])
             args = sum(x.numel() * x.element_size()
                        for x in pytree.tree_leaves((local, opt)))
@@ -5341,8 +5523,12 @@ def phase_slice_m_ranks() -> dict:
                 f"microbatches, local params + moments {args:,} B, peak "
                 f"allocated over the step (arguments included) "
                 f"{torch.cuda.max_memory_allocated(dev):,} B, "
-                f"loss {loss:.4f}")
+                f"loss {loss:.4f}; attention launches "
+                f"{n['attention_forward']} forward, "
+                f"{n['attention_backward']} backward")
             check(np.isfinite(loss), "M-b danube: loss not finite")
+            check(n["attention_forward"] > 0 and n["attention_backward"] > 0,
+                  f"M-b danube: the attention kernels were not launched {n}")
             del local, opt, step
     finally:
         cdist.destroy_world()
@@ -6006,6 +6192,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     i_res = phase_slice_i()
     i = i_res.pop("launches")
+    i_lm = i_res.pop("lm_launches")
     i4_adam = i_res["i4"]["adam"]
     reset_counts()
     phase_slice_j(i_res.pop("granite"))
@@ -6014,6 +6201,8 @@ def main() -> int:
           == j["embedding_bag_backward"] == j["topk_columns"] == 0
           and not any(j[k] for k in ADAPTIVE_KERNELS),
           f"slice J launched a kernel off its path: {j}")
+    check(j["attention_forward"] > 0 and j["attention_backward"] > 0,
+          f"slice J's steps did not run the attention kernels: {j}")
     del i_res
     torch.cuda.empty_cache()
     k = phase_slice_k()["launches"]
@@ -6075,7 +6264,33 @@ def main() -> int:
         "retrieval_eager_ms": c["retrieval"]["eager_ms"]}
     eb_b, eb_by = bound(c["eb"]["bytes_ms"], c["eb"]["ops_ms"])
     ebb_b, ebb_by = bound(eb_bwd["bytes_ms"], eb_bwd["ops_ms"])
+    # LM attention: every prefill and LM training step (H, I1 / I2, J, the
+    # K cells and M's LM ranks); the phase 2 numbers at danube's I1 layer
+    att = kerr["attention"]
+    att_i1 = att["danube_i1_bf16"]
+    att_paths = {"slice_h": h, "slice_i": i_lm, "slice_j": j, "slice_k": k,
+                 "slice_l": l, "slice_m": m["launches"]}
+    attention_rows = []
+    for name, part, src in (("attention_forward", "fwd", "attention_fwd.cu"),
+                            ("attention_backward", "bwd",
+                             "attention_bwd.cu")):
+        by_path = {p: c.get(name, 0) for p, c in att_paths.items()}
+        meas = att_i1[part]
+        attention_rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/attention/csrc/{src}",
+            "replaces": "src/repro/models/layers.py:87",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(v for n, v in att["ragged_window_f32"][
+                "vs_plain"].items() if (n == "out") == (part == "fwd")),
+            "bf16_vs_plain": att_i1["vs_plain"],
+            "bf16_vs_f64": att_i1["vs_f64"],
+            "ms": meas["ms"], "plain_ms": meas["plain_ms"],
+            "bound_ms": meas["bound_ms"], "bound_by": meas["bound_by"],
+            "library_ms": meas["library_ms"],
+            "f32_ms": att["ragged_window_f32"][part]["ms"]})
     table = {"kernels": [
+        *attention_rows,
         {"name": "bsr_spmm", "route": "cuda",
          "source": "src/repro_torch/kernels/bsr_spmm/csrc/bsr_spmm.cu",
          "replaces": "src/repro/kernels/bsr_spmm/bsr_spmm.py:42",

@@ -12,8 +12,8 @@ not minutes). All sources compile in parallel, one `nvcc` process each;
 (its twelve kernels: 87 s -> 24 s with 8 cores).
 The output lands in `build/repro_torch_kernels/` at the repository root
 (listed in `.gitignore`; override with `REPRO_TORCH_BUILD_DIR`), named by
-a hash of the source and the flags so an edited source never loads a
-stale library. Nothing here runs at import time: the CPU tests import
+a hash of the source, the headers beside it (`csrc/*.cuh`) and the flags
+so an edited source never loads a stale library. Nothing here runs at import time: the CPU tests import
 every module and never build.
 """
 from __future__ import annotations
@@ -71,7 +71,10 @@ def flags(name: str) -> tuple:
 
 
 def _target(name: str, src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(flags(name)).encode())
+    # the headers beside a source (csrc/*.cuh) are part of what it builds
+    text = src.read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(src.parent.glob("*.cuh")))
+    h = hashlib.sha256(text + " ".join(flags(name)).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 

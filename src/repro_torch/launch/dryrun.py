@@ -79,6 +79,7 @@ from repro_torch.core import distributed as dist
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import P, shard_shape, shard_tree, \
     use_mesh
+from repro_torch.kernels import launch_counts
 from repro_torch.launch.analysis import count_step, roofline_terms
 from repro_torch.launch.mesh import CARD_BYTES, PRODUCTION_SHAPES, \
     make_production_mesh, production_ranks
@@ -191,18 +192,6 @@ def plan_cell(arch: str, shape: str, multi_pod: bool = False,
 def _storages(tree) -> set:
     return {x.untyped_storage().data_ptr() for x in pytree.tree_leaves(tree)
             if isinstance(x, torch.Tensor)}
-
-
-def _launches() -> dict:
-    from repro_torch.kernels.adamw import ops as adamw
-    from repro_torch.kernels.bsr_spmm import ops as bsr
-    from repro_torch.kernels.cheb_step import ops as cheb
-    from repro_torch.kernels.embedding_bag import ops as eb
-    return {"bsr_spmm": bsr.launches(), "cheb_step": cheb.launches(),
-            "embedding_bag": eb.launches(),
-            "embedding_bag_backward": eb.backward_launches(),
-            "adamw_step": adamw.step_launches(),
-            "sum_squares": adamw.norm_launches()}
 
 
 def _sync(dev) -> None:
@@ -456,10 +445,11 @@ def run_plan(plan, rec: dict, device=None, verbose: bool = True,
         out = step(*args)                       # warm-up
         _sync(dev)
         del out
-        before = _launches()
+        before = launch_counts()
         out, cost, coll, kernels = count_step(step, *args)
         _sync(dev)
-        rec["launches"] = {k: v - before[k] for k, v in _launches().items()}
+        rec["launches"] = {k: v - before[k]
+                           for k, v in launch_counts().items()}
         kept = _storages(args)
         out_bytes = sum(x.numel() * x.element_size()
                         for x in pytree.tree_leaves(out)

@@ -18,8 +18,11 @@ casts once with `cast_params` and passes the result, for which the cast
 is free. Layer views come from one `unbind` per stacked leaf
 (`layer_views`). With `remat` (the default, as in the reference), each
 block runs under activation checkpointing when autograd records;
-inside it `chunked_attention`'s backward (`_Attention`) recomputes each
-score tile from the saved output and row statistics.
+inside it `chunked_attention`'s backward recomputes each score tile from
+the saved output and row statistics: on the card the FlashAttention-2
+kernels of `kernels/attention` (`ops._AttentionFn`, csrc/attention_bwd.cu),
+on the CPU and in float64 the plain version's `_Attention`
+(`kernels/attention/ref.py`).
 `seq_shard_carry` shards the saved carry over a TPU mesh's model axis in
 the reference; on one card it means nothing and is carried as a field so
 configs construct unchanged.

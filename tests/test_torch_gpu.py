@@ -1862,3 +1862,156 @@ class TestTopkOnCard:
         topk_ops.reset_launches()
         done = svc.refresh_tick()
         assert done == queued >= 1 and topk_ops.launches() == done
+
+
+@pytest.mark.gpu
+class TestAttentionOnCard:
+    """The attention kernels (`kernels/attention`) against their plain
+    version on the same CUDA tensors, forward and the gradients of q, k
+    and v under a seeded cotangent (std 0.1, as tests/
+    test_torch_attention.py). f32: forward rtol/atol 1e-5, gradients rtol
+    1e-4 / atol 1e-6. bf16: each result's max abs gap to a float64 run of
+    the plain version on the same bf16 inputs and cotangent at most twice
+    the plain bf16 version's (the rounding points are the same, the tiles
+    and so the running maxima differ). Every case: a second call bitwise
+    equal to the first, one forward and one backward launch a call."""
+
+    HEAD_DIMS = (8, 12, 16, 64, 80, 128)
+    MASKS = {
+        "causal": dict(sq=150, sk=150, kw=dict(causal=True)),
+        "window": dict(sq=200, sk=200, kw=dict(causal=True, window=70)),
+        "q_offset": dict(sq=90, sk=230, kw=dict(causal=True, q_offset=140,
+                                               window=100)),
+        "ragged": dict(sq=77, sk=141, kw=dict(causal=True, q_offset=64)),
+        "full": dict(sq=70, sk=133, kw=dict(causal=False)),
+        "no_valid_key_causal": dict(sq=100, sk=100,
+                                    kw=dict(causal=True, q_offset=-37)),
+        "no_valid_key_window": dict(sq=80, sk=120,
+                                    kw=dict(causal=True, window=30,
+                                            q_offset=110)),
+    }
+
+    @staticmethod
+    def _run(fn, q, k, v, ct, kw):
+        ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*ts, **{"q_chunk": 64, "k_chunk": 32, **kw})
+        grads = torch.autograd.grad((out.to(ct.dtype) * ct).sum(), ts)
+        return [out.detach(), *grads]
+
+    def _case(self, cuda, dtype, dh, groups, sq, sk, kw, hkv=2, seed=0,
+              views=False):
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.kernels.attention.ops import attention
+        from repro_torch.kernels.attention.ref import chunked_attention_ref
+        rng = np.random.default_rng(seed)
+        h = hkv * groups
+        wide = 2 if views else 1
+        arrs = [rng.standard_normal(s).astype(np.float32) for s in (
+            (2, sq, h * wide, dh), (2, sk, hkv * wide, dh),
+            (2, sk, hkv * wide, dh))]
+        ct = torch.from_numpy((0.1 * rng.standard_normal(
+            (2, sq, h, dh))).astype(np.float32)).to(cuda)
+        q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in arrs)
+        if views:        # strided views: every other head, heads past 0
+            q = q[:, :, 1::2]
+            k = k[:, :, hkv:]
+            v = v.index_select(2, torch.arange(hkv, device=cuda))
+            assert not q.is_contiguous() and not k.is_contiguous()
+        ct = ct.to(dtype).float()
+        reset_launch_counts()
+        got = self._run(attention, q, k, v, ct, kw)
+        counts = launch_counts()
+        assert counts["attention_forward"] == 1
+        assert counts["attention_backward"] == 1
+        again = self._run(attention, q, k, v, ct, kw)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        plain = self._run(chunked_attention_ref, q, k, v, ct, kw)
+        assert launch_counts()["attention_forward"] == 2
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got[0], plain[0], rtol=1e-5,
+                                       atol=1e-5)
+            for a, b, name in zip(got[1:], plain[1:], "qkv"):
+                torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6,
+                                           msg=name)
+            return
+        oracle = self._run(chunked_attention_ref, q.double(), k.double(),
+                           v.double(), ct.double(), kw)
+        for a, b, o, name in zip(got, plain, oracle, "oqkv"):
+            gap = float((a.double() - o).abs().max())
+            gap_plain = float((b.double() - o).abs().max())
+            assert gap <= 2 * gap_plain, (name, gap, gap_plain)
+
+    @pytest.mark.parametrize("groups", [1, 3, 4, 16])
+    @pytest.mark.parametrize("dh", HEAD_DIMS)
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    def test_head_dims_and_groups(self, cuda, dtype, dh, groups):
+        c = self.MASKS["window"] if dh in (80, 16) else self.MASKS["causal"]
+        self._case(cuda, getattr(torch, dtype), dh, groups, c["sq"],
+                   c["sk"], c["kw"], hkv=1 if groups == 16 else 2,
+                   seed=dh + groups)
+
+    @pytest.mark.parametrize("mask", sorted(MASKS))
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    def test_masks(self, cuda, dtype, mask):
+        c = self.MASKS[mask]
+        self._case(cuda, getattr(torch, dtype), 80, 4, c["sq"], c["sk"],
+                   c["kw"], seed=len(mask))
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    def test_strided_views(self, cuda, dtype):
+        c = self.MASKS["window"]
+        self._case(cuda, getattr(torch, dtype), 64, 3, c["sq"], c["sk"],
+                   c["kw"], views=True, seed=7)
+
+    def test_danube_layer_shape_bf16(self, cuda):
+        """Danube's I1 layer at 1 x 4,096 (32 / 8 heads, Dh 80, window
+        4,096) against the plain version."""
+        self._case(cuda, torch.bfloat16, 80, 4, 4096, 4096,
+                   dict(causal=True, window=4096, q_chunk=512,
+                        k_chunk=1024), hkv=8, seed=11)
+
+    def test_rejections_on_card(self, cuda):
+        from repro_torch.kernels.attention.ops import attention
+        q = torch.zeros((1, 8, 2, 16), device=cuda, dtype=torch.float16)
+        with pytest.raises(TypeError, match="bfloat16 or all float32"):
+            attention(q, q, q)
+        q = torch.zeros((1, 8, 2, 144), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="limit of 128"):
+            attention(q, q, q)
+        q = torch.zeros((1, 8, 2, 15), device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="multiple of 4"):
+            attention(q, q, q)
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+    def test_rows_the_kernel_cannot_read_are_copied(self, cuda, dtype):
+        """A k and v whose last dimension is not contiguous, and a q one
+        element off the 16-byte boundary with an odd row stride: copied
+        (and counted), the same bits as contiguous inputs."""
+        from repro_torch.kernels.attention import ops
+        dt = getattr(torch, dtype)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        qf = torch.randn(1 + 60 * 4 * 12 + 1, device=cuda, generator=gen)
+        q = qf.to(dt)[1:1 + 60 * 4 * 12].view(1, 60, 4, 12)
+        kt = torch.randn((1, 60, 12, 2), device=cuda, generator=gen).to(dt)
+        k = kt.transpose(2, 3)
+        ops.reset_launches()
+        got = ops.attention(q, k, k, window=9)
+        assert ops.contiguous_copies() >= 2
+        want = ops.attention(q.contiguous(), k.contiguous(), k.contiguous(),
+                             window=9)
+        assert torch.equal(got, want)
+
+    def test_float64_on_card_takes_the_plain_version(self, cuda):
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.models.layers import chunked_attention
+        q = torch.randn((1, 40, 4, 16), device=cuda, dtype=torch.float64,
+                        requires_grad=True)
+        k = torch.randn((1, 40, 2, 16), device=cuda, dtype=torch.float64,
+                        requires_grad=True)
+        reset_launch_counts()
+        chunked_attention(q, k, k, q_chunk=16, k_chunk=16).sum().backward()
+        assert q.grad is not None
+        assert launch_counts()["attention_forward"] == 0
+        assert launch_counts()["attention_backward"] == 0

@@ -53,6 +53,8 @@ def test_fresh_import_leaves_jax_and_reference_out():
             "repro_torch.kernels.bsr_spmm.ops, "
             "repro_torch.kernels.cheb_step.ops, "
             "repro_torch.kernels.embedding_bag.ops, "
+            "repro_torch.kernels.attention.ops, "
+            "repro_torch.kernels.attention.ref, "
             "repro_torch.models.recsys.dlrm, repro_torch.configs.dlrm_rm2, "
             "repro_torch.train.data, repro_torch.topk, repro_torch.obs, "
             "repro_torch.obs.metrics, repro_torch.obs.trace, "

@@ -412,7 +412,8 @@ class TestBuild:
         assert set(srcs) == {"bsr_spmm", "cheb_step", "cheb_step_masked",
                              "cheb_residual", "embedding_bag",
                              "embedding_bag_backward", "adamw_step",
-                             "sum_squares", "topk_columns"}
+                             "sum_squares", "topk_columns", "attention_fwd",
+                             "attention_bwd"}
         for path in srcs.values():
             assert path.suffix == ".cu" and path.parent.name == "csrc"
 
