@@ -39,7 +39,11 @@ package. Phases, each of which must pass:
      1e-4 / atol 1e-6 gradients; bf16 within twice the plain version's
      gap to float64), two calls bitwise, ms per forward and backward
      beside the FLOPs bound, the plain version and SDPA, ptxas registers
-     and spills;
+     and spills and every "Potential Performance Loss" line (a wgmma
+     ptxas serialized); bf16 runs the wgmma kernels, f32 the FFMA ones,
+     and slices H, I, J and M-b gate the launches by route (every launch
+     counted on one route, wgmma on every path, none on FFMA where the
+     path runs bf16 alone);
   3. slice A: the PPR service at `full_config()` with engine "auto"
      (naca must land on the fused block-ELL engine, kmer on COO), 256
      seeded queries + 10% repeats, answers checked against a float64
@@ -765,6 +769,17 @@ def _attn_grads(fn, q, k, v, g, kw):
     return [out.detach(), *torch.autograd.grad(out, ts, g)]
 
 
+def attn_kernel_tag(fn: str) -> str:
+    """An attention kernel's mangled name as `name<f32, DP>` / `name<DP>`
+    (bf16), e.g. attention_dkdv_tc_kernel<80>."""
+    m = re.search(r"(attention_[a-z_]+_kernel)I(f?)(?:Li(\d+)E)?", fn)
+    if not m:
+        return fn[:72]
+    args = ", ".join(x for x in ("f32" if m.group(2) else "", m.group(3))
+                     if x)
+    return f"{m.group(1)}<{args}>"
+
+
 def compare_attention() -> dict:
     """The attention kernels (`kernels/attention`) against their plain
     version on the card at ATTN_CASES, forward and the gradients of q, k
@@ -784,10 +799,20 @@ def compare_attention() -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.attention import ops as attn_ops
     from repro_torch.kernels.attention.ref import chunked_attention_ref
-    out = {"ptxas": {**ptxas_report("attention_fwd"),
-                     **ptxas_report("attention_bwd")}}
-    for fn, line in out["ptxas"].items():
-        log(f"  attention ptxas {fn[:72]}: {line}")
+    from repro_torch.kernels import _build
+    out = {"ptxas": {lib: {attn_kernel_tag(fn): line
+                           for fn, line in ptxas_report(lib).items()}
+                     for lib in ("attention_fwd", "attention_bwd")}}
+    for lib, fns in out["ptxas"].items():
+        for fn, line in fns.items():
+            log(f"  attention ptxas {fn}: {line}")
+        for line in _build.build_log(lib).splitlines():
+            if "Performance Loss" in line:     # ptxas serialized a wgmma
+                code = line.split("(")[1].split(")")[0]
+                fn = attn_kernel_tag(line.rsplit("'", 2)[-2])
+                why = line.split("serialized due to ")[-1]
+                log(f"  attention ptxas {fn}: wgmma serialized ({code}, "
+                    f"{why.split(' for the function')[0][:90]})")
     for case in ATTN_CASES:
         dtype = getattr(torch, case["dtype"])
         gen = torch.Generator(device="cuda").manual_seed(31)
@@ -1773,7 +1798,7 @@ def add_counts(*parts) -> dict:
     """Sum of `read_counts()` results of several main paths."""
     flat = ("bsr_spmm", "cheb_step", "cheb_step_masked", "cheb_residual",
             "topk_columns", "embedding_bag", "embedding_bag_backward",
-            "attention_forward", "attention_backward")
+            "attention_forward", "attention_backward", *ATTN_ROUTE_KEYS)
     out = dict.fromkeys(flat, 0) | {"bsr_spmm_variants": {}, "applies": {}}
     for c in parts:
         for key in flat:
@@ -3743,6 +3768,7 @@ def phase_slice_h() -> dict:
           and launches["attention_backward"] == 0,
           f"slice H: the prefills did not run the attention forward (or a "
           f"backward ran): {launches}")
+    gate_attention_routes("slice H", launches, bf16_only=False)
     return {"gate1": g1, "h1": h1, "h2": h2, "h3": h3, "h4": h4,
             "launches": launches}
 
@@ -4045,6 +4071,30 @@ def lm_step_idle(label: str, cfg, opt_cfg, params, opt, tokens,
             "adam_bound_ms": adam_bound}
 
 
+# the attention kernels' launches by route: bf16 on wgmma, f32 on FFMA
+ATTN_ROUTE_KEYS = ("attention_forward_wgmma", "attention_forward_ffma",
+                   "attention_backward_wgmma", "attention_backward_ffma")
+
+
+def gate_attention_routes(label: str, n: dict, bf16_only: bool) -> dict:
+    """The split of a path's attention launches by route: every launch
+    counted once by route, some on wgmma (the bf16 design), and where the
+    path runs bf16 alone (`bf16_only`) none on FFMA."""
+    routes = {k: n[k] for k in ATTN_ROUTE_KEYS}
+    log(f"[{CARD}] {label}: attention launches by route {routes}")
+    for part in ("forward", "backward"):
+        w, f = n[f"attention_{part}_wgmma"], n[f"attention_{part}_ffma"]
+        check(w + f == n[f"attention_{part}"],
+              f"{label}: attention {part} launches {n[f'attention_{part}']}"
+              f" but {w} wgmma + {f} FFMA")
+        check(not bf16_only or f == 0,
+              f"{label}: {f} attention {part} launches on FFMA in a bf16 "
+              f"path")
+    check(n["attention_forward_wgmma"] > 0,
+          f"{label}: no attention forward on wgmma: {routes}")
+    return routes
+
+
 def gate_attention(label: str, cfg, before: dict, after: dict,
                    n_micro: int, steps: int) -> dict:
     """The attention kernels' launches over `steps` LM train steps of
@@ -4063,7 +4113,12 @@ def gate_attention(label: str, cfg, before: dict, after: dict,
     check(fwd == want_f and bwd == want_b,
           f"{label}: attention launched {fwd} forward / {bwd} backward, "
           f"the path implies {want_f} / {want_b}")
-    return {"forward": fwd, "backward": bwd}
+    delta = {k: after[k] - before[k] for k in ("attention_forward",
+                                               "attention_backward",
+                                               *ATTN_ROUTE_KEYS)}
+    routes = gate_attention_routes(label, delta,
+                                   cfg.compute_dtype == "bfloat16")
+    return {"forward": fwd, "backward": bwd, "routes": routes}
 
 
 def lm_train_cell(label: str, cfg, n_micro: int, dev,
@@ -5511,7 +5566,8 @@ def phase_slice_m_ranks() -> dict:
             n = read_counts()
             gate_adamw("slice_m", f"M-b danube {M_DANUBE_SHAPE} rank 0", n,
                        len(pytree.tree_leaves(local)), 1)
-            for k in ("attention_forward", "attention_backward"):
+            for k in ("attention_forward", "attention_backward",
+                      *ATTN_ROUTE_KEYS):
                 launches[k] = n[k]
             loss = float(metrics["loss"])
             args = sum(x.numel() * x.element_size()
@@ -5529,6 +5585,8 @@ def phase_slice_m_ranks() -> dict:
             check(np.isfinite(loss), "M-b danube: loss not finite")
             check(n["attention_forward"] > 0 and n["attention_backward"] > 0,
                   f"M-b danube: the attention kernels were not launched {n}")
+            gate_attention_routes("M-b danube", n,
+                                  dcfg.compute_dtype == "bfloat16")
             del local, opt, step
     finally:
         cdist.destroy_world()
@@ -6203,6 +6261,9 @@ def main() -> int:
           f"slice J launched a kernel off its path: {j}")
     check(j["attention_forward"] > 0 and j["attention_backward"] > 0,
           f"slice J's steps did not run the attention kernels: {j}")
+    gate_attention_routes("slice J", j, bf16_only=False)
+    check(j["attention_backward_wgmma"] > 0,
+          f"slice J: no attention backward on wgmma: {j}")
     del i_res
     torch.cuda.empty_cache()
     k = phase_slice_k()["launches"]
@@ -6275,12 +6336,16 @@ def main() -> int:
                             ("attention_backward", "bwd",
                              "attention_bwd.cu")):
         by_path = {p: c.get(name, 0) for p, c in att_paths.items()}
+        by_route = {r: sum(c.get(f"{name}_{r}", 0) for c in att_paths.values())
+                    for r in ("wgmma", "ffma")}
         meas = att_i1[part]
         attention_rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/attention/csrc/{src}",
             "replaces": "src/repro/models/layers.py:87",
             "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_by_route": by_route,
+            "ptxas": att["ptxas"][src[:-3]],
             "max_abs_err": max(v for n, v in att["ragged_window_f32"][
                 "vs_plain"].items() if (n == "out") == (part == "fwd")),
             "bf16_vs_plain": att_i1["vs_plain"],

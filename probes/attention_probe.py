@@ -2,16 +2,20 @@
 build and every kernel's ptxas line) and its `compare_attention` (phase
 2's attention cases: danube's I1 layer in bf16, a ragged windowed GQA case
 in f32, each against the plain version, with times beside the bound,
-the plain version and SDPA), then, with --shapes, the forward and backward
-at the other configs' layer shapes (1 x 4,096, bf16, causal), and with
+the plain version and SDPA), then the device time of each kernel of a
+forward and a backward at danube's I1 layer (torch.profiler), with
+--shapes the forward and backward at the other configs' layer shapes
+(1 x 4,096, bf16, causal), and with
 --variants the package's kernels beside copies of their sources patched
 as VARIANTS says (built under build/attention_probe/<tag>/, all nvcc runs
 at once), each timed at danube's I1 layer in the order package, variants,
 package, its outputs and gradients checked bitwise against the package's;
---against DIR adds the sources in DIR (another tree's csrc/, copied under
-build/) as one more variant, held to the package within bf16 rounding:
+--against DIR [DIR ...] adds the sources in each DIR (another tree's
+csrc/, copied under build/) as one more variant, held to the package
+within bf16 rounding:
 
-    python3 probes/attention_probe.py [--shapes] [--variants] [--against DIR]
+    python3 probes/attention_probe.py [--shapes] [--variants [TAG ...]]
+        [--against DIR [DIR ...]]
 
 Prints the card's name and power limit first; every time is CUDA events,
 the mean of chip_smoke's ATTN_REPS calls after a warm-up.
@@ -37,19 +41,41 @@ SHAPES = (("granite-moe-3b-a800m", 4096, 24, 8, 64),
           ("h2o-danube-1.8b prefill", 32768, 32, 8, 80))
 
 
-# the variants: {tag: [(file, text in it, its replacement)]}. The one
-# kept: attention_dkdv asked to fit 3 blocks an SM (bf16 up to DP 80), as
-# the forward and attention_dq fit 4 (their kMinBlocks)
-_MIN = "static constexpr int kMinBlocks = 1;   // {}: blocks an SM, for ptxas"
-
-
-def _min_blocks(kernel: str, n: int) -> tuple:
-    src = "attention_fwd.cu" if kernel == "fwd" else "attention_bwd.cu"
-    return (src, _MIN.format(kernel), _MIN.format(kernel).replace(
-        "= 1;", f"= DP <= 80 ? {n} : 1;"))
-
-
-VARIANTS = {"dkdv_3": [_min_blocks("dkdv", 3)]}
+# the variants: {tag: [(file, text in it, its replacement)]}: the wgmma
+# kernels' ring depths and the producer / consumer register split
+_SM90 = "attention_sm90.cuh"
+VARIANTS = {
+    "regs_40_232": [(_SM90, "kProducerRegs = 24, kConsumerRegs = 240;",
+                     "kProducerRegs = 40, kConsumerRegs = 232;")],
+    "fwd_2_stages": [("attention_fwd.cu",
+                      "kStages = DP > 80 ? 2 : 3;   // fwd: ring stages",
+                      "kStages = 2;   // fwd: ring stages")],
+    "dkdv_3_stages": [("attention_bwd.cu",
+                       "kStages = 2;   // dkdv: ring stages",
+                       "kStages = 3;   // dkdv: ring stages")],
+    "dq_2_stages": [("attention_bwd.cu", "kStages = 3;   // dq: ring stages",
+                     "kStages = 2;   // dq: ring stages")],
+    "fwd_4_stages": [("attention_fwd.cu",
+                      "kStages = DP > 80 ? 2 : 3;   // fwd: ring stages",
+                      "kStages = DP > 80 ? 2 : 4;   // fwd: ring stages")],
+    "fwd_bn_64": [("attention_fwd.cu",
+                   "static constexpr int BN = 128;   // keys of a KV tile",
+                   "static constexpr int BN = 64;   // keys of a KV tile")],
+    # cut-downs (wrong results, timed to see what holds the kernels): the
+    # forward without its exponentials, without O += P v, without S
+    "cut_fwd_exp": [("attention_fwd.cu",
+                     "exp2_approx(fmaf(sc[j][x], c, -mu[x >> 1]))",
+                     "fmaf(sc[j][x], c, -mu[x >> 1])")],
+    "cut_fwd_pv": [("attention_fwd.cu",
+                    "mma_cols<KS, DP, BN>(acc, pa, saddr(sm.v[st]));", "")],
+    "cut_fwd_s": [("attention_fwd.cu", "mma_rows<BN, DP, BM, BN>(sc, "
+                   "saddr(sm.q), 64 * wg, saddr(sm.k[st]), 0);", "")],
+    "cut_dq_exp": [("attention_bwd.cu",
+                    "exp2_approx(p[j][x] * s.scale_log2 - l2[r])",
+                    "(p[j][x] * s.scale_log2 - l2[r])")],
+    "cut_dq_dq": [("attention_bwd.cu",
+                   "mma_cols<KS, DP, BN>(dQ, da, saddr(sm.k[n % kStages]));",
+                   "")]}
 
 
 def build_variants(jobs: dict) -> dict:
@@ -78,23 +104,24 @@ def build_variants(jobs: dict) -> dict:
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"variant {tag} {lib}: nvcc failed\n{log}")
-        regs = sorted({ln.split("Used ")[1].split(",")[0]
-                       for ln in log.splitlines() if "Used " in ln})
-        cs.log(f"variant {tag} {lib}: ptxas {', '.join(regs)}")
+        spills = sorted({ln.strip() for ln in log.splitlines()
+                         if "spill stores" in ln and not ln.strip()
+                         .startswith("0 bytes stack")})
+        cs.log(f"variant {tag} {lib}: ptxas spills {spills or 'none'}")
         libs.setdefault(tag, {})[lib] = ctypes.CDLL(str(so))
     return libs
 
 
-def variants(tags: list, against: str | None) -> None:
-    """The package and the variants `tags` (and the sources in `against`)
-    at danube's I1 layer (bf16)."""
+def variants(tags: list, against: list) -> None:
+    """The package and the variants `tags` (and the sources in each
+    directory of `against`) at danube's I1 layer (bf16)."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.attention import ops
     csrc = ROOT / "src/repro_torch/kernels/attention/csrc"
     jobs = {tag: (csrc, VARIANTS[tag]) for tag in tags}
-    if against:
-        jobs["against"] = (Path(against), [])
+    for path in against:
+        jobs[f"against_{Path(path).name}"] = (Path(path), [])
     libs = build_variants(jobs)
     package = {n: _build.library(n) for n in ("attention_fwd",
                                                "attention_bwd")}
@@ -126,6 +153,30 @@ def variants(tags: list, against: str | None) -> None:
                f"{gap:.3e})")
     _build._LIBS.update(package)
     ops._FNS.clear()
+
+
+def split() -> None:
+    """Device time of each kernel of one forward and one backward at
+    danube's I1 layer (torch.profiler, by kernel name)."""
+    import torch
+    from repro_torch.kernels.attention import ops
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn((1, 4096, 32, 80), device="cuda", generator=gen)
+    k, v = (torch.randn((1, 4096, 8, 80), device="cuda", generator=gen)
+            for _ in range(2))
+    g = 0.1 * torch.randn(q.shape, device="cuda", generator=gen)
+    q, k, v, g = (t.bfloat16() for t in (q, k, v, g))
+    spec = ops._Spec(True, 4096, 0, 4096)
+    with torch.no_grad():
+        o, lse = ops._forward(q, k, v, spec)
+
+        def both():
+            ops._forward(q, k, v, spec)
+            ops._backward(q, k, v, o, lse, g, spec)
+        by_kernel = cs.device_time_by_kernel(both, calls=cs.ATTN_REPS)
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        cs.log(f"[{cs.CARD}] danube I1 split: {us / 1e3:8.4f} ms a call  "
+               f"{name[:90]}")
 
 
 def shapes() -> None:
@@ -164,15 +215,16 @@ def main() -> int:
                     choices=sorted(VARIANTS), metavar="TAG",
                     help="also time patched copies of the kernels (all "
                     "VARIANTS when no tag is named)")
-    ap.add_argument("--against", default=None, metavar="DIR",
-                    help="also time the attention sources in DIR")
+    ap.add_argument("--against", nargs="+", default=[], metavar="DIR",
+                    help="also time the attention sources in each DIR")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("attention_probe: needs a CUDA card", file=sys.stderr)
         return 2
     cs.phase_device()
-    cs.compare_attention()
+    cs.compare_attention()      # logs ptxas, "Performance Loss" lines too
+    split()
     if args.shapes:
         shapes()
     if args.variants is not None or args.against:

@@ -30,7 +30,8 @@ Kernels:
   attention     — LM attention: a fused forward (`attention_forward`) and
                   FlashAttention-2's deterministic backward
                   (`attention_backward`), on prefill and every LM training
-                  step
+                  step; each also counted by route (`_wgmma` for bf16,
+                  `_ffma` for f32)
 
 `launch_counts()` reads every kernel's launch counter, by the names above
 (one list for chip_smoke.py and the dry-run); `reset_launch_counts()` sets
@@ -67,7 +68,9 @@ def launch_counts() -> dict:
             "adamw_step": adamw.step_launches(),
             "sum_squares": adamw.norm_launches(),
             "attention_forward": attention.forward_launches(),
-            "attention_backward": attention.backward_launches()}
+            "attention_backward": attention.backward_launches(),
+            **{f"attention_{k}": n
+               for k, n in attention.launches_by_route().items()}}
 
 
 def reset_launch_counts() -> None:

@@ -1,16 +1,14 @@
 // Shared pieces of the attention kernels (attention_fwd.cu, attention_bwd.cu):
-// the call's shape, the reference's masking rule, the tile loads and the
-// warp-level products.
+// the call's shape, the reference's masking rule, and the f32 path's tile
+// loads and products. The bf16 path's Hopper pieces (TMA, mbarriers,
+// wgmma) are in attention_sm90.cuh.
 //
 // Layout. q [B, Sq, H, Dh], k and v [B, Sk, Hkv, Dh], read in place from
 // their (batch, sequence, head) strides; the last dimension is contiguous.
-// A tile of rows lands in shared memory as [rows][LD] with LD = DP + 16
-// bytes of padding, DP the head dimension rounded up to the kernel's width
-// (16, 64, 80 or 128). The columns [Dh, DP) are zero, so they add exactly
-// nothing to any product, and the 16 extra bytes a row put the eight rows
-// an ldmatrix reads on eight different bank groups (a row is an odd number
-// of 16-byte pieces). Danube's 160-byte bf16 rows (Dh 80) need no swizzle:
-// they come by cp.async into 176-byte rows.
+// An f32 tile of rows lands in shared memory as [rows][LD] with LD = DP +
+// 16 bytes of padding, DP the head dimension rounded up to the kernel's
+// width (16, 64, 80 or 128), by cp.async. The columns [Dh, DP) are zero,
+// so they add exactly nothing to any product.
 //
 // Masking, as the reference's `chunked_attention` (src/repro/models/
 // layers.py:132-163): query row i sits at position qp = q_offset + i and
@@ -22,17 +20,14 @@
 // count, so the kernels give it the scores 0 over [0, Sk), the normalizer
 // n_k k_chunk (`dead_norm`) and no dQ or dK.
 //
-// Products. bf16 runs on the tensor cores (mma.sync m16n8k16, f32
-// accumulators): operands from shared memory by ldmatrix, or, for the
-// second product of a pair (P V, P^T dO, dS^T Q, dS K), from the f32
-// accumulators of the first, rounded to bf16 in registers as the
-// reference rounds p (`p.astype(v.dtype)`) and ds. f32 runs as FFMA in
-// the same fragment layout: thread (g, t) of a warp (g = lane / 4, t =
-// lane % 4) holds rows g and g + 8 and columns 8j + 2t, 8j + 2t + 1 of
-// each 8-column tile, summing k in order; the second product's operand
-// goes through a per-warp scratch tile in shared memory. No atomics
-// anywhere: every output element is summed by one thread in a fixed
-// order, so every call gives the same bits.
+// Products. bf16 runs on wgmma (attention_sm90.cuh). f32 runs as FFMA
+// (the float32 gates' 1e-5 is past TF32's reach) in the fragment layout
+// of a 16-row warp tile: thread (g, t) of a warp (g = lane / 4, t = lane %
+// 4) holds rows g and g + 8 and columns 8j + 2t, 8j + 2t + 1 of each
+// 8-column tile, summing k in order; the second product of a pair (P V,
+// P^T dO, dS^T Q, dS K) takes its operand through a per-warp scratch tile
+// in shared memory. No atomics anywhere: every output element is summed by
+// one thread in a fixed order, so every call gives the same bits.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,8 +43,8 @@ typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBM = 64;   // query rows of a forward or dQ block, 16 a warp
-constexpr int kBN = 64;   // keys of a KV tile (of a dK/dV block, 16 a warp)
+constexpr int kBM = 64;   // f32: query rows of a forward or dQ block, 16 a warp
+constexpr int kBN = 64;   // f32: keys of a KV tile (of a dK/dV block, 16 a warp)
 
 // The call, from the wrapper's int64 array (see `make_shape`).
 struct Shape {
@@ -116,14 +111,14 @@ __device__ __forceinline__ void key_range(const Shape& s, int i0, int i1,
 }
 
 // Every row of [i0, i1] (i1 the last row below Sq) sees every key of
-// [c0, c0 + kBN), so the tile needs no mask (most tiles of a long causal
+// [c0, c0 + n), so the tile needs no mask (most tiles of a long causal
 // sequence). Rows past Sq in the tile are zeros from the loads, with a
 // log-sum-exp and D of 0: unmasked they add exactly 0 to every sum whose
 // result is kept.
 __device__ __forceinline__ bool tile_full(const Shape& s, int i0, int i1,
-                                          int c0) {
+                                          int c0, int n = kBN) {
   const Row a = row_keys(s, i0), b = row_keys(s, i1);
-  return !a.dead && !b.dead && c0 >= b.lo && c0 + kBN <= a.hi;
+  return !a.dead && !b.dead && c0 >= b.lo && c0 + n <= a.hi;
 }
 
 // ---------------------------------------------------------------- loads --
@@ -188,8 +183,6 @@ template <typename T>
 __device__ __forceinline__ T zero();
 template <>
 __device__ __forceinline__ float zero<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ bf16 zero<bf16>() { return __float2bfloat16(0.f); }
 
 // Zero the columns [Dh, DP) of `rows` rows: written once, never loaded over.
 template <typename T, int DP>
@@ -256,89 +249,9 @@ __device__ __forceinline__ void store_rows(T* out, int64_t rs, int row0,
 
 // ------------------------------------------------------------ products --
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// B's two 8-column tiles 2jp, 2jp + 1 of the 16-deep step ks: B stored
-// [n][k] (BKN false: ldmatrix) or [k][n] (BKN true: ldmatrix.trans).
-template <bool BKN>
-__device__ __forceinline__ void load_b(uint32_t (&b)[4], const bf16* sB,
-                                       int ldb, int ks, int jp, int lane) {
-  if (BKN) {
-    ldsm_x4_t(b, sB + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb
-                     + jp * 16 + (lane >> 4) * 8);
-  } else {
-    ldsm_x4(b, sB + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * ldb
-                   + ks * 16 + ((lane >> 3) & 1) * 8);
-  }
-}
-
-// acc[NT][4] += A B, A [16 x 16 KS] row-major at sA, B [16 KS x 8 NT].
-template <int NT, int KS, bool BKN>
-__device__ __forceinline__ void mma_ss(float (&acc)[NT][4], const bf16* sA,
-                                       int lda, const bf16* sB, int ldb,
-                                       int lane) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    uint32_t a[4];
-    ldsm_x4(a, sA + (lane & 15) * lda + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      uint32_t b[4];
-      load_b<BKN>(b, sB, ldb, ks, jp, lane);
-      mma16816(acc[2 * jp], a, b[0], b[1]);
-      mma16816(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[NT][4] += A B with A [16 x 16 KS] the f32 fragments c of an earlier
-// product, rounded to bf16 here (the scratch tile is the f32 path's).
-template <int NT, int KS, bool BKN>
-__device__ __forceinline__ void mma_rs(float (&acc)[NT][4],
-                                       const float (&c)[2 * KS][4],
-                                       const bf16* sB, int ldb, float*,
-                                       int lane) {
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const uint32_t a[4] = {pack_bf16(c[2 * ks][0], c[2 * ks][1]),
-                           pack_bf16(c[2 * ks][2], c[2 * ks][3]),
-                           pack_bf16(c[2 * ks + 1][0], c[2 * ks + 1][1]),
-                           pack_bf16(c[2 * ks + 1][2], c[2 * ks + 1][3])};
-#pragma unroll
-    for (int jp = 0; jp < NT / 2; ++jp) {
-      uint32_t b[4];
-      load_b<BKN>(b, sB, ldb, ks, jp, lane);
-      mma16816(acc[2 * jp], a, b[0], b[1]);
-      mma16816(acc[2 * jp + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 // The f32 forms: FFMA in the same fragment layout, k summed in order.

@@ -144,15 +144,25 @@ class TestRouting:
         assert out.shape == q.shape and out.dtype == dtype
         assert q.grad.shape == q.shape and k.grad.shape == k.shape
         assert set(seen) == {"attention_forward", "attention_backward"}
+        # (query, key) pairs a head of the tiles each pass computes
+        # (ops.tiles): bf16 one 128 x 128 forward tile, two 64-row steps
+        # against one block of 128 keys, one 128-row block against two
+        # 64-key tiles; f32 64 x 64 tiles, rows 0-63 against one, rows
+        # 64-99 (keys 25-99 under the window) against two
+        fwd, dkdv, dq = {torch.bfloat16: (128 * 128, 2 * 64 * 128,
+                                          2 * 128 * 64),
+                         torch.float32: (3 * 64 * 64,) * 3}[dtype]
         spec = ops._Spec(True, 40, 0, 512)
-        pairs = ops.tile_pairs(100, 100, spec, ops.TILE)
+        t = ops.tiles(dtype, 80)
+        assert (ops.tile_pairs(100, 100, spec, *t.fwd),
+                ops.tile_pairs(100, 100, spec, *t.dkdv),
+                ops.tile_pairs(100, 100, spec, *t.dq)) == (fwd, dkdv, dq)
         es = q.element_size()
         assert seen["attention_forward"] == (
-            4 * 80 * pairs * 2 * 8,
+            4 * 80 * fwd * 2 * 8,
             (2 * q.numel() + 2 * k.numel()) * es + 4 * 2 * 8 * 100)
         flops, moved = seen["attention_backward"]
-        assert flops == 2 * 80 * 2 * 8 * (
-            4 * ops.tile_pairs(100, 100, spec, 64) + 3 * pairs)
+        assert flops == 2 * 80 * 2 * 8 * (4 * dkdv + 3 * dq)
         assert moved > seen["attention_forward"][1]
         assert launch_counts()["attention_forward"] == 0
         assert launch_counts()["attention_backward"] == 0
@@ -179,6 +189,89 @@ class TestPairs:
         assert ops.tile_pairs(4096, 4096, spec, 64) == 64 * 65 // 2 * 64 * 64
         dead = ops._Spec(True, None, -10, 4096)
         assert ops.tile_pairs(64, 4096, dead, 64) == 64 * 4096
+
+    # the wgmma kernels' tiles (ops.tiles(bf16)): (query rows, keys)
+    WGMMA = {"fwd": (128, 128), "dkdv": (64, 128), "dq": (128, 64)}
+
+    @pytest.mark.parametrize("s", [1, 127, 128, 129, 300, 4097])
+    @pytest.mark.parametrize("part", sorted(WGMMA))
+    def test_causal_pairs_at_the_wgmma_tiles(self, part, s):
+        """Ragged Sq: every valid pair inside a visited tile, and no more
+        than the diagonal's one tile a query tile past it."""
+        rows, keys = self.WGMMA[part]
+        spec = ops._Spec(True, None, 0, 512)
+        got = ops.tile_pairs(s, s, spec, rows, keys)
+        assert got >= ops.valid_pairs(s, s)
+        assert got % (rows * keys) == 0
+        n_rows = -(-s // rows)
+        full = sum(-(-min(i0 + rows, s) // keys) for i0 in range(0, s,
+                                                                 rows))
+        assert got == full * rows * keys and full <= n_rows * (
+            -(-s // keys))
+
+    @pytest.mark.parametrize("part", sorted(WGMMA))
+    def test_wgmma_tiles_at_4096(self, part):
+        """Causal at 4,096: query tile i sees the key tiles up to its last
+        row (the forward's 32 x 33 / 2 tiles of 128 x 128); with dead
+        rows every key tile of their query tile."""
+        rows, keys = self.WGMMA[part]
+        spec = ops._Spec(True, None, 0, 4096)
+        want = sum(-(-(i + 1) * rows // keys)
+                   for i in range(4096 // rows)) * rows * keys
+        assert ops.tile_pairs(4096, 4096, spec, rows, keys) == want
+        if part == "fwd":
+            assert want == 32 * 33 // 2 * 128 * 128
+        dead = ops._Spec(True, None, -10, 4096)
+        assert ops.tile_pairs(rows, 4096, dead, rows, keys) == rows * 4096
+
+    @pytest.mark.parametrize("part", sorted(WGMMA))
+    def test_wgmma_tiles_under_a_window_and_offset(self, part):
+        """Danube-like window 100 over 1,000 keys, queries at 700..999:
+        only the key tiles each query tile's window reaches; dead rows
+        past the window (queries at 1,200..) take every key tile."""
+        rows, keys = self.WGMMA[part]
+        spec = ops._Spec(True, 100, 700, 1024)
+        want = 0
+        for i0 in range(0, 300, rows):
+            i1 = min(i0 + rows, 300) - 1
+            k0, k1 = max(0, 700 + i0 - 99), min(1000, 700 + i1 + 1)
+            want += (-(-k1 // keys) - k0 // keys) * rows * keys
+        assert ops.tile_pairs(300, 1000, spec, rows, keys) == want
+        assert want >= ops.valid_pairs(300, 1000, True, 100, 700)
+        dead = ops._Spec(True, 100, 1200, 1024)
+        assert ops.tile_pairs(50, 1000, dead, rows, keys) == \
+            -(-50 // rows) * rows * -(-1000 // keys) * keys
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("dh", [16, 64, 80, 128])
+    def test_tiles_match_the_sources(self, dtype, dh):
+        """ops.tiles states the constants of the kernels that run: the
+        wgmma structs (FwdTc, DkDvTc, DqTc) for bf16, the FFMA tiles
+        (kBM, kBN, DkDv::BQ) for f32."""
+        import re
+        from pathlib import Path
+        csrc = Path(ops.__file__).parent / "csrc"
+        fwd = (csrc / "attention_fwd.cu").read_text()
+        bwd = (csrc / "attention_bwd.cu").read_text()
+
+        def const(text, struct, name):
+            body = text[text.index(f"struct {struct} {{"):]
+            return int(re.search(rf"int {name} = (\d+);", body).group(1))
+        t = ops.tiles(dtype, dh)
+        if dtype == torch.bfloat16:
+            assert t.fwd == (const(fwd, "FwdTc", "BM"),
+                             const(fwd, "FwdTc", "BN"))
+            assert t.dkdv == (const(bwd, "DkDvTc", "BQ"),
+                              const(bwd, "DkDvTc", "BK"))
+            assert t.dq == (const(bwd, "DqTc", "BM"), const(bwd, "DqTc", "BN"))
+        else:
+            common = (csrc / "attention_common.cuh").read_text()
+            bm = int(re.search(r"int kBM = (\d+);", common).group(1))
+            bn = int(re.search(r"int kBN = (\d+);", common).group(1))
+            bq = re.search(r"int BQ = DP > 80 \? (\d+) : (\d+);",
+                           bwd).groups()
+            assert t.fwd == t.dq == (bm, bn)
+            assert t.dkdv == (int(bq[0] if dh > 80 else bq[1]), bn)
 
 
 class TestChecks:

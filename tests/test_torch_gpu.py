@@ -2003,6 +2003,122 @@ class TestAttentionOnCard:
                              window=9)
         assert torch.equal(got, want)
 
+    @pytest.mark.parametrize("dh", [8, 16, 64, 72, 80, 96, 128])
+    def test_wgmma_descriptors_on_one_tile(self, cuda, dh):
+        """The bf16 kernels' shared-memory views (attention_sm90.cuh) on one
+        tile each against torch.matmul: K-major A and B (S = a b^T, a
+        warpgroup's second 64 rows, N 128 and 64), MN-major B (O =
+        bf16(S) v over a 128-row and a 64-row tile), the zero columns
+        [Dh, DP) adding nothing. f32 sums of bf16 products in another
+        order: 1e-3 of the largest |S| and |O|."""
+        from repro_torch.kernels.attention.ops import descriptor_check
+        gen = torch.Generator(device=cuda).manual_seed(dh)
+        a, b, v = (torch.randn((128, dh), device=cuda, generator=gen)
+                   .bfloat16() for _ in range(3))
+        s, o = descriptor_check(a, b, v)
+        torch.cuda.synchronize()
+        dp = o.shape[1] // 2
+        want_s = torch.cat([a[64:].float() @ b.float().T,
+                            a[64:].float() @ b[:64].float().T], 1)
+        torch.testing.assert_close(s, want_s, rtol=0,
+                                   atol=1e-3 * float(want_s.abs().max()))
+        for got, p, vv in ((o[:, :dh], s[:, :128], v),
+                           (o[:, dp:dp + dh], s[:, 128:], v[:64])):
+            want = p.bfloat16().float() @ vv.float()
+            torch.testing.assert_close(got, want, rtol=0,
+                                       atol=1e-3 * float(want.abs().max()))
+        assert not o[:, dh:dp].any() and not o[:, dp + dh:].any()
+
+    @pytest.mark.parametrize("shape", [(129, 257), (255, 128), (128, 383),
+                                       (1, 130)])
+    @pytest.mark.parametrize("dh", [16, 64, 80, 128])
+    def test_ragged_lengths_past_the_wgmma_tiles(self, cuda, dh, shape):
+        """Sq and Sk off the 128-row / 128-key tiles (and 64-key dQ
+        tiles): partial tiles read as zeros past the sequence by TMA."""
+        sq, sk = shape
+        self._case(cuda, torch.bfloat16, dh, 4, sq, sk,
+                   dict(causal=True, q_offset=sk - sq), seed=sq + sk)
+
+    @pytest.mark.parametrize("mask", sorted(MASKS))
+    @pytest.mark.parametrize("dh", [16, 64, 128])
+    def test_masks_at_the_other_wgmma_widths(self, cuda, dh, mask):
+        """Windows, offsets and dead rows at DP 16, 64 and 128 (DP 80 in
+        test_masks)."""
+        c = self.MASKS[mask]
+        self._case(cuda, torch.bfloat16, dh, 1 if dh == 128 else 4, c["sq"],
+                   c["sk"], c["kw"], seed=dh + len(mask))
+
+    def test_launches_by_route(self, cuda):
+        """bf16 calls count on the wgmma route, f32 calls on FFMA, each
+        once beside the totals."""
+        from repro_torch.kernels import launch_counts, reset_launch_counts
+        from repro_torch.kernels.attention.ops import attention
+        for dtype, route in ((torch.bfloat16, "wgmma"),
+                             (torch.float32, "ffma")):
+            q = torch.randn((1, 70, 4, 64), device=cuda, dtype=dtype,
+                            requires_grad=True)
+            k = torch.randn((1, 70, 2, 64), device=cuda, dtype=dtype,
+                            requires_grad=True)
+            reset_launch_counts()
+            attention(q, k, k).float().sum().backward()
+            n = launch_counts()
+            other = "ffma" if route == "wgmma" else "wgmma"
+            assert n["attention_forward"] == n[
+                f"attention_forward_{route}"] == 1
+            assert n["attention_backward"] == n[
+                f"attention_backward_{route}"] == 1
+            assert n[f"attention_forward_{other}"] == 0
+            assert n[f"attention_backward_{other}"] == 0
+
+    def test_bf16_views_tma_cannot_read_are_copied(self, cuda):
+        """A bf16 q whose base sits 2 bytes off the 16-byte boundary and a k
+        whose head stride is 81 elements (162 bytes): each copied once and
+        counted, the same bits as contiguous inputs; a view of every other
+        head (strides of 16-byte multiples) is read in place."""
+        from repro_torch.kernels.attention import ops
+        gen = torch.Generator(device=cuda).manual_seed(4)
+        wide = torch.randn((1, 90, 4, 81), device=cuda,
+                           generator=gen).bfloat16()
+        q = wide[..., 1:]                       # base + 2 bytes
+        k = torch.randn((1, 90, 2, 81), device=cuda,
+                        generator=gen).bfloat16()[..., :80]
+        v = torch.randn((1, 90, 4, 80), device=cuda,
+                        generator=gen).bfloat16()[:, :, ::2]
+        assert not ops._tma_ok(q) and not ops._tma_ok(k) and ops._tma_ok(v)
+        ops.reset_launches()
+        got = ops.attention(q, k, v, window=30)
+        assert ops.contiguous_copies() == 2
+        want = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                             window=30)
+        assert torch.equal(got, want)
+
+    def test_backward_first_on_autograd_thread(self, cuda, tmp_path):
+        """In a new process, the attention backward as the first CUDA work
+        of autograd's engine thread (grad_outputs given, nothing before it
+        on that thread): the tensor maps' encoder finds the device's
+        context bound (`bind_device`) and the backward runs."""
+        import os
+        import subprocess
+        import sys
+        code = (
+            "import torch\n"
+            "from repro_torch.kernels.attention.ops import attention\n"
+            "g = torch.Generator(device='cuda').manual_seed(0)\n"
+            "q, k, v = (torch.randn((1, 256, 4, 80), device='cuda', "
+            "generator=g).bfloat16().requires_grad_(True) for _ in "
+            "range(3))\n"
+            "out = attention(q, k, v)\n"
+            "ct = torch.randn_like(out)\n"
+            "dq, dk, dv = torch.autograd.grad(out, (q, k, v), ct)\n"
+            "torch.cuda.synchronize()\n"
+            "assert all(torch.isfinite(x).all() for x in (dq, dk, dv))\n"
+            "print('ok')\n")
+        root = Path(__file__).resolve().parents[1]
+        env = dict(os.environ, PYTHONPATH=str(root / "src"))
+        res = subprocess.run([sys.executable, "-c", code], env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0 and "ok" in res.stdout, res.stderr[-2000:]
+
     def test_float64_on_card_takes_the_plain_version(self, cuda):
         from repro_torch.kernels import launch_counts, reset_launch_counts
         from repro_torch.models.layers import chunked_attention
